@@ -1,0 +1,82 @@
+"""Spatial self-attention over (B, N, heads, D) tokens.
+
+Counterpart: diffsplitting_tpu/ops/attention.py (`attention_reference`,
+`fused_attention` with its custom VJP; the Pallas `_kernel`).
+
+`fused_attention` launches the CUDA kernel of csrc/attention.cu for CUDA
+tensors and runs the plain version for CPU tensors. Backward runs autograd
+through the plain version, as the JAX custom VJP does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.build import check, library
+
+KERNEL_HEAD_DIM = 128
+KERNEL_TILE = 64
+
+
+def attention_reference(q, k, v, scale: float):
+    """Plain version: q, k, v (B, N, H, D) -> (B, N, H, D); f32 scores and
+    softmax over keys, scores scaled by `scale`."""
+    attn = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    attn = attn.softmax(dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", attn.to(q.dtype), v)
+
+
+def _launch(q, k, v, scale: float):
+    """Run csrc/attention.cu on CUDA tensors; raises on what it does not take."""
+    B, N, H, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
+    if D != KERNEL_HEAD_DIM:
+        raise ValueError(f"attention kernel takes head dim {KERNEL_HEAD_DIM}, got {D}")
+    if N % KERNEL_TILE:
+        raise ValueError(f"attention kernel takes N a multiple of {KERNEL_TILE}, got {N}")
+    if not all(t.dtype == torch.float32 for t in (q, k, v)):
+        raise TypeError("attention kernel takes float32")
+    strides = q.stride()
+    if k.stride() != strides or v.stride() != strides or strides[3] != 1:
+        raise ValueError("attention kernel takes q, k, v with one set of strides "
+                         "and a unit stride on the head dim")
+    if any(s % 4 for s in strides[:3]) or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("attention kernel needs 16-byte aligned rows")
+    out = torch.empty((B, N, H, D), device=q.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = library().attention_f32_d128(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H,
+        strides[0], strides[1], strides[2], float(scale), stream)
+    check(err, "attention_f32_d128")
+    FusedAttention.launches += 1
+    return out
+
+
+class FusedAttention(torch.autograd.Function):
+    """Forward: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors. Backward: autograd through the plain version."""
+
+    launches = 0  # kernel launches, counted by _launch
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        if q.is_cuda:
+            return _launch(q, k, v, scale)
+        return attention_reference(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention_reference(*args, ctx.scale)
+        gq, gk, gv = torch.autograd.grad(out, args, g)
+        return gq, gk, gv, None
+
+
+def fused_attention(q, k, v, scale: float):
+    """(B, N, heads, D) attention; see FusedAttention."""
+    return FusedAttention.apply(q, k, v, scale)

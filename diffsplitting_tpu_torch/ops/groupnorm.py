@@ -1,0 +1,109 @@
+"""Fused GroupNorm(+affine)+Swish over NHWC activations.
+
+Counterparts: diffsplitting_tpu/ops/groupnorm.py (`group_norm_swish_reference`,
+`fused_group_norm_swish` with its custom VJP) and
+diffsplitting_tpu/experimental/groupnorm_pallas.py (the Pallas kernels).
+
+`fused_group_norm_swish` launches the CUDA kernel of csrc/groupnorm_swish.cu
+for a CUDA tensor and runs the plain version for a CPU tensor. Backward runs
+autograd through the plain version, as the JAX custom VJP recomputes through
+its jnp reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.build import check, library
+
+
+def group_norm_swish_reference(x, scale, bias, num_groups: int, eps: float = 1e-5):
+    """Plain version: NHWC GroupNorm (contiguous channel groups, statistics
+    over (H, W, C/G) per sample from f32 sums of x and x², the variance
+    clamped at 0), then scale/bias, then swish. Returns x.dtype."""
+    B, H, W, C = x.shape
+    G = num_groups
+    cs = C // G
+    xf = x.float()
+    s = xf.sum(dim=(1, 2))  # (B, C)
+    ss = (xf * xf).sum(dim=(1, 2))  # f32 before squaring
+    n = H * W * cs
+    gmean = s.view(B, G, cs).sum(-1) / n  # (B, G)
+    gsq = ss.view(B, G, cs).sum(-1) / n
+    gvar = torch.clamp(gsq - gmean * gmean, min=0.0)  # fp cancellation guard
+    mean_c = gmean.repeat_interleave(cs, dim=-1)  # (B, C)
+    inv_c = torch.rsqrt(gvar + eps).repeat_interleave(cs, dim=-1)
+    norm = (xf - mean_c[:, None, None, :]) * inv_c[:, None, None, :]
+    norm = norm * scale + bias
+    return (norm * torch.sigmoid(norm)).to(x.dtype)
+
+
+# per-block share of x in pass 1 and 2 (f32 elements), and the most partial
+# rows a pass-2 block folds
+_ELEMS_PER_BLOCK = 32768
+_MAX_CHUNKS = 64
+
+
+def _chunking(hw: int, C: int):
+    chunks = max(1, min(_MAX_CHUNKS, hw * C // _ELEMS_PER_BLOCK))
+    rows = -(-hw // chunks)
+    return -(-hw // rows), rows
+
+
+def _launch(x, scale, bias, num_groups: int, eps: float):
+    """Run csrc/groupnorm_swish.cu on a CUDA tensor; raises on what it does
+    not take."""
+    B, H, W, C = x.shape
+    if x.dtype != torch.float32:
+        raise TypeError(f"group_norm_swish kernel takes float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("group_norm_swish kernel takes a contiguous NHWC tensor")
+    if C % 4 or C > 1024 or C % num_groups:
+        raise ValueError(f"group_norm_swish kernel: C={C} must be a multiple of 4 "
+                         f"and of num_groups={num_groups}, at most 1024")
+    if x.data_ptr() % 16:
+        raise ValueError("group_norm_swish kernel needs a 16-byte aligned tensor")
+    scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
+    bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    if scale.numel() != C or bias.numel() != C:
+        raise ValueError("scale and bias must have C elements")
+    hw = H * W
+    chunks, rows = _chunking(hw, C)
+    partials = torch.empty((B, chunks, 2, C), device=x.device, dtype=torch.float32)
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = library().gn_swish_f32(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), partials.data_ptr(),
+        y.data_ptr(), B, hw, C, num_groups, chunks, rows, float(eps), stream)
+    check(err, "gn_swish_f32")
+    FusedGroupNormSwish.launches += 1
+    return y
+
+
+class FusedGroupNormSwish(torch.autograd.Function):
+    """Forward: the CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor. Backward: autograd through the plain version."""
+
+    launches = 0  # kernel launches, counted by _launch
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        if x.is_cuda:
+            return _launch(x, scale, bias, num_groups, eps)
+        return group_norm_swish_reference(x, scale, bias, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_() for t in (x, scale, bias)]
+            y = group_norm_swish_reference(*args, ctx.num_groups, ctx.eps)
+        gx, gs, gb = torch.autograd.grad(y, args, g)
+        return gx, gs, gb, None, None
+
+
+def fused_group_norm_swish(x, scale, bias, num_groups: int, eps: float = 1e-5):
+    """NHWC GroupNorm+affine+Swish; see FusedGroupNormSwish."""
+    return FusedGroupNormSwish.apply(x, scale, bias, num_groups, eps)

@@ -1,0 +1,116 @@
+"""Serving surface for the splitting models (indi, joint_indi).
+
+Counterparts: diffsplitting_tpu/train/factory.py `define_generator` (config ->
+process and nets) and the serving part of
+diffsplitting_tpu/train/trainer.py `DiffusionModel` (`test`). The nets are
+held in the reference's diffusion-wrapper layout (`denoise_fn.*`, or
+`indi1.denoise_fn.*` / `indi2.denoise_fn.*` plus three scalars), so one
+`nets.load_state_dict(strict=True)` takes `utils.weights.state_dict_from_jax`, a
+reference `*_gen.pth` or the JAX package's export.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import torch
+from torch import nn
+
+from .device import resolve_device
+from .diffusion import InDIProcess, JointInDIProcess
+from .models import UNet
+
+
+class InDINet(nn.Module):
+    """The reference InDI wrapper's parameters: `denoise_fn.*`."""
+
+    def __init__(self, unet: UNet):
+        super().__init__()
+        self.denoise_fn = unet
+
+
+class JointInDINets(nn.Module):
+    """The reference joint-InDI wrapper's parameters: two InDI nets and the
+    logged-but-unused alpha/offset/scale scalars."""
+
+    def __init__(self, unet_kw: Mapping):
+        super().__init__()
+        self.indi1 = InDINet(UNet(**unet_kw))
+        self.indi2 = InDINet(UNet(**unet_kw))
+        self.alpha_param = nn.Parameter(torch.zeros(()))
+        self.offset_param = nn.Parameter(torch.zeros(()))
+        self.scale_param = nn.Parameter(torch.ones(()))
+
+
+def unet_kwargs(model_opt: Mapping) -> dict:
+    unet = model_opt["unet"]
+    return dict(
+        in_channel=unet["in_channel"],
+        out_channel=unet["out_channel"],
+        inner_channel=unet["inner_channel"],
+        norm_groups=unet.get("norm_groups") or 32,
+        channel_mults=tuple(unet["channel_multiplier"]),
+        attn_res=tuple(unet.get("attn_res") or ()),
+        res_blocks=unet["res_blocks"],
+        image_size=model_opt["diffusion"]["image_size"],
+        cond_type="time",
+    )
+
+
+def define_generator(opt: Mapping):
+    """Config -> (process, nets module) for indi and joint_indi."""
+    model_opt = opt["model"]
+    which = model_opt["which_model_G"]
+    if model_opt.get("compute_dtype") not in (None, "float32"):
+        raise NotImplementedError(f"compute_dtype={model_opt['compute_dtype']!r} is not ported; "
+                                  "the port computes in float32")
+    indi_opt = model_opt.get("indi") or {}
+    kw = dict(
+        out_channel=model_opt["unet"]["out_channel"],
+        e=indi_opt.get("e", 0.01),
+        noise_mode=indi_opt.get("noise_mode", "gaussian"),
+        num_timesteps=int(model_opt["beta_schedule"]["val"]["n_timestep"]),
+    )
+    if which == "indi":
+        return InDIProcess(**kw), InDINet(UNet(**unet_kwargs(model_opt)))
+    if which == "joint_indi":
+        return JointInDIProcess(**kw), JointInDINets(unet_kwargs(model_opt))
+    raise NotImplementedError(f"which_model_G={which!r} is not ported")
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights: orthogonal matrices and kernels (the JAX
+    package's initializer); norms, biases and scalars keep their defaults."""
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.ndim >= 2:
+                nn.init.orthogonal_(p, generator=generator)
+
+
+class SplittingModel:
+    """Builds the nets from a config (random weights from `seed` until a state
+    dict is loaded) and serves `test`."""
+
+    def __init__(self, opt: Mapping, device=None, seed: int = 0):
+        self.device = resolve_device(device)
+        self.which = opt["model"]["which_model_G"]
+        self.process, nets = define_generator(opt)
+        init_weights(nets, torch.Generator().manual_seed(seed))
+        self.nets = nets.to(self.device).eval()
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.t_float_start = 0.5 if self.which == "joint_indi" else 1.0
+
+    def denoise_fns(self):
+        if self.which == "joint_indi":
+            return self.nets.indi1.denoise_fn, self.nets.indi2.denoise_fn
+        return (self.nets.denoise_fn,)
+
+    @torch.inference_mode()
+    def test(self, x_nhwc, t_float_start: Optional[float] = None,
+             num_timesteps: Optional[int] = None) -> torch.Tensor:
+        """Reverse process on an NHWC batch; returns an NHWC tensor on the
+        model's device (2 channels for joint_indi)."""
+        x = torch.as_tensor(x_nhwc, dtype=torch.float32).to(self.device)
+        t0 = self.t_float_start if t_float_start is None else t_float_start
+        return self.process.inference(*self.denoise_fns(), x, num_timesteps, t0,
+                                      generator=self.generator)

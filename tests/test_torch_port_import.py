@@ -1,0 +1,76 @@
+"""The port stands alone: it imports and runs with jax and the JAX package
+blocked, its sources import neither, and its entry points refuse to run
+without CUDA unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import diffsplitting_tpu_torch
+from diffsplitting_tpu_torch import resolve_device
+from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
+from diffsplitting_tpu_torch.serving import SplittingModel
+
+PKG = Path(diffsplitting_tpu_torch.__file__).resolve().parent
+ROOT = PKG.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "diffsplitting_tpu"}
+
+BLOCKED_RUN = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "diffsplitting_tpu"):
+    sys.modules[name] = None
+import pkgutil, importlib
+import diffsplitting_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+import torch
+from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
+from diffsplitting_tpu_torch.predict import predict_frames
+from diffsplitting_tpu_torch.serving import SplittingModel
+opt = dict_to_nonedict(load_json("configs/splitting_hagen_indi_joint.json"))
+opt["model"]["beta_schedule"]["val"]["n_timestep"] = 1
+model = SplittingModel(opt, device="cpu", seed=0)
+frames = torch.randn(1, 32, 32, 1, generator=torch.Generator().manual_seed(0))
+out = predict_frames(model, frames, patch=16, batch_size=8)
+assert out.shape == (1, 32, 32, 2) and torch.isfinite(out).all()
+print("OK")
+"""
+
+
+def test_package_imports_and_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", BLOCKED_RUN], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_sources_import_no_jax():
+    found = []
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [(path.name, n) for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not found
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+    opt = dict_to_nonedict(load_json(str(ROOT / "configs/splitting_hagen_indi_joint.json")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SplittingModel(opt)
