@@ -4,18 +4,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/, holds each kernel against its plain
-PyTorch version at the shapes the serving path gives it, then serves joint-InDI
+PyTorch version at the shapes the serving paths give it, then serves joint-InDI
 tiled splitting at full width (configs/splitting_hagen_indi_joint.json: patch
-512, batch 8, 3 steps, seeded random weights) on two synthetic 1024² frames
-and checks that every kernel of the path was launched, that the output is
-finite and of the right shape, and that it agrees with the same path run
-through the plain versions and, on a small input, with the port on the CPU.
+512, batch 8, 3 steps, seeded random weights) on two synthetic 1024² frames,
+twice: through the UNet's own forward (GroupNorm+Swish and attention kernels),
+and through the stat-carried fused forward (`fused=True`, as DSP_FUSED=1: the
+conv+GroupNorm kernel at every ResnetBlock and upsample conv, attention, and
+GroupNorm+Swish at the head). For each it checks that every kernel of the path
+was launched, that the output is finite and of the right shape, and that it
+agrees with the same path run through the plain versions (or with the
+unfused slice) and, on a small input, with the port on the CPU.
 
 Every phase raises on failure, so the script exits non-zero with no result
 line. It prints the card's name and power limit, per-kernel times beside
-their bounds, the slice's tiles/s and peak memory, a device-time breakdown of
-one slice run (torch.profiler), one JSON line of kernels and, last, the
-device line.
+their bounds, each slice's tiles/s and peak memory, a device-time breakdown of
+one run of each slice (torch.profiler), one JSON line of kernels and, last,
+the device line.
 TF32 is off throughout, so the convolutions, matmuls and kernels all compute
 in float32.
 """
@@ -67,17 +71,25 @@ def max_err(got, want) -> float:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the UNet blocks through the kernels' plain versions."""
-    from diffsplitting_tpu_torch.models import blocks
-    from diffsplitting_tpu_torch.ops import attention_reference, group_norm_swish_reference
+    """Route the UNet blocks and the fused walk through the kernels' plain
+    versions."""
+    from diffsplitting_tpu_torch.models import blocks, fused_forward
+    from diffsplitting_tpu_torch.ops import (attention_reference, conv_gn_reference,
+                                             group_norm_swish_reference)
 
-    saved = blocks.fused_group_norm_swish, blocks.fused_attention
-    blocks.fused_group_norm_swish = group_norm_swish_reference
-    blocks.fused_attention = attention_reference
+    swaps = [(blocks, "fused_group_norm_swish", group_norm_swish_reference),
+             (blocks, "fused_attention", attention_reference),
+             (fused_forward, "fused_group_norm_swish", group_norm_swish_reference),
+             (fused_forward, "fused_attention", attention_reference),
+             (fused_forward, "conv_gn_fused", conv_gn_reference)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        blocks.fused_group_norm_swish, blocks.fused_attention = saved
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
 def gn_shapes(net, x, t):
@@ -178,10 +190,112 @@ def phase_attention(dev, batches):
     return res, worst
 
 
-def phase_small_reference(opt):
+def conv_gn_sites(net, x, t):
+    """(H, W, Cin, Cout, prologue, residual, Cres) -> count of conv_gn calls in
+    one fused forward of net; residual is None, "identity" or "projected"."""
+    from diffsplitting_tpu_torch.models import fused_forward
+
+    counts = collections.Counter()
+    kernel = fused_forward.conv_gn_fused
+
+    def record(x, w, b, scale=None, shift=None, residual=None, w_skip=None):
+        mode = None if residual is None else "identity" if w_skip is None else "projected"
+        counts.update([(x.shape[1], x.shape[2], x.shape[3], w.shape[3], scale is not None,
+                        mode, 0 if residual is None else residual.shape[3])])
+        return kernel(x, w, b, scale, shift, residual, w_skip)
+
+    fused_forward.conv_gn_fused = record
+    try:
+        fused_forward.fused_unet_forward(net, x, t)
+    finally:
+        fused_forward.conv_gn_fused = kernel
+    return counts
+
+
+def phase_conv_gn(dev, sites):
+    """conv_gn kernel vs plain version at every site of one fused forward,
+    batch 8. The library time is cuDNN's F.conv2d on the already-activated
+    input (plus the 1x1 F.conv2d of a projected residual): the convolution
+    work the kernel replaces, without its prologue, residual add and
+    statistics passes."""
+    import torch
+    import torch.nn.functional as F
+    from diffsplitting_tpu_torch.ops import conv_gn_fused, conv_gn_reference
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, gflop=0.0, gflop_taps=0.0,
+               gbytes=0.0)
+    worst = 0.0
+    for (H, W, Cin, Cout, act, res, Cres), calls in sorted(sites.items(), key=str):
+        rand = lambda *shape: torch.randn(*shape, device=dev, generator=g)  # noqa: E731
+        x = rand(BATCH, H, W, Cin)
+        # the weights as the walk passes them: views of OIHW parameters
+        w = (rand(Cout, Cin, 3, 3) / math.sqrt(9 * Cin)).permute(2, 3, 1, 0)
+        b = rand(Cout) * 0.1
+        scale = rand(BATCH, Cin) * 0.2 + 1 if act else None
+        shift = rand(BATCH, Cin) * 0.5 if act else None
+        r = rand(BATCH, H, W, Cres) if res else None
+        w_skip = (rand(Cout, Cres) / math.sqrt(Cres)).t() if res == "projected" else None
+        args = (x, w, b, scale, shift, r, w_skip)
+        y, s, q = conv_gn_fused(*args)
+        y_ref, s_ref, q_ref = conv_gn_reference(*args)
+        torch.cuda.synchronize()
+        err = max_err(y, y_ref)
+        # f32 FMA on both sides; up to 9*256 + 256 terms a sum, in another order
+        tol = 1e-4 * (1 + y_ref.abs().max().item())
+        # the statistics sum H*W values a channel in another order
+        s_tol = 1e-5 * y_ref.abs().sum(dim=(1, 2)) + 1e-3
+        q_tol = 1e-5 * q_ref + 1e-3
+        if not (err <= tol and ((s - s_ref).abs() <= s_tol).all()
+                and ((q - q_ref).abs() <= q_tol).all()):
+            raise AssertionError(f"conv_gn H={H} Cin={Cin} Cout={Cout} act={act} res={res}: "
+                                 f"max abs err {err} (tol {tol}), sums err "
+                                 f"{max_err(s, s_ref)}, sumsqs err {max_err(q, q_ref)}")
+        worst = max(worst, err)
+        del y, y_ref, s, q, s_ref, q_ref
+        ms = time_ms(lambda: conv_gn_fused(*args), 10)
+        plain = time_ms(lambda: conv_gn_reference(*args), 3)
+        # cuDNN on the activated input, channels_last as the unfused path feeds it
+        xa = (x * scale[:, None, None, :] + shift[:, None, None, :]) if act else x
+        xa = F.silu(xa).permute(0, 3, 1, 2) if act else xa.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1)
+        r_nchw = r.permute(0, 3, 1, 2) if r is not None else None
+        ws_oihw = w_skip.t()[:, :, None, None] if w_skip is not None else None
+
+        def library():
+            out = F.conv2d(xa, w_oihw, b, padding=1)
+            if ws_oihw is not None:
+                out = out + F.conv2d(r_nchw, ws_oihw)
+            return out
+
+        lib = time_ms(library, 5)
+        flops = 2 * BATCH * H * W * (9 * Cin + (Cres if res == "projected" else 0)) * Cout
+        nbytes = 4 * BATCH * H * W * (Cin + Cout + Cres)
+        bound = max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        by = "operations" if flops / F32_FLOPS_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
+        log(f"conv_gn B={BATCH} H={H} W={W} Cin={Cin} Cout={Cout} prologue={act} residual={res} "
+            f"Cres={Cres} calls/forward={calls}: err {err:.3g} kernel {ms:.4f} ms plain "
+            f"{plain:.4f} ms library {lib:.4f} ms bound {bound:.4f} ms ({by}; "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of bound)")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("bound_ms", bound), ("gflop", flops / 1e9),
+                         ("gflop_taps", 2 * BATCH * H * W * 9 * Cin * Cout / 1e9),
+                         ("gbytes", nbytes / 1e9)):
+            tot[key] += calls * val
+        del x, xa, r, r_nchw, args
+        torch.cuda.empty_cache()
+    log(f"conv_gn per fused UNet forward ({sum(sites.values())} calls; library = cuDNN "
+        "F.conv2d on the activated input, + the 1x1 skip conv): "
+        + " ".join(f"{k} {v:.4f}" for k, v in tot.items())
+        + f" ({tot['gflop'] / tot['ms']:.1f} TFLOP/s)")
+    return tot, worst
+
+
+def phase_small_reference(opt, fused: bool = False):
     """The port on the card (kernels) against the port on the CPU (plain
     versions, the path the CPU tests hold against JAX) on a small noise-free
-    input: 1×128×128 frame, 64² patches (mid block at 8×8, N=64)."""
+    input: 1×128×128 frame, 64² patches (mid block at 8×8, N=64); through
+    the fused walk when `fused`."""
     import copy
 
     import torch
@@ -190,8 +304,8 @@ def phase_small_reference(opt):
 
     small = copy.deepcopy(opt)
     small["model"]["indi"]["noise_mode"] = "none"
-    cpu = SplittingModel(small, device="cpu", seed=3)
-    gpu = SplittingModel(small, device="cuda", seed=3)
+    cpu = SplittingModel(small, device="cpu", seed=3, fused=fused)
+    gpu = SplittingModel(small, device="cuda", seed=3, fused=fused)
     gpu.nets.load_state_dict(cpu.nets.state_dict())
     frames = torch.randn(1, 128, 128, 1, generator=torch.Generator().manual_seed(4))
     want = predict_frames(cpu, frames, 64, BATCH)
@@ -201,7 +315,8 @@ def phase_small_reference(opt):
     if not (got.shape == want.shape == (1, 128, 128, 2) and err <= tol):
         raise AssertionError(f"card vs CPU on a small input: shape {tuple(got.shape)}, "
                              f"max abs err {err} > {tol}")
-    log(f"small input (1x128x128, patch 64): card vs CPU max abs err {err:.3g} (tol {tol:.3g})")
+    log(f"small input (1x128x128, patch 64, fused={fused}): card vs CPU max abs err {err:.3g} "
+        f"(tol {tol:.3g})")
 
 
 def kernel_family(name: str) -> str:
@@ -209,6 +324,8 @@ def kernel_family(name: str) -> str:
         return "group_norm_swish kernel"
     if "attention_d128_kernel" in name:
         return "attention kernel"
+    if "conv_gn_kernel" in name or "conv_gn_stats_fold" in name:
+        return "conv_gn kernel"
     # cuDNN's f32 convolutions include FFT passes and NHWC<->NCHW transposes
     if any(s in name.lower() for s in ("conv", "xmma", "cudnn", "gemm", "fft", "cutlass",
                                        "pointwise_mult_and_sum_complex", "nhwctonchw",
@@ -217,7 +334,7 @@ def kernel_family(name: str) -> str:
     return "other (elementwise adds, concat, upsample, the attention block's group_norm)"
 
 
-def phase_profile(model, frames) -> None:
+def phase_profile(model, frames, fused: bool) -> None:
     """Device time of one slice run by kernel family (torch.profiler), and
     the device's idle share of the run's wall time (profiler on)."""
     import torch
@@ -227,7 +344,7 @@ def phase_profile(model, frames) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predict_frames(model, frames, PATCH, BATCH)
+        predict_frames(model, frames, PATCH, BATCH, fused=fused)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     fams, names = collections.Counter(), collections.Counter()
@@ -240,12 +357,65 @@ def phase_profile(model, frames) -> None:
     if not busy:
         log("profile: no device events recorded; breakdown not measured")
         return
-    log(f"profile (one slice run, profiler on): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
+    log(f"profile (one slice run, fused={fused}, profiler on): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
         f"idle share {1 - busy / wall_ms:.1%}")
     for fam, ms in fams.most_common():
         log(f"profile:   {fam}: {ms:.1f} ms ({ms / busy:.1%} of device time)")
     for name, ms in names.most_common(12):
         log(f"profile:     {ms:8.1f} ms  {name}")
+
+
+def reset_launches() -> None:
+    from diffsplitting_tpu_torch.ops import FusedAttention, FusedConvGN, FusedGroupNormSwish
+
+    for k in (FusedGroupNormSwish, FusedAttention, FusedConvGN):
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    from diffsplitting_tpu_torch.ops import FusedAttention, FusedConvGN, FusedGroupNormSwish
+
+    return {"group_norm_swish": FusedGroupNormSwish.launches,
+            "attention": FusedAttention.launches, "conv_gn": FusedConvGN.launches}
+
+
+def phase_slice(model, frames, fused: bool, expected: dict, n_tiles: int, forwards: int):
+    """Joint-InDI tiled prediction at full width: a warm-up run, then one run
+    with every launch count set to 0 just before and read just after, then
+    two more for the spread of the host-clock time. Returns the output, the
+    median tiles/s and the peak device memory of the counted run."""
+    import torch
+    from diffsplitting_tpu_torch.predict import predict_frames
+
+    model.generator.manual_seed(0)
+    predict_frames(model, frames, PATCH, BATCH, fused=fused)  # warm-up: plans, allocator
+    torch.cuda.synchronize()
+
+    model.generator.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = predict_frames(model, frames, PATCH, BATCH, fused=fused)
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != expected:
+        raise AssertionError(f"fused={fused}: launches {launches}, expected {expected}")
+    if tuple(out.shape) != FRAMES + (2,) or not torch.isfinite(out).all():
+        raise AssertionError(f"fused={fused}: slice output shape {tuple(out.shape)}, "
+                             f"finite {bool(torch.isfinite(out).all())}")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        predict_frames(model, frames, PATCH, BATCH, fused=fused)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    tiles_per_s = n_tiles / sorted(walls)[1]
+    log(f"slice fused={fused}: {FRAMES[0]} frames {FRAMES[1]}x{FRAMES[2]}, {n_tiles} tiles of "
+        f"{PATCH}², batch {BATCH}, {model.process.num_timesteps} steps, {forwards} UNet forwards: "
+        f"runs {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median {tiles_per_s:.2f} "
+        f"tiles/s, peak memory {peak / 2**30:.2f} GiB ({peak} bytes), launches {launches}")
+    return out, launches
 
 
 def main() -> int:
@@ -256,7 +426,7 @@ def main() -> int:
         return 1
     from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
     from diffsplitting_tpu_torch.kernels import build
-    from diffsplitting_tpu_torch.ops import FusedAttention, FusedGroupNormSwish
+    from diffsplitting_tpu_torch.models import fused_unet_forward
     from diffsplitting_tpu_torch.predict import predict_frames
     from diffsplitting_tpu_torch.serving import SplittingModel
 
@@ -273,7 +443,7 @@ def main() -> int:
     build.library()
     log(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     for line in build_log.splitlines():
-        if "Used" in line or "Compiling entry" in line:
+        if "Used" in line or "Compiling entry" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
     opt = dict_to_nonedict(load_json(CONFIG))
@@ -281,12 +451,12 @@ def main() -> int:
         raise AssertionError(f"{CONFIG} no longer serves {PATCH}² patches")
     groups = int(opt["model"]["unet"]["norm_groups"])
     model = SplittingModel(opt, device=dev, seed=0)
-    net = model.denoise_fns()[0]
+    net = model.unets()[0]
     gen = torch.Generator(device=dev).manual_seed(5)
     tile_batch = torch.randn(BATCH, PATCH, PATCH, 1, device=dev, generator=gen)
     t_vec = torch.full((BATCH,), 0.5, device=dev)
 
-    # GN+Swish at the slice's shapes
+    # GN+Swish at the unfused slice's shapes
     with torch.inference_mode():
         shapes = gn_shapes(net, tile_batch, t_vec)
     if sum(shapes.values()) != 29:
@@ -296,57 +466,43 @@ def main() -> int:
     # attention at the mid block's shape, at B=2 and at the serving batch
     attn, attn_err = phase_attention(dev, (2, BATCH))
 
-    # one UNet forward on a tile batch: kernels vs plain versions
+    # conv_gn at every site of one fused forward
+    with torch.inference_mode():
+        sites = conv_gn_sites(net, tile_batch, t_vec)
+    if sum(sites.values()) != 31:
+        raise AssertionError(f"expected 31 conv_gn calls per fused forward, saw {dict(sites)}")
+    conv, conv_err = phase_conv_gn(dev, sites)
+
+    # one UNet forward on a tile batch: kernels vs plain versions, and the
+    # fused walk vs the UNet's own forward and vs itself on plain versions
     with torch.inference_mode():
         got = net(tile_batch, t_vec)
+        fused = fused_unet_forward(net, tile_batch, t_vec)
         with plain_versions():
             want = net(tile_batch, t_vec)
-    err = max_err(got, want)
+            fused_plain = fused_unet_forward(net, tile_batch, t_vec)
     tol = 1e-3 * want.abs().max().item() + 1e-4
-    if not err <= tol:
-        raise AssertionError(f"UNet forward, kernels vs plain: max abs err {err} > {tol}")
-    log(f"UNet forward B={BATCH} {PATCH}²: kernels vs plain max abs err {err:.3g} (tol {tol:.3g})")
-    del got, want
+    for what, a, b in (("kernels vs plain", got, want),
+                       ("fused vs unfused (kernels)", fused, got),
+                       ("fused kernels vs fused plain", fused, fused_plain)):
+        err = max_err(a, b)
+        if not (a.shape == b.shape and err <= tol):
+            raise AssertionError(f"UNet forward, {what}: max abs err {err} > {tol}")
+        log(f"UNet forward B={BATCH} {PATCH}², {what}: max abs err {err:.3g} (tol {tol:.3g})")
+    del got, want, fused, fused_plain
 
     phase_small_reference(opt)
+    phase_small_reference(opt, fused=True)
 
-    # the slice: joint-InDI tiled prediction at full width
+    # the slice: joint-InDI tiled prediction at full width, unfused and fused
     frames = torch.randn(*FRAMES, 1, device=dev, generator=gen)
     steps = model.process.num_timesteps
     n_tiles = 18  # 3×3 tiles per 1024² frame: 512² patches on a 256² grid
     forwards = 2 * steps * math.ceil(n_tiles / BATCH)
-    model.generator.manual_seed(0)
-    predict_frames(model, frames, PATCH, BATCH)  # warm-up: cuDNN plans, allocator
-    torch.cuda.synchronize()
-
-    model.generator.manual_seed(0)
-    torch.cuda.reset_peak_memory_stats()
-    FusedGroupNormSwish.launches = 0
-    FusedAttention.launches = 0
-    t0 = time.perf_counter()
-    out = predict_frames(model, frames, PATCH, BATCH)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"group_norm_swish": FusedGroupNormSwish.launches,
-                "attention": FusedAttention.launches}
-    peak = torch.cuda.max_memory_allocated()
-    if launches != {"group_norm_swish": 29 * forwards, "attention": forwards}:
-        raise AssertionError(f"launches {launches}, expected 29*{forwards} and {forwards}")
-    if tuple(out.shape) != FRAMES + (2,) or not torch.isfinite(out).all():
-        raise AssertionError(f"slice output: shape {tuple(out.shape)}, "
-                             f"finite {bool(torch.isfinite(out).all())}")
-    walls = [wall]
-    for _ in range(2):  # the spread of the host-clock time
-        t0 = time.perf_counter()
-        predict_frames(model, frames, PATCH, BATCH)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall = sorted(walls)[1]
-    log(f"slice: {FRAMES[0]} frames {FRAMES[1]}x{FRAMES[2]}, {n_tiles} tiles of {PATCH}², "
-        f"batch {BATCH}, {steps} steps, {forwards} UNet forwards: runs "
-        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median {n_tiles / wall:.2f} tiles/s, "
-        f"peak memory {peak / 2**30:.2f} GiB ({peak} bytes), launches {launches}")
-
+    out, launches = phase_slice(
+        model, frames, False,
+        {"group_norm_swish": 29 * forwards, "attention": forwards, "conv_gn": 0},
+        n_tiles, forwards)
     model.generator.manual_seed(0)
     with plain_versions():
         ref = predict_frames(model, frames, PATCH, BATCH)
@@ -355,7 +511,22 @@ def main() -> int:
     if not err <= tol:
         raise AssertionError(f"slice, kernels vs plain versions: max abs err {err} > {tol}")
     log(f"slice: kernels vs plain versions max abs err {err:.3g} (tol {tol:.3g})")
-    phase_profile(model, frames)
+    del ref
+    phase_profile(model, frames, fused=False)
+
+    # fused: 31 conv_gn a forward (28 ResnetBlock convs, 3 upsample convs), the
+    # mid block's attention, and GroupNorm+Swish once, at the head
+    out_fused, fused_launches = phase_slice(
+        model, frames, True,
+        {"group_norm_swish": forwards, "attention": forwards, "conv_gn": 31 * forwards},
+        n_tiles, forwards)
+    err = max_err(out_fused, out)
+    tol = 1e-3 * out.abs().max().item() + 1e-4
+    if not err <= tol:
+        raise AssertionError(f"fused slice vs unfused slice: max abs err {err} > {tol}")
+    log(f"slice: fused vs unfused max abs err {err:.3g} (tol {tol:.3g})")
+    del out, out_fused
+    phase_profile(model, frames, fused=True)
 
     kernels = [
         dict(name="group_norm_swish", route="cuda",
@@ -370,9 +541,17 @@ def main() -> int:
              launches=launches["attention"], max_abs_err=attn_err, ms=attn["ms"],
              plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"], bound_by=attn["bound_by"],
              library_ms=attn["library_ms"]),
+        dict(name="conv_gn", route="cuda",
+             source="diffsplitting_tpu_torch/csrc/conv_gn.cu",
+             replaces="diffsplitting_tpu/experimental/conv_gn.py:270",
+             launches=fused_launches["conv_gn"], max_abs_err=conv_err, ms=conv["ms"],
+             plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by="operations",
+             library_ms=conv["library_ms"]),
     ]
-    log("group_norm_swish times are per UNet forward (29 calls at batch 8); "
-        f"attention times are per call at B={BATCH}, N={ATTN_N}, D={ATTN_D}")
+    log("group_norm_swish times are per UNet forward (29 calls at batch 8) and its launches "
+        "are the unfused slice's; attention times are per call at "
+        f"B={BATCH}, N={ATTN_N}, D={ATTN_D}; conv_gn times are per fused UNet forward "
+        "(31 calls at batch 8) and its launches are the fused slice's")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

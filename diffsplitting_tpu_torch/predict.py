@@ -9,6 +9,8 @@ Usage:
 
 The input TIFF is normalized with the config's quantile scheme computed from
 the input itself unless --norm_from gives the two training channel TIFFs.
+DSP_FUSED=1, as for the JAX package, serves through the stat-carried fused
+UNet forward (models/fused_forward.py).
 """
 
 from __future__ import annotations
@@ -31,14 +33,14 @@ from .utils.weights import load_reference_checkpoint
 @torch.inference_mode()
 def predict_frames(model: SplittingModel, frames, patch: int, batch_size: int = 8,
                    t_float_start: Optional[float] = None, num_steps: Optional[int] = None,
-                   mmse: int = 1) -> torch.Tensor:
+                   mmse: int = 1, fused: Optional[bool] = None) -> torch.Tensor:
     """Normalized (F, H, W, 1) frames -> normalized (F, H, W, C_out) prediction
     on the model's device. `mmse` > 1 averages that many chains, run as one
-    wider batch."""
+    wider batch. `fused` picks the UNet forward (None: the model's choice)."""
     frames = torch.as_tensor(frames, dtype=torch.float32).to(model.device)
 
     def infer_fn(tiles):
-        out = model.test(tiles.repeat(mmse, 1, 1, 1), t_float_start, num_steps)
+        out = model.test(tiles.repeat(mmse, 1, 1, 1), t_float_start, num_steps, fused)
         return out.reshape(mmse, tiles.shape[0], *out.shape[1:]).mean(dim=0)
 
     # patch² tiles on a (patch/2)² grid, as the top-level predict.py tiles

@@ -7,10 +7,15 @@ held in the reference's diffusion-wrapper layout (`denoise_fn.*`, or
 `indi1.denoise_fn.*` / `indi2.denoise_fn.*` plus three scalars), so one
 `nets.load_state_dict(strict=True)` takes `utils.weights.state_dict_from_jax`, a
 reference `*_gen.pth` or the JAX package's export.
+
+The denoisers go through `models.apply_unet`: the UNet's own forward, or the
+stat-carried fused forward when `fused` is True (None: as DSP_FUSED says,
+the switch the JAX package reads).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping, Optional
 
 import torch
@@ -18,7 +23,7 @@ from torch import nn
 
 from .device import resolve_device
 from .diffusion import InDIProcess, JointInDIProcess
-from .models import UNet
+from .models import UNet, apply_unet
 
 
 class InDINet(nn.Module):
@@ -89,10 +94,13 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 class SplittingModel:
     """Builds the nets from a config (random weights from `seed` until a state
-    dict is loaded) and serves `test`."""
+    dict is loaded) and serves `test`. `fused` picks the UNet forward (see
+    `models.apply_unet`); a call's own `fused` overrides it."""
 
-    def __init__(self, opt: Mapping, device=None, seed: int = 0):
+    def __init__(self, opt: Mapping, device=None, seed: int = 0,
+                 fused: Optional[bool] = None):
         self.device = resolve_device(device)
+        self.fused = fused
         self.which = opt["model"]["which_model_G"]
         self.process, nets = define_generator(opt)
         init_weights(nets, torch.Generator().manual_seed(seed))
@@ -100,17 +108,22 @@ class SplittingModel:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.t_float_start = 0.5 if self.which == "joint_indi" else 1.0
 
-    def denoise_fns(self):
+    def unets(self):
         if self.which == "joint_indi":
             return self.nets.indi1.denoise_fn, self.nets.indi2.denoise_fn
         return (self.nets.denoise_fn,)
 
+    def denoise_fns(self, fused: Optional[bool] = None):
+        """(x, t) -> x̂0 for each UNet, through `apply_unet`."""
+        fused = self.fused if fused is None else fused
+        return tuple(functools.partial(apply_unet, net, fused=fused) for net in self.unets())
+
     @torch.inference_mode()
     def test(self, x_nhwc, t_float_start: Optional[float] = None,
-             num_timesteps: Optional[int] = None) -> torch.Tensor:
+             num_timesteps: Optional[int] = None, fused: Optional[bool] = None) -> torch.Tensor:
         """Reverse process on an NHWC batch; returns an NHWC tensor on the
         model's device (2 channels for joint_indi)."""
         x = torch.as_tensor(x_nhwc, dtype=torch.float32).to(self.device)
         t0 = self.t_float_start if t_float_start is None else t_float_start
-        return self.process.inference(*self.denoise_fns(), x, num_timesteps, t0,
+        return self.process.inference(*self.denoise_fns(fused), x, num_timesteps, t0,
                                       generator=self.generator)

@@ -1,5 +1,5 @@
-"""The port stands alone: it imports and runs with jax and the JAX package
-blocked, its sources import neither, and its entry points refuse to run
+"""The port stands alone: it imports and runs (the fused forward included)
+with jax and the JAX package blocked, its sources import neither, and its entry points refuse to run
 without CUDA unless the caller asks for the CPU."""
 
 import ast
@@ -38,6 +38,11 @@ model = SplittingModel(opt, device="cpu", seed=0)
 frames = torch.randn(1, 32, 32, 1, generator=torch.Generator().manual_seed(0))
 out = predict_frames(model, frames, patch=16, batch_size=8)
 assert out.shape == (1, 32, 32, 2) and torch.isfinite(out).all()
+# the stat-carried fused forward (ops/conv_gn.py, models/fused_forward.py)
+from diffsplitting_tpu_torch.models import fused_unet_forward
+from diffsplitting_tpu_torch.ops import conv_gn_fused
+fused = predict_frames(model, frames, patch=16, batch_size=8, fused=True)
+assert fused.shape == out.shape and torch.isfinite(fused).all()
 print("OK")
 """
 

@@ -11,12 +11,15 @@ import math
 import pytest
 import torch
 
-from diffsplitting_tpu_torch.models import UNet
+from diffsplitting_tpu_torch.models import UNet, fused_unet_forward
 from diffsplitting_tpu_torch.models import blocks
 from diffsplitting_tpu_torch.ops import (
     FusedAttention,
+    FusedConvGN,
     FusedGroupNormSwish,
     attention_reference,
+    conv_gn_fused,
+    conv_gn_reference,
     fused_attention,
     fused_group_norm_swish,
     group_norm_swish_reference,
@@ -83,4 +86,93 @@ def test_unet_forward_kernels_match_plain_versions(cuda, monkeypatch):
         monkeypatch.setattr(blocks, "fused_group_norm_swish", group_norm_swish_reference)
         monkeypatch.setattr(blocks, "fused_attention", attention_reference)
         want = net(x, t)
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item() + 1e-4
+
+
+# (B, H, W, Cin, Cout, prologue, residual): residual None, "identity" or
+# "projected"; H = 13 and W = 20 leave the block's rows and columns ragged
+CONV_GN_CASES = [
+    (2, 16, 16, 48, 16, True, "projected"),
+    (2, 16, 16, 96, 32, True, "projected"),
+    (1, 8, 8, 192, 64, True, "projected"),
+    (2, 8, 8, 256, 128, True, "projected"),
+    (2, 16, 16, 64, 64, True, "identity"),
+    (1, 32, 32, 32, 32, False, None),
+    (1, 13, 20, 48, 128, True, "identity"),
+    (3, 13, 20, 96, 16, True, "projected"),
+]
+
+
+def _conv_gn_inputs(dev, B, H, W, Cin, Cout, act, res, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
+    x = rand(B, H, W, Cin)
+    w = rand(3, 3, Cin, Cout) / math.sqrt(9 * Cin)
+    b = rand(Cout)
+    scale = rand(B, Cin) * 0.2 + 1 if act else None
+    shift = rand(B, Cin) * 0.5 if act else None
+    Cres = Cin if res == "projected" else Cout
+    r = rand(B, H, W, Cres) if res else None
+    ws = rand(Cres, Cout) / math.sqrt(Cres) if res == "projected" else None
+    return x, w, b, scale, shift, r, ws
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,act,res", CONV_GN_CASES)
+def test_conv_gn_kernel(cuda, B, H, W, Cin, Cout, act, res):
+    args = _conv_gn_inputs(cuda, B, H, W, Cin, Cout, act, res)
+    before = FusedConvGN.launches
+    y, s, q = conv_gn_fused(*args)
+    torch.cuda.synchronize()
+    assert FusedConvGN.launches == before + 1
+    y_ref, s_ref, q_ref = conv_gn_reference(*args)
+    # f32 FMA on both sides, sums over up to 9*256 taps in another order
+    assert (y - y_ref).abs().max().item() <= 1e-4 * (1 + y_ref.abs().max().item())
+    # the statistics sum H*W values per channel in another order
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(q, q_ref, rtol=1e-4, atol=1e-3)
+
+
+def test_conv_gn_kernel_reads_an_oihw_parameter_in_place(cuda):
+    """The HWIO view of an OIHW weight and a transposed 1x1 weight go in as
+    they are (strided), without a copy."""
+    x, _, b, scale, shift, r, _ = _conv_gn_inputs(cuda, 2, 16, 16, 48, 16, True, "projected")
+    conv = torch.nn.Conv2d(48, 16, 3, padding=1).to(cuda)
+    skip = torch.nn.Conv2d(48, 16, 1).to(cuda)
+    w, ws = conv.weight.permute(2, 3, 1, 0), skip.weight[:, :, 0, 0].t()
+    with torch.no_grad():
+        y, s, _ = conv_gn_fused(x, w, b, scale, shift, r, ws)
+        y_ref, s_ref, _ = conv_gn_reference(x, w.contiguous(), b, scale, shift, r,
+                                            ws.contiguous())
+    assert (y - y_ref).abs().max().item() <= 1e-4 * (1 + y_ref.abs().max().item())
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("Cin,Cout", [(18, 16), (16, 136), (260, 16)])
+def test_conv_gn_kernel_refuses_other_widths(cuda, Cin, Cout):
+    x = torch.randn(1, 8, 8, Cin, device=cuda)
+    w = torch.randn(3, 3, Cin, Cout, device=cuda)
+    before = FusedConvGN.launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        conv_gn_fused(x, w, torch.zeros(Cout, device=cuda))
+    assert FusedConvGN.launches == before
+
+
+def test_fused_unet_forward_matches_unfused(cuda):
+    net = UNet(in_channel=1, out_channel=1, inner_channel=16, norm_groups=16,
+               channel_mults=(1, 2, 4, 8), attn_res=(), res_blocks=1, image_size=64)
+    init_weights(net, torch.Generator().manual_seed(0))
+    with torch.no_grad():  # non-zero biases, the res_conv's included
+        for p in net.parameters():
+            if p.ndim == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+    net = net.to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 64, 64, 1, device=cuda, generator=g)
+    t = torch.full((2,), 0.5, device=cuda)
+    before = FusedConvGN.launches
+    with torch.no_grad():
+        got = fused_unet_forward(net, x, t)
+        want = net(x, t)
+    assert FusedConvGN.launches == before + 31  # 14 ResnetBlocks x 2 + 3 upsamples
+    assert got.shape == want.shape == (2, 64, 64, 1)
     assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item() + 1e-4
