@@ -28,15 +28,19 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 CONFIG = "configs/splitting_hagen_indi_joint.json"
 PATCH, BATCH = 512, 8
@@ -179,11 +183,17 @@ def phase_attention(dev, batches):
         lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 10)
         flops = 4 * B * ATTN_N * ATTN_N * ATTN_D  # q·kᵀ and p·v
         nbytes = 4 * B * ATTN_N * ATTN_D * 4  # q, k, v in, out
-        bound = max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        bound_by = "operations" if flops / F32_FLOPS_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
-        log(f"attention B={B} N={ATTN_N} D={ATTN_D} heads=1: err {err:.3g} kernel {ms:.4f} ms "
-            f"plain {plain:.4f} ms library {lib:.4f} ms bound {bound:.4f} ms ({bound_by}; "
-            f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of f32 peak)")
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # the kernel does each f32 product as three TF32 tensor-core products
+        # (3xTF32); the same work on f32 FMA is the slower of the two bounds
+        tc_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
+        fma_ms = flops / F32_FLOPS_PER_S * 1e3
+        bound = max(tc_ms, bytes_ms)
+        bound_by = "operations" if tc_ms >= bytes_ms else "bytes"
+        log(f"attention B={B} N={ATTN_N} D={ATTN_D} heads=1: err {err:.3g} (tol {tol:.3g}) kernel "
+            f"{ms:.4f} ms plain {plain:.4f} ms library {lib:.4f} ms; bounds: 3xTF32 tensor-core "
+            f"{tc_ms:.4f} ms ({bound / ms:.1%} of it), f32 FMA {fma_ms:.4f} ms, bytes "
+            f"{bytes_ms:.4f} ms; {flops / ms / 1e9:.1f} f32 TFLOP/s")
         res = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=bound_by)
         del qkv, q, k, v, got, want
         torch.cuda.empty_cache()
@@ -319,13 +329,30 @@ def phase_small_reference(opt, fused: bool = False):
         f"(tol {tol:.3g})")
 
 
+# profile family -> the source whose __global__ functions make it up, and
+# the launch count that says the family ran
+KERNEL_FAMILIES = {"group_norm_swish kernel": ("groupnorm_swish.cu", "group_norm_swish"),
+                   "attention kernel": ("attention.cu", "attention"),
+                   "conv_gn kernel": ("conv_gn.cu", "conv_gn")}
+
+
+@functools.cache
+def kernel_names() -> dict:
+    """Family -> names of the __global__ functions its source defines."""
+    csrc = Path(__file__).resolve().parent / "diffsplitting_tpu_torch" / "csrc"
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    names = {}
+    for fam, (src, _) in KERNEL_FAMILIES.items():
+        names[fam] = pattern.findall((csrc / src).read_text())
+        if not names[fam]:
+            raise AssertionError(f"no __global__ function found in csrc/{src}")
+    return names
+
+
 def kernel_family(name: str) -> str:
-    if "gn_stats_kernel" in name or "gn_normalize_kernel" in name:
-        return "group_norm_swish kernel"
-    if "attention_d128_kernel" in name:
-        return "attention kernel"
-    if "conv_gn_kernel" in name or "conv_gn_stats_fold" in name:
-        return "conv_gn kernel"
+    for fam, names in kernel_names().items():
+        if any(n in name for n in names):
+            return fam
     # cuDNN's f32 convolutions include FFT passes and NHWC<->NCHW transposes
     if any(s in name.lower() for s in ("conv", "xmma", "cudnn", "gemm", "fft", "cutlass",
                                        "pointwise_mult_and_sum_complex", "nhwctonchw",
@@ -342,11 +369,13 @@ def phase_profile(model, frames, fused: bool) -> None:
     from torch.profiler import ProfilerActivity, profile
     from diffsplitting_tpu_torch.predict import predict_frames
 
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         predict_frames(model, frames, PATCH, BATCH, fused=fused)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
     fams, names = collections.Counter(), collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -357,6 +386,10 @@ def phase_profile(model, frames, fused: bool) -> None:
     if not busy:
         log("profile: no device events recorded; breakdown not measured")
         return
+    for fam, (_, key) in KERNEL_FAMILIES.items():
+        if launches[key] and not fams[fam]:
+            raise AssertionError(f"profile, fused={fused}: {launches[key]} {key} launches but no "
+                                 f"device time matched {kernel_names()[fam]}")
     log(f"profile (one slice run, fused={fused}, profiler on): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
         f"idle share {1 - busy / wall_ms:.1%}")
     for fam, ms in fams.most_common():

@@ -1,182 +1,316 @@
 // Spatial self-attention softmax(q k^T * scale) v, float32, head dim 128,
-// for sm_90a.
+// for sm_90a, on the tensor cores at float32 accuracy.
 //
-// Replaces: diffsplitting_tpu/ops/attention.py, `_kernel` (launched by
+// Replaces: diffsplitting_tpu/ops/attention.py:33, `_kernel` (launched by
 //   `_pallas_forward`), which held the whole N x N f32 score matrix of one
 //   (batch, head) in VMEM. At the splitting UNet's mid block (64 x 64 map,
 //   N = 4096 tokens) that matrix alone is 64 MB, and with B = 8 the scores
-//   would be 512 MB of device memory traffic each way.
+//   would be 512 MB of device memory traffic each way; here they never leave
+//   the SM.
 //
-// Bound: operations. Per (batch, head) the two products take 4 * N^2 * D
-//   flops (68.7 GFLOP at B = 8, N = 4096, D = 128) against 4 * N * D * 4
-//   bytes of input and output, so the card's f32 rate, not its memory,
-//   bounds it.
+// Bound: operations. The two products take 4 * N^2 * D flops per (batch,
+//   head): 68.72 GFLOP at B = 8, N = 4096, D = 128, against 67 MB of q, k, v
+//   and out (0.020 ms at 3.35 TB/s). Each f32 product here is three TF32
+//   tensor-core products (3xTF32, below), so the least time is
+//   3 * 68.72 GFLOP at 495 TFLOP/s dense TF32 = 0.4165 ms; the same work at
+//   the 67 TFLOP/s f32 FMA rate would take 1.0257 ms. The 134 M exp2 take
+//   about 0.03 ms on the SFUs.
 //
-// Design (flash-style, online softmax, plain f32 FMA, no TF32):
-//   * One block of 256 threads per (b * head, 64-query tile). The query tile
-//     is staged once in shared memory, transposed (Qt[d][query]).
-//   * A loop over 64-key tiles stages K transposed (Kt[d][key]) and V
-//     (Vs[key][d]) in dynamic shared memory: 112 KB in all, above the 48 KB
-//     static limit, granted with cudaFuncSetAttribute.
-//   * Each thread owns a 4 x 4 patch of the 64 x 64 score tile and a 4 x 8
-//     patch of the 64 x 128 output; its 4 query rows are shared with the 15
-//     other lanes of its half-warp, which reduce row max and row sum with
-//     shuffles.
-//   * The running max and sum stay in f32 registers, O accumulates in f32
-//     and is divided by the sum once at the end. The scores never leave the
-//     SM.
+// Design:
+//   * 3xTF32 on mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32. Each
+//     operand x is split as big = x rounded to TF32 (as cvt.rna.tf32.f32
+//     rounds), small = x - big, and a product accumulates small*big +
+//     big*small + big*big in f32 (the small*small term, about 2^-22 of the
+//     product, is dropped). Both S = Q K^T and O += P V are computed so, so
+//     the result keeps float32 accuracy and is held against the f32 plain
+//     version with f32 tolerances. The split is done in registers as
+//     fragments are loaded, with integer ops rather than cvt (see split()):
+//     on the H100 that took the kernel from 1.47 to 1.12 ms at B = 8 at the
+//     same error (kernels/attention_variants.py; PERF.md).
+//   * One block of 8 warps per (b * head, 128-query tile); each warp owns 16
+//     query rows. At B = 8, N = 4096 that is 256 blocks, 1.94 waves of one
+//     block per SM on 132 SMs, with two warps per SM sub-partition to hide
+//     the mma and shared-memory latency. (64-query blocks of 4 warps would
+//     give 512 blocks but, at one block per SM by shared memory, only one
+//     warp per sub-partition, and twice the K/V reads from L2.) When N is an
+//     odd multiple of 64, the last block's upper four warps have no rows and
+//     only help stage K and V.
+//   * Dynamic shared memory, 192 KB of the 227 KB (cudaFuncSetAttribute): the
+//     block's Q tile (64 KB, raw f32) and a ring of two stages of 64-key K
+//     and V tiles (32 KB each a stage). cp.async.cg 16-byte copies fill stage
+//     k+1 while the warps compute on stage k; one barrier a tile. (32-key
+//     tiles in three stages measured 6 % slower.)
+//   * Registers: 231 a thread, no spills (-Xptxas -v): O is 64, S 32, and
+//     Q's fragments are loaded from shared memory and split per k-step
+//     rather than held (they would need 128 more).
+//   * Fragment loads are 16 bytes and free of bank conflicts. The head dim is
+//     consumed in a permuted order that is the same for Q and K (a float4 of
+//     d = 16s+4t .. 16s+4t+3 feeds two k-steps), and rows are XOR-swizzled in
+//     16-byte chunks: chunk ^ 4*(row & 1) for Q and K, chunk ^ ((key >> 1) & 3)
+//     for V.
+//   * P stays in registers. The S accumulator gives a thread keys 2t and 2t+1
+//     of each 8-key group; the P V product takes those as its logical k
+//     indices t and t+4, and reads V's rows in the same order (keys 8j+2t and
+//     8j+2t+1). The output columns are permuted too: n-tile n, column c is
+//     d = 16c + n, so a thread's V loads and its output stores are float4s.
+//   * Online softmax in the exp2 domain: running max and a per-thread running
+//     sum in f32 registers, the O accumulator rescaled per tile, one division
+//     at the end.
 //   * N must be a multiple of 64 and D must be 128; the wrapper raises on
 //     anything else.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kD = 128;
-constexpr int kTile = 64;
-constexpr int kThreads = 256;
-constexpr size_t kSmemFloats = (size_t)kD * kTile * 3 + (size_t)kTile * kTile;
+constexpr int kChunks = kD / 4;   // 16-byte chunks a row
+constexpr int kTileK = 64;        // keys a stage
+constexpr int kNT = kTileK / 8;   // 8-key n-tiles of S a stage
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlockQ = kWarps * 16;  // queries a block
+constexpr int kStages = 2;
+constexpr size_t kSmemFloats = (size_t)kBlockQ * kD + (size_t)kStages * 2 * kTileK * kD;
 
-__global__ void __launch_bounds__(kThreads)
-attention_d128_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ out, int n_tokens,
-                      int heads, long long sb, long long sn, long long sh, float scale) {
+// x = big + small. big is x rounded to TF32 (10 mantissa bits) to nearest,
+// ties away from zero, bit for bit what cvt.rna.tf32.f32 gives for finite x,
+// computed as an integer add and mask on the bits (cheaper than cvt here).
+// small is the exact remainder, passed as f32 bits: the tensor core reads its
+// top 19 bits (TF32 by truncation), an error of at most 2^-21 |x|.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+    big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b at f32 accuracy from the TF32 halves of a and b
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], uint32_t b0_big,
+                                           uint32_t b1_big, uint32_t b0_small,
+                                           uint32_t b1_small) {
+    mma_tf32(d, a_small, b0_big, b1_big);
+    mma_tf32(d, a_big, b0_small, b1_small);
+    mma_tf32(d, a_big, b0_big, b1_big);
+}
+
+__device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most `pending` of this thread's groups are in flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+// 16-byte chunk offsets (in floats) of the swizzled tiles
+__device__ __forceinline__ int qk_at(int row, int chunk) {
+    return row * kD + ((chunk ^ ((row & 1) << 2)) << 2);
+}
+__device__ __forceinline__ int v_at(int key, int chunk) {
+    return key * kD + ((chunk ^ ((key >> 1) & 3)) << 2);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+attention_tf32x3_d128_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, float* __restrict__ out,
+                             int n_tokens, int heads, long long sb, long long sn, long long sh,
+                             float scale) {
     extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    float* Qt = smem;                        // [kD][kTile]
-    float* Kt = Qt + kD * kTile;             // [kD][kTile]
-    float* Vs = Kt + kD * kTile;             // [kTile][kD]
-    float* Pt = Vs + kTile * kD;             // [kTile keys][kTile queries]
+    float* Qs = reinterpret_cast<float*>(smem4);  // [kBlockQ][kD], swizzled
+    float* Ks = Qs + kBlockQ * kD;                 // [kStages][kTileK][kD], swizzled
+    float* Vs = Ks + kStages * kTileK * kD;        // [kStages][kTileK][kD], swizzled
 
     const int bh = blockIdx.y;
     const int b = bh / heads;
     const int h = bh % heads;
-    const int q0 = blockIdx.x * kTile;
-    const int t = threadIdx.x;
-    const int ty = t / 16;  // query group: rows ty*4 .. ty*4+3
-    const int tx = t % 16;  // key group (cols tx*4 ..) and d group (tx*8 ..)
+    const int q0 = blockIdx.x * kBlockQ;
+    const int tid = threadIdx.x;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;  // mma group: rows g and g + 8
+    const int t = lane % 4;  // thread in group
+    const int r0 = warp * 16;
+    const bool active = q0 + r0 < n_tokens;  // warp-uniform
     const long long base = (long long)b * sb + (long long)h * sh;
 
-    // stage Q transposed: thread reads one float4 of one token
-    for (int p = 0; p < (kD / 4) * kTile / kThreads; ++p) {
-        const int n = t % kTile;
-        const int dq = t / kTile + p * (kThreads / kTile);
-        const float4 val = *reinterpret_cast<const float4*>(
-            q + base + (long long)(q0 + n) * sn + dq * 4);
-        Qt[(dq * 4 + 0) * kTile + n] = val.x;
-        Qt[(dq * 4 + 1) * kTile + n] = val.y;
-        Qt[(dq * 4 + 2) * kTile + n] = val.z;
-        Qt[(dq * 4 + 3) * kTile + n] = val.w;
+    // stage Q (rows past N are skipped: their warps are inactive)
+    for (int c = tid; c < kBlockQ * kChunks; c += kThreads) {
+        const int row = c / kChunks, chunk = c % kChunks;
+        if (q0 + row < n_tokens)
+            cp_async16(Qs + qk_at(row, chunk), q + base + (long long)(q0 + row) * sn + chunk * 4);
+    }
+    auto stage_kv = [&](int tile, int stage) {
+        float* kd = Ks + stage * kTileK * kD;
+        float* vd = Vs + stage * kTileK * kD;
+        const long long off = base + (long long)tile * kTileK * sn;
+        for (int c = tid; c < kTileK * kChunks; c += kThreads) {
+            const int key = c / kChunks, chunk = c % kChunks;
+            const long long src = off + (long long)key * sn + chunk * 4;
+            cp_async16(kd + qk_at(key, chunk), k + src);
+            cp_async16(vd + v_at(key, chunk), v + src);
+        }
+    };
+    // the ring runs kStages - 1 tiles ahead; a group is committed for every
+    // tile slot, empty past the last tile, so the wait count holds throughout
+    const int n_tiles = n_tokens / kTileK;
+    for (int p = 0; p < kStages - 1; ++p) {
+        if (p < n_tiles) stage_kv(p, p);
+        cp_async_commit();
     }
 
-    float m[4], l[4], o[4][8];
+    const float c2 = scale * 1.4426950408889634f;  // scores in the exp2 domain
+    float o[16][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = -INFINITY;
-        l[i] = 0.f;
+    for (int n = 0; n < 16; ++n)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) o[i][j] = 0.f;
-    }
+        for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-    for (int k0 = 0; k0 < n_tokens; k0 += kTile) {
-        // stage K transposed and V as is
-        for (int p = 0; p < (kD / 4) * kTile / kThreads; ++p) {
-            const int n = t % kTile;
-            const int dq = t / kTile + p * (kThreads / kTile);
-            const float4 val = *reinterpret_cast<const float4*>(
-                k + base + (long long)(k0 + n) * sn + dq * 4);
-            Kt[(dq * 4 + 0) * kTile + n] = val.x;
-            Kt[(dq * 4 + 1) * kTile + n] = val.y;
-            Kt[(dq * 4 + 2) * kTile + n] = val.z;
-            Kt[(dq * 4 + 3) * kTile + n] = val.w;
-        }
-        for (int p = 0; p < (kD / 4) * kTile / kThreads; ++p) {
-            const int idx = t + p * kThreads;
-            const int n = idx / (kD / 4);
-            const int dq = idx % (kD / 4);
-            reinterpret_cast<float4*>(Vs)[n * (kD / 4) + dq] = *reinterpret_cast<const float4*>(
-                v + base + (long long)(k0 + n) * sn + dq * 4);
-        }
-        __syncthreads();
+    for (int it = 0; it < n_tiles; ++it) {
+        cp_async_wait<kStages - 2>();  // tile it (and Q) have landed for this thread
+        __syncthreads();  // ... and for every thread, and no warp still reads tile it - 1
+        const int ahead = it + kStages - 1;
+        if (ahead < n_tiles) stage_kv(ahead, ahead % kStages);  // into tile it - 1's stage
+        cp_async_commit();
 
-        // scores for rows ty*4+i, keys tx*4+j
-        float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < kD; ++d) {
-            const float4 a = reinterpret_cast<const float4*>(Qt + d * kTile)[ty];
-            const float4 c = reinterpret_cast<const float4*>(Kt + d * kTile)[tx];
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-        }
+        if (active) {
+            const float* Kt = Ks + (it % kStages) * kTileK * kD;
+            const float* Vt = Vs + (it % kStages) * kTileK * kD;
 
-        // online softmax over this key tile
+            // S = Q K^T for rows r0+g, r0+g+8 and the tile's 64 keys; k-step
+            // pair s takes d = 16s + 4t + {0, 1} and 16s + 4t + {2, 3}
+            float s[kNT][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            float mx = -INFINITY;
+            for (int n = 0; n < kNT; ++n)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                s[i][j] *= scale;
-                mx = fmaxf(mx, s[i][j]);
+                for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+            for (int sp = 0; sp < kD / 16; ++sp) {
+                const float4 qa = *reinterpret_cast<const float4*>(Qs + qk_at(r0 + g, 4 * sp + t));
+                const float4 qb =
+                    *reinterpret_cast<const float4*>(Qs + qk_at(r0 + g + 8, 4 * sp + t));
+                uint32_t a0b[4], a0s[4], a1b[4], a1s[4];
+                split(qa.x, a0b[0], a0s[0]);
+                split(qb.x, a0b[1], a0s[1]);
+                split(qa.y, a0b[2], a0s[2]);
+                split(qb.y, a0b[3], a0s[3]);
+                split(qa.z, a1b[0], a1s[0]);
+                split(qb.z, a1b[1], a1s[1]);
+                split(qa.w, a1b[2], a1s[2]);
+                split(qb.w, a1b[3], a1s[3]);
+#pragma unroll
+                for (int n = 0; n < kNT; ++n) {
+                    const float4 kv = *reinterpret_cast<const float4*>(Kt + qk_at(8 * n + g, 4 * sp + t));
+                    uint32_t xb, xs, yb, ys, zb, zs, wb, ws;
+                    split(kv.x, xb, xs);
+                    split(kv.y, yb, ys);
+                    split(kv.z, zb, zs);
+                    split(kv.w, wb, ws);
+                    mma_3xtf32(s[n], a0b, a0s, xb, yb, xs, ys);
+                    mma_3xtf32(s[n], a1b, a1s, zb, wb, zs, ws);
+                }
+            }
+
+            // online softmax; s[n] holds rows g (0, 1) and g+8 (2, 3), keys
+            // 8n + 2t and 8n + 2t + 1
+            float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+            for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) s[n][i] *= c2;
+                mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+                mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+            }
+            float corr[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+                const float m_new = fmaxf(m_run[r], mx[r]);
+                corr[r] = exp2f(m_run[r] - m_new);
+                m_run[r] = m_new;
+                l_run[r] *= corr[r];
             }
 #pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_new = fmaxf(m[i], mx);
-            const float corr = expf(m[i] - m_new);
-            float rs = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                s[i][j] = expf(s[i][j] - m_new);
-                rs += s[i][j];
+            for (int n = 0; n < kNT; ++n) {
+                s[n][0] = exp2f(s[n][0] - m_run[0]);
+                s[n][1] = exp2f(s[n][1] - m_run[0]);
+                s[n][2] = exp2f(s[n][2] - m_run[1]);
+                s[n][3] = exp2f(s[n][3] - m_run[1]);
+                l_run[0] += s[n][0] + s[n][1];
+                l_run[1] += s[n][2] + s[n][3];
             }
 #pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                rs += __shfl_xor_sync(0xffffffffu, rs, off);
-            l[i] = l[i] * corr + rs;
-            m[i] = m_new;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) o[i][j] *= corr;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            reinterpret_cast<float4*>(Pt + (tx * 4 + j) * kTile)[ty] =
-                make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-        __syncthreads();
+            for (int n = 0; n < 16; ++n) {
+                o[n][0] *= corr[0];
+                o[n][1] *= corr[0];
+                o[n][2] *= corr[1];
+                o[n][3] *= corr[1];
+            }
 
-        // O[rows ty*4+i][d tx*8+j] += P V
-#pragma unroll 4
-        for (int kk = 0; kk < kTile; ++kk) {
-            const float4 p = reinterpret_cast<const float4*>(Pt + kk * kTile)[ty];
-            const float4 v0 = reinterpret_cast<const float4*>(Vs + kk * kD)[tx * 2];
-            const float4 v1 = reinterpret_cast<const float4*>(Vs + kk * kD)[tx * 2 + 1];
-            const float pv[4] = {p.x, p.y, p.z, p.w};
-            const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+            // O += P V over k-steps of 8 keys: logical k t <-> key 8j + 2t,
+            // t + 4 <-> 8j + 2t + 1, so P's A fragment is S's C fragment
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+            for (int j = 0; j < kNT; ++j) {
+                uint32_t pb[4], ps[4];
+                split(s[j][0], pb[0], ps[0]);
+                split(s[j][2], pb[1], ps[1]);
+                split(s[j][1], pb[2], ps[2]);
+                split(s[j][3], pb[3], ps[3]);
+                const int key = 8 * j + 2 * t;
 #pragma unroll
-                for (int j = 0; j < 8; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
+                for (int c = 0; c < 4; ++c) {
+                    // d = 16g + 4c .. 16g + 4c + 3: column g of n-tiles 4c .. 4c + 3
+                    const float4 v0 = *reinterpret_cast<const float4*>(Vt + v_at(key, 4 * g + c));
+                    const float4 v1 = *reinterpret_cast<const float4*>(Vt + v_at(key + 1, 4 * g + c));
+                    const float x0[4] = {v0.x, v0.y, v0.z, v0.w};
+                    const float x1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        uint32_t b0b, b0s, b1b, b1s;
+                        split(x0[e], b0b, b0s);
+                        split(x1[e], b1b, b1s);
+                        mma_3xtf32(o[4 * c + e], pb, ps, b0b, b1b, b0s, b1s);
+                    }
+                }
+            }
         }
-        __syncthreads();  // Kt, Vs and Pt are rewritten by the next tile
     }
 
-    // out is (B, N, heads, D) contiguous
+    if (!active) return;
+    // out is (B, N, heads, D) contiguous; o[n] holds d = 32t + n (0, 2) and
+    // d = 32t + 16 + n (1, 3) of rows g (0, 1) and g + 8 (2, 3)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float inv = 1.0f / l[i];
-        const int row = q0 + ty * 4 + i;
+    for (int r = 0; r < 2; ++r) {
+        float l = l_run[r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const float inv = 1.0f / l;
+        const int row = q0 + r0 + g + 8 * r;
         float4* dst = reinterpret_cast<float4*>(
-            out + (((long long)b * n_tokens + row) * heads + h) * kD + tx * 8);
-        dst[0] = make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv, o[i][3] * inv);
-        dst[1] = make_float4(o[i][4] * inv, o[i][5] * inv, o[i][6] * inv, o[i][7] * inv);
+            out + (((long long)b * n_tokens + row) * heads + h) * kD + 32 * t);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                dst[4 * half + c] = make_float4(
+                    o[4 * c][2 * r + half] * inv, o[4 * c + 1][2 * r + half] * inv,
+                    o[4 * c + 2][2 * r + half] * inv, o[4 * c + 3][2 * r + half] * inv);
     }
 }
 
@@ -189,11 +323,11 @@ extern "C" int attention_f32_d128(const void* q, const void* k, const void* v, v
                                   int n_tokens, int heads, long long sb, long long sn,
                                   long long sh, float scale, void* stream) {
     const size_t smem = kSmemFloats * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(attention_d128_kernel,
+    cudaError_t err = cudaFuncSetAttribute(attention_tf32x3_d128_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid(n_tokens / kTile, B * heads);
-    attention_d128_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid((n_tokens + kBlockQ - 1) / kBlockQ, B * heads);
+    attention_tf32x3_d128_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(out), n_tokens, heads, sb, sn, sh, scale);
     return (int)cudaGetLastError();

@@ -1,0 +1,136 @@
+"""Time csrc/attention.cu beside variants of itself on one card.
+
+    python -m diffsplitting_tpu_torch.kernels.attention_variants [--baseline FILE]
+
+Each variant is the shipped source with one text substitution, built by its
+own `nvcc` into its own library (all started together) and called through the
+same C entry point, `attention_f32_d128`, at the mid block's shape (N = 4096,
+D = 128, one head; q, k, v views of one qkv tensor) at B = 8 and B = 2. The
+variants are timed in turns (forward, then in reverse order) and each is held
+against the plain version; `--baseline` adds any other source with the same
+entry point (an earlier version of the kernel, say). Prints the card, each
+variant's registers and spills, its time and its max abs error, and SDPA's
+time. Nothing here is used by the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import math
+import subprocess
+import tempfile
+from pathlib import Path
+
+from .build import COMPILE_FLAGS, _nvcc
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "attention.cu"
+SPLIT = ("    big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+         "    small = __float_as_uint(x - __uint_as_float(big));")
+CVT = ('    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));\n'
+       '    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(x - __uint_as_float(big)));')
+# name -> (old, new) substitutions on the shipped source
+VARIANTS = {
+    "shipped": [],
+    # both halves rounded by cvt.rna.tf32.f32
+    "cvt_split": [(SPLIT, CVT)],
+    # big * big only: plain TF32, to record the error the split removes
+    "1xtf32": [("    mma_tf32(d, a_small, b0_big, b1_big);\n"
+                "    mma_tf32(d, a_big, b0_small, b1_small);\n", "")],
+    # 32-key tiles in a ring of three stages
+    "k32_3stages": [("constexpr int kTileK = 64;", "constexpr int kTileK = 32;"),
+                    ("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+}
+
+
+def build_all(sources: dict, work: Path) -> dict:
+    procs = {}
+    for name, text in sources.items():
+        src = work / f"{name}.cu"
+        src.write_text(text)
+        cmd = [_nvcc(), *COMPILE_FLAGS, "-shared", "-o", str(work / f"{name}.so"), str(src)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    libs = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        print(f"{name}: " + "; ".join(line.split(":", 1)[-1].strip() for line in out.splitlines()
+                                     if "Used" in line or "spill" in line))
+        lib = ctypes.CDLL(str(work / f"{name}.so"))
+        P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.attention_f32_d128.argtypes = [P, P, P, P, I, I, I, LL, LL, LL, F, P]
+        libs[name] = lib
+    return libs
+
+
+def main() -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from ..ops import attention_reference
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", type=Path, help="another source with the same entry point")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("attention_variants: CUDA is not available")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    text = SOURCE.read_text()
+    sources = {}
+    for name, subs in VARIANTS.items():
+        src = text
+        for old, new in subs:
+            if old not in src:
+                raise RuntimeError(f"variant {name}: the source no longer holds {old!r}")
+            src = src.replace(old, new)
+        sources[name] = src
+    if args.baseline:
+        sources["baseline"] = args.baseline.read_text()
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def time_ms(fn, iters=20):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    with tempfile.TemporaryDirectory() as work:
+        libs = build_all(sources, Path(work))
+        for B in (8, 2):
+            g = torch.Generator(device="cuda").manual_seed(2)
+            qkv = torch.randn(B, 4096, 1, 3, 128, device="cuda", generator=g)
+            q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+            scale = 1 / math.sqrt(128)
+            want = attention_reference(q, k, v, scale)
+            out = torch.empty_like(want)
+            st = q.stride()
+
+            def launch(lib):
+                err = lib.attention_f32_d128(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                             out.data_ptr(), B, 4096, 1, st[0], st[1], st[2],
+                                             scale, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"CUDA error {err} at launch")
+
+            order = list(libs)
+            for name in order + order[::-1]:
+                launch(libs[name])
+                err = (out - want).abs().max().item()
+                print(f"B={B} {name}: {time_ms(lambda: launch(libs[name])):.4f} ms, "
+                      f"max abs err {err:.3g}")
+            qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+            print(f"B={B} sdpa: {sdpa:.4f} ms")
+
+
+if __name__ == "__main__":
+    main()
