@@ -200,28 +200,6 @@ def phase_attention(dev, batches):
     return res, worst
 
 
-def conv_gn_sites(net, x, t):
-    """(H, W, Cin, Cout, prologue, residual, Cres) -> count of conv_gn calls in
-    one fused forward of net; residual is None, "identity" or "projected"."""
-    from diffsplitting_tpu_torch.models import fused_forward
-
-    counts = collections.Counter()
-    kernel = fused_forward.conv_gn_fused
-
-    def record(x, w, b, scale=None, shift=None, residual=None, w_skip=None):
-        mode = None if residual is None else "identity" if w_skip is None else "projected"
-        counts.update([(x.shape[1], x.shape[2], x.shape[3], w.shape[3], scale is not None,
-                        mode, 0 if residual is None else residual.shape[3])])
-        return kernel(x, w, b, scale, shift, residual, w_skip)
-
-    fused_forward.conv_gn_fused = record
-    try:
-        fused_forward.fused_unet_forward(net, x, t)
-    finally:
-        fused_forward.conv_gn_fused = kernel
-    return counts
-
-
 def phase_conv_gn(dev, sites):
     """conv_gn kernel vs plain version at every site of one fused forward,
     batch 8. The library time is cuDNN's F.conv2d on the already-activated
@@ -230,28 +208,23 @@ def phase_conv_gn(dev, sites):
     statistics passes."""
     import torch
     import torch.nn.functional as F
+    from diffsplitting_tpu_torch.kernels.conv_gn_variants import site_args
     from diffsplitting_tpu_torch.ops import conv_gn_fused, conv_gn_reference
 
     g = torch.Generator(device=dev).manual_seed(6)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, gflop=0.0, gflop_taps=0.0,
-               gbytes=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, tc_ms=0.0, fma_ms=0.0,
+               bytes_ms=0.0, gflop=0.0, gflop_taps=0.0, gbytes=0.0)
     worst = 0.0
-    for (H, W, Cin, Cout, act, res, Cres), calls in sorted(sites.items(), key=str):
-        rand = lambda *shape: torch.randn(*shape, device=dev, generator=g)  # noqa: E731
-        x = rand(BATCH, H, W, Cin)
-        # the weights as the walk passes them: views of OIHW parameters
-        w = (rand(Cout, Cin, 3, 3) / math.sqrt(9 * Cin)).permute(2, 3, 1, 0)
-        b = rand(Cout) * 0.1
-        scale = rand(BATCH, Cin) * 0.2 + 1 if act else None
-        shift = rand(BATCH, Cin) * 0.5 if act else None
-        r = rand(BATCH, H, W, Cres) if res else None
-        w_skip = (rand(Cout, Cres) / math.sqrt(Cres)).t() if res == "projected" else None
-        args = (x, w, b, scale, shift, r, w_skip)
+    for site, calls in sorted(sites.items(), key=str):
+        H, W, Cin, Cout, act, res, Cres = site
+        args = site_args(site, BATCH, g)
+        x, w, b, scale, shift, r, w_skip = args
         y, s, q = conv_gn_fused(*args)
         y_ref, s_ref, q_ref = conv_gn_reference(*args)
         torch.cuda.synchronize()
         err = max_err(y, y_ref)
-        # f32 FMA on both sides; up to 9*256 + 256 terms a sum, in another order
+        # f32 accuracy on both sides (3xTF32 tensor-core products, f32 sums);
+        # up to 9*256 + 256 terms a sum, in another order
         tol = 1e-4 * (1 + y_ref.abs().max().item())
         # the statistics sum H*W values a channel in another order
         s_tol = 1e-5 * y_ref.abs().sum(dim=(1, 2)) + 1e-3
@@ -281,14 +254,21 @@ def phase_conv_gn(dev, sites):
         lib = time_ms(library, 5)
         flops = 2 * BATCH * H * W * (9 * Cin + (Cres if res == "projected" else 0)) * Cout
         nbytes = 4 * BATCH * H * W * (Cin + Cout + Cres)
-        bound = max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        by = "operations" if flops / F32_FLOPS_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
+        # each f32 product is three TF32 tensor-core products (3xTF32); the
+        # same work at the f32 FMA rate is printed beside it
+        tc_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
+        fma_ms = flops / F32_FLOPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(tc_ms, bytes_ms)
+        by = "operations" if tc_ms >= bytes_ms else "bytes"
         log(f"conv_gn B={BATCH} H={H} W={W} Cin={Cin} Cout={Cout} prologue={act} residual={res} "
             f"Cres={Cres} calls/forward={calls}: err {err:.3g} kernel {ms:.4f} ms plain "
-            f"{plain:.4f} ms library {lib:.4f} ms bound {bound:.4f} ms ({by}; "
-            f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of bound)")
+            f"{plain:.4f} ms library {lib:.4f} ms bound {bound:.4f} ms ({by}; 3xTF32 tensor-core "
+            f"{tc_ms:.4f}, bytes {bytes_ms:.4f}, f32 FMA {fma_ms:.4f}; "
+            f"{flops / ms / 1e9:.1f} f32 TFLOP/s, {bound / ms:.1%} of bound)")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bound_ms", bound), ("gflop", flops / 1e9),
+                         ("bound_ms", bound), ("tc_ms", tc_ms), ("fma_ms", fma_ms),
+                         ("bytes_ms", bytes_ms), ("gflop", flops / 1e9),
                          ("gflop_taps", 2 * BATCH * H * W * 9 * Cin * Cout / 1e9),
                          ("gbytes", nbytes / 1e9)):
             tot[key] += calls * val
@@ -297,7 +277,9 @@ def phase_conv_gn(dev, sites):
     log(f"conv_gn per fused UNet forward ({sum(sites.values())} calls; library = cuDNN "
         "F.conv2d on the activated input, + the 1x1 skip conv): "
         + " ".join(f"{k} {v:.4f}" for k, v in tot.items())
-        + f" ({tot['gflop'] / tot['ms']:.1f} TFLOP/s)")
+        + f" ({tot['gflop'] / tot['ms']:.1f} f32 TFLOP/s, {tot['bound_ms'] / tot['ms']:.1%} of "
+        "the bound)")
+    tot["bound_by"] = "operations" if tot["tc_ms"] >= tot["bytes_ms"] else "bytes"
     return tot, worst
 
 
@@ -458,7 +440,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
-    from diffsplitting_tpu_torch.kernels import build
+    from diffsplitting_tpu_torch.kernels import build, conv_gn_variants
     from diffsplitting_tpu_torch.models import fused_unet_forward
     from diffsplitting_tpu_torch.predict import predict_frames
     from diffsplitting_tpu_torch.serving import SplittingModel
@@ -501,7 +483,7 @@ def main() -> int:
 
     # conv_gn at every site of one fused forward
     with torch.inference_mode():
-        sites = conv_gn_sites(net, tile_batch, t_vec)
+        sites = conv_gn_variants.conv_gn_sites(net, tile_batch, t_vec)
     if sum(sites.values()) != 31:
         raise AssertionError(f"expected 31 conv_gn calls per fused forward, saw {dict(sites)}")
     conv, conv_err = phase_conv_gn(dev, sites)
@@ -578,7 +560,7 @@ def main() -> int:
              source="diffsplitting_tpu_torch/csrc/conv_gn.cu",
              replaces="diffsplitting_tpu/experimental/conv_gn.py:270",
              launches=fused_launches["conv_gn"], max_abs_err=conv_err, ms=conv["ms"],
-             plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by="operations",
+             plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],
              library_ms=conv["library_ms"]),
     ]
     log("group_norm_swish times are per UNet forward (29 calls at batch 8) and its launches "

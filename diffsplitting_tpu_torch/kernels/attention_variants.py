@@ -2,67 +2,46 @@
 
     python -m diffsplitting_tpu_torch.kernels.attention_variants [--baseline FILE]
 
-Each variant is the shipped source with one text substitution, built by its
-own `nvcc` into its own library (all started together) and called through the
-same C entry point, `attention_f32_d128`, at the mid block's shape (N = 4096,
-D = 128, one head; q, k, v views of one qkv tensor) at B = 8 and B = 2. The
-variants are timed in turns (forward, then in reverse order) and each is held
-against the plain version; `--baseline` adds any other source with the same
-entry point (an earlier version of the kernel, say). Prints the card, each
-variant's registers and spills, its time and its max abs error, and SDPA's
-time. Nothing here is used by the port.
+Each variant is the shipped source (and csrc/tf32x3.cuh) with one text
+substitution, built by its own `nvcc` into its own library (all started
+together) and called through the same C entry point, `attention_f32_d128`, at
+the mid block's shape (N = 4096, D = 128, one head; q, k, v views of one qkv
+tensor) at B = 8 and B = 2. The variants are timed in turns (forward, then in
+reverse order) and each is held against the plain version; `--baseline` adds
+any other source with the same entry point (an earlier version of the kernel,
+say). Prints the card, each variant's registers and spills, its time and its
+max abs error, and SDPA's time. Nothing here is used by the port.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import math
-import subprocess
 import tempfile
 from pathlib import Path
 
-from .build import COMPILE_FLAGS, _nvcc
+from .build import SIGNATURES
+from .variants import build_all, card, time_ms, variant_sources
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "attention.cu"
+SOURCE = "attention.cu"
+HEADER = "tf32x3.cuh"
 SPLIT = ("    big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
          "    small = __float_as_uint(x - __uint_as_float(big));")
 CVT = ('    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));\n'
        '    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(x - __uint_as_float(big)));')
-# name -> (old, new) substitutions on the shipped source
+ONE_TF32 = (HEADER, "    mma_tf32(d, a_small, b0_big, b1_big);\n"
+            "    mma_tf32(d, a_big, b0_small, b1_small);\n", "")
+# name -> (file, old, new) substitutions on the shipped sources
 VARIANTS = {
     "shipped": [],
     # both halves rounded by cvt.rna.tf32.f32
-    "cvt_split": [(SPLIT, CVT)],
+    "cvt_split": [(HEADER, SPLIT, CVT)],
     # big * big only: plain TF32, to record the error the split removes
-    "1xtf32": [("    mma_tf32(d, a_small, b0_big, b1_big);\n"
-                "    mma_tf32(d, a_big, b0_small, b1_small);\n", "")],
+    "1xtf32": [ONE_TF32],
     # 32-key tiles in a ring of three stages
-    "k32_3stages": [("constexpr int kTileK = 64;", "constexpr int kTileK = 32;"),
-                    ("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+    "k32_3stages": [(SOURCE, "constexpr int kTileK = 64;", "constexpr int kTileK = 32;"),
+                    (SOURCE, "constexpr int kStages = 2;", "constexpr int kStages = 3;")],
 }
-
-
-def build_all(sources: dict, work: Path) -> dict:
-    procs = {}
-    for name, text in sources.items():
-        src = work / f"{name}.cu"
-        src.write_text(text)
-        cmd = [_nvcc(), *COMPILE_FLAGS, "-shared", "-o", str(work / f"{name}.so"), str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    libs = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        print(f"{name}: " + "; ".join(line.split(":", 1)[-1].strip() for line in out.splitlines()
-                                     if "Used" in line or "spill" in line))
-        lib = ctypes.CDLL(str(work / f"{name}.so"))
-        P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.attention_f32_d128.argtypes = [P, P, P, P, I, I, I, LL, LL, LL, F, P]
-        libs[name] = lib
-    return libs
 
 
 def main() -> None:
@@ -76,35 +55,16 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("attention_variants: CUDA is not available")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
-    text = SOURCE.read_text()
-    sources = {}
-    for name, subs in VARIANTS.items():
-        src = text
-        for old, new in subs:
-            if old not in src:
-                raise RuntimeError(f"variant {name}: the source no longer holds {old!r}")
-            src = src.replace(old, new)
-        sources[name] = src
+    print(card())
+    sources = variant_sources(SOURCE, VARIANTS)
     if args.baseline:
-        sources["baseline"] = args.baseline.read_text()
+        sources["baseline"] = {SOURCE: args.baseline.read_text()}
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    def time_ms(fn, iters=20):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
     with tempfile.TemporaryDirectory() as work:
-        libs = build_all(sources, Path(work))
+        libs = build_all(sources, SOURCE, Path(work))
+        for lib in libs.values():
+            lib.attention_f32_d128.argtypes = SIGNATURES["attention_f32_d128"]
         for B in (8, 2):
             g = torch.Generator(device="cuda").manual_seed(2)
             qkv = torch.randn(B, 4096, 1, 3, 128, device="cuda", generator=g)

@@ -4,8 +4,9 @@ Each source is compiled by its own `nvcc` process, all started together, for
 `sm_90a`; the objects are linked into one shared library that `ctypes` loads.
 Nothing here includes PyTorch's headers, so a build takes seconds. The
 library is built at first use into `build/torch_kernels/` at the root of the
-checkout, named by a hash of the sources and flags, so an edited source
-builds anew. A failed build raises: there is no fallback.
+checkout, named by a hash of the sources, the headers they share (csrc/*.cuh)
+and the flags, so an edited source builds anew. A failed build raises: there
+is no fallback.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "gn_swish_f32": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _LL, _F, _P],
     "attention_f32_d128": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _F, _P],
-    "conv_gn_f32": [_P, _P, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P,
+    "conv_gn_f32": [_P, _P, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
@@ -51,7 +52,7 @@ def _nvcc() -> str:
 
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cuh")) + list(sources):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -1,0 +1,79 @@
+"""Build and time variants of one of csrc/*.cu on one card.
+
+A variant is the shipped source and the headers it includes (csrc/*.cuh)
+with text substitutions in either; a baseline is any other source with the
+same entry point. Each is written to a directory of its own and built by its
+own `nvcc` into its own library, all started together, so a variant's header
+shadows the shipped one. Shared by `attention_variants` and
+`conv_gn_variants`; nothing here is used by the port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+from pathlib import Path
+
+from .build import COMPILE_FLAGS, CSRC, _nvcc
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def variant_sources(source: str, variants: dict) -> dict:
+    """name -> {file name: text}: csrc/`source` and csrc/*.cuh with each
+    variant's (file name, old, new) substitutions applied."""
+    base = {source: (CSRC / source).read_text()}
+    base.update({h.name: h.read_text() for h in sorted(CSRC.glob("*.cuh"))})
+    out = {}
+    for name, subs in variants.items():
+        files = dict(base)
+        for fname, old, new in subs:
+            if old not in files[fname]:
+                raise RuntimeError(f"variant {name}: {fname} no longer holds {old!r}")
+            files[fname] = files[fname].replace(old, new)
+        out[name] = files
+    return out
+
+
+def build_all(sources: dict, main: str, work: Path) -> dict:
+    """Build each variant's `main` file (its headers beside it) into a
+    library; print its registers and spills; return name -> CDLL."""
+    procs = {}
+    for name, files in sources.items():
+        d = work / name
+        d.mkdir()
+        for fname, text in files.items():
+            (d / fname).write_text(text)
+        cmd = [_nvcc(), *COMPILE_FLAGS, "-I", str(CSRC), "-shared", "-o", str(d / "lib.so"),
+               str(d / main)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    libs = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        print(f"{name}: " + "; ".join(line.split(":", 1)[-1].strip() for line in out.splitlines()
+                                     if "Used" in line or "spill" in line or "Compiling" in line))
+        libs[name] = ctypes.CDLL(str(work / name / "lib.so"))
+    return libs
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn over `iters` calls, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters

@@ -20,8 +20,10 @@ import torch.nn.functional as F
 
 from ..kernels.build import check, library
 
-# csrc/conv_gn.cu: 256 threads a block, 8 pixels × 8 output channels a thread
-_THREADS, _PIX_PER_THREAD, _CH_PER_THREAD = 256, 8, 8
+# csrc/conv_gn.cu: output channels a block (BN >= Cout) -> (tile rows, tile
+# columns), its `launch<BN, NW, WN, TR, TW, TPS>` lines; K steps of 16 channels
+_TILES = {16: (16, 16), 32: (8, 16), 64: (8, 16), 128: (8, 16)}
+_KC = 16
 MAX_CIN = 256
 MAX_COUT = 128
 
@@ -76,17 +78,27 @@ def conv_gn_reference(x, w, b, scale=None, shift=None, residual=None, w_skip=Non
     return y, y.sum(dim=(1, 2)), (y * y).sum(dim=(1, 2))
 
 
+def _block_channels(Cout: int) -> int:
+    return next(bn for bn in _TILES if bn >= Cout)
+
+
 def conv_gn_tiling(H: int, W: int, Cout: int):
     """The kernel's block geometry for an H×W map and Cout channels: (tile
     rows, tile columns, tiles per batch element). A block covers all Cout
-    (8 channels a thread, 2-16 threads across) and tr×tw pixels of one batch
-    element (8 a thread), the widest power of two of columns up to W; ragged
-    edges are masked."""
-    threads_across = next(t for t in (2, 4, 8, 16) if _CH_PER_THREAD * t >= Cout)
-    pixels = _THREADS // threads_across * _PIX_PER_THREAD
-    tw = 1 << (min(W, pixels).bit_length() - 1)
-    tr = pixels // tw
+    (rounded up to 16, 32, 64 or 128) and a fixed tr×tw tile of one batch
+    element for that width: 16×16 pixels on 8 warps at 16 channels, 8×16 on
+    4 warps at 32 and 64, 8×16 on 8 warps at 128 (a 64² map at batch 8
+    still gives 256 blocks); ragged edges are masked."""
+    tr, tw = _TILES[_block_channels(Cout)]
     return tr, tw, -(-H // tr) * -(-W // tw)
+
+
+def conv_gn_split_floats(Cin: int, Cout: int, Cres_skip: int) -> int:
+    """Floats of the kernel's scratch for the split weights: a big and a
+    small plane of BN×16 for each K step (9 taps × Cin/16 chunks, plus
+    Cres/16 chunks of a projected residual, `Cres_skip` 0 without one)."""
+    steps = 9 * -(-Cin // _KC) + -(-Cres_skip // _KC)
+    return steps * 2 * _block_channels(Cout) * _KC
 
 
 def _check(x, w, b, scale, shift, residual, w_skip):
@@ -143,13 +155,15 @@ def _launch(x, w, b, scale, shift, residual, w_skip, Cres: int):
     y = torch.empty((B, H, W, Cout), device=x.device, dtype=torch.float32)
     partials = torch.empty((B, tiles, 2, Cout), device=x.device, dtype=torch.float32)
     stats = torch.empty((2, B, Cout), device=x.device, dtype=torch.float32)
+    wsplit = torch.empty(conv_gn_split_floats(Cin, Cout, Cres if w_skip is not None else 0),
+                         device=x.device, dtype=torch.float32)
     ws = w.stride()
     ks = w_skip.stride() if w_skip is not None else (0, 0)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = library().conv_gn_f32(
         x.data_ptr(), w.data_ptr(), *ws, b.data_ptr(), ptr(scale), ptr(shift), ptr(residual),
-        ptr(w_skip), *ks, y.data_ptr(), partials.data_ptr(), stats.data_ptr(),
+        ptr(w_skip), *ks, y.data_ptr(), partials.data_ptr(), stats.data_ptr(), wsplit.data_ptr(),
         B, H, W, Cin, Cout, Cres, int(scale is not None), int(residual is not None),
         int(w_skip is not None), tr, tw, stream)
     check(err, "conv_gn_f32")
