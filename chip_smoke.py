@@ -13,7 +13,9 @@ conv+GroupNorm kernel at every ResnetBlock and upsample conv, attention, and
 GroupNorm+Swish at the head). For each it checks that every kernel of the path
 was launched, that the output is finite and of the right shape, and that it
 agrees with the same path run through the plain versions (or with the
-unfused slice) and, on a small input, with the port on the CPU.
+unfused slice) and, on a small input, with the port on the CPU. It also serves
+configs/splitting_cifar10_indi.json at its own width and patch (32², so
+attention at N = 16 tokens), unfused and fused, against the port on the CPU.
 
 Every phase raises on failure, so the script exits non-zero with no result
 line. It prints the card's name and power limit, per-kernel times beside
@@ -46,6 +48,8 @@ CONFIG = "configs/splitting_hagen_indi_joint.json"
 PATCH, BATCH = 512, 8
 FRAMES = (2, 1024, 1024)
 ATTN_N, ATTN_D = 4096, 128
+CIFAR_CONFIG = "configs/splitting_cifar10_indi.json"
+CIFAR_FRAMES = (2, 64, 64)
 
 
 def log(msg: str) -> None:
@@ -96,36 +100,26 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def gn_shapes(net, x, t):
-    """(C, H, W) -> count of GroupNorm+Swish calls in one forward of net."""
-    from diffsplitting_tpu_torch.models.blocks import GroupNormSwish
-
-    counts = collections.Counter()
-    hooks = [m.register_forward_pre_hook(
-        lambda _m, args: counts.update([tuple(args[0].shape[1:])]))
-        for m in net.modules() if isinstance(m, GroupNormSwish)]
-    try:
-        net(x, t)
-    finally:
-        for h in hooks:
-            h.remove()
-    return counts
-
-
-def phase_group_norm(dev, shapes, groups):
-    """Kernel vs plain version at every (C, H, W) of one forward, batch 8."""
+def phase_group_norm(dev, shapes, groups, batch=BATCH, timed=True):
+    """Kernel vs plain version at every (C, H, W) of one forward; two
+    launches must give the same bits. When `timed`: the kernel, plain and
+    library times through a host loop of calls (as the kernel has been timed
+    since it was ported; at the small shapes the wrapper's host time bounds
+    it), and the kernel's device time alone by CUDA-graph replay."""
     import torch
     import torch.nn.functional as F
+    from diffsplitting_tpu_torch.kernels.variants import device_ms
     from diffsplitting_tpu_torch.ops import fused_group_norm_swish, group_norm_swish_reference
 
     g = torch.Generator(device=dev).manual_seed(1)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, device_ms=0.0)
     worst = 0.0
     for (C, H, W), calls in sorted(shapes.items()):
-        x = torch.randn(BATCH, H, W, C, device=dev, generator=g) * 2 + 0.5
+        x = torch.randn(batch, H, W, C, device=dev, generator=g) * 2 + 0.5
         scale = torch.randn(C, device=dev, generator=g)
         bias = torch.randn(C, device=dev, generator=g)
         got = fused_group_norm_swish(x, scale, bias, groups)
+        again = fused_group_norm_swish(x, scale, bias, groups)
         want = group_norm_swish_reference(x, scale, bias, groups)
         torch.cuda.synchronize()
         err = max_err(got, want)
@@ -133,24 +127,33 @@ def phase_group_norm(dev, shapes, groups):
         # values in another order
         tol = 1e-4 * (1 + want.abs().max().item())
         if not err <= tol:
-            raise AssertionError(f"GN+Swish C={C} H={H}: max abs err {err} > {tol}")
+            raise AssertionError(f"GN+Swish B={batch} C={C} H={H}: max abs err {err} > {tol}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"GN+Swish B={batch} C={C} H={H}: two launches differ")
         worst = max(worst, err)
-        del got, want
+        del got, again, want
+        if not timed:
+            log(f"gn_swish B={batch} H={H} W={W} C={C} C/G={C // groups} calls/forward={calls}: "
+                f"err {err:.3g} (tol {tol:.3g}), two launches bit-identical")
+            continue
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of the same bytes
         ms = time_ms(lambda: fused_group_norm_swish(x, scale, bias, groups), 20)
+        dev_ms = device_ms(lambda: fused_group_norm_swish(x, scale, bias, groups), 20)
         plain = time_ms(lambda: group_norm_swish_reference(x, scale, bias, groups), 5)
         lib = time_ms(lambda: F.silu(F.group_norm(x_nchw, groups, scale, bias, 1e-5)), 5)
         bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3  # read x, write y
-        log(f"gn_swish B={BATCH} H={H} W={W} C={C} C/G={C // groups} calls/forward={calls}: "
-            f"err {err:.3g} kernel {ms:.4f} ms plain {plain:.4f} ms library {lib:.4f} ms "
-            f"bound {bound:.4f} ms ({bound / ms:.1%} of HBM rate)")
+        log(f"gn_swish B={batch} H={H} W={W} C={C} C/G={C // groups} calls/forward={calls}: "
+            f"err {err:.3g} kernel {ms:.4f} ms (device time {dev_ms:.4f}) plain {plain:.4f} ms "
+            f"library {lib:.4f} ms bound {bound:.4f} ms ({bound / ms:.1%} of HBM rate; "
+            f"{bound / dev_ms:.1%} by device time)")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bound_ms", bound)):
+                         ("bound_ms", bound), ("device_ms", dev_ms)):
             tot[key] += calls * val
         del x, x_nchw
         torch.cuda.empty_cache()
-    log(f"gn_swish per UNet forward ({sum(shapes.values())} calls): "
-        + " ".join(f"{k} {v:.4f}" for k, v in tot.items()))
+    if timed:
+        log(f"gn_swish per UNet forward ({sum(shapes.values())} calls): "
+            + " ".join(f"{k} {v:.4f}" for k, v in tot.items()))
     return tot, worst
 
 
@@ -200,12 +203,12 @@ def phase_attention(dev, batches):
     return res, worst
 
 
-def phase_conv_gn(dev, sites):
-    """conv_gn kernel vs plain version at every site of one fused forward,
-    batch 8. The library time is cuDNN's F.conv2d on the already-activated
-    input (plus the 1x1 F.conv2d of a projected residual): the convolution
-    work the kernel replaces, without its prologue, residual add and
-    statistics passes."""
+def phase_conv_gn(dev, sites, batch=BATCH, timed=True):
+    """conv_gn kernel vs plain version at every site of one fused forward.
+    When `timed`, also the times; the library time is cuDNN's F.conv2d on
+    the already-activated input (plus the 1x1 F.conv2d of a projected
+    residual): the convolution work the kernel replaces, without its
+    prologue, residual add and statistics passes."""
     import torch
     import torch.nn.functional as F
     from diffsplitting_tpu_torch.kernels.conv_gn_variants import site_args
@@ -217,7 +220,7 @@ def phase_conv_gn(dev, sites):
     worst = 0.0
     for site, calls in sorted(sites.items(), key=str):
         H, W, Cin, Cout, act, res, Cres = site
-        args = site_args(site, BATCH, g)
+        args = site_args(site, batch, g)
         x, w, b, scale, shift, r, w_skip = args
         y, s, q = conv_gn_fused(*args)
         y_ref, s_ref, q_ref = conv_gn_reference(*args)
@@ -231,11 +234,16 @@ def phase_conv_gn(dev, sites):
         q_tol = 1e-5 * q_ref + 1e-3
         if not (err <= tol and ((s - s_ref).abs() <= s_tol).all()
                 and ((q - q_ref).abs() <= q_tol).all()):
-            raise AssertionError(f"conv_gn H={H} Cin={Cin} Cout={Cout} act={act} res={res}: "
+            raise AssertionError(f"conv_gn B={batch} H={H} Cin={Cin} Cout={Cout} act={act} "
+                                 f"res={res}: "
                                  f"max abs err {err} (tol {tol}), sums err "
                                  f"{max_err(s, s_ref)}, sumsqs err {max_err(q, q_ref)}")
         worst = max(worst, err)
         del y, y_ref, s, q, s_ref, q_ref
+        if not timed:
+            log(f"conv_gn B={batch} H={H} W={W} Cin={Cin} Cout={Cout} prologue={act} "
+                f"residual={res} Cres={Cres} calls/forward={calls}: err {err:.3g} (tol {tol:.3g})")
+            continue
         ms = time_ms(lambda: conv_gn_fused(*args), 10)
         plain = time_ms(lambda: conv_gn_reference(*args), 3)
         # cuDNN on the activated input, channels_last as the unfused path feeds it
@@ -252,8 +260,8 @@ def phase_conv_gn(dev, sites):
             return out
 
         lib = time_ms(library, 5)
-        flops = 2 * BATCH * H * W * (9 * Cin + (Cres if res == "projected" else 0)) * Cout
-        nbytes = 4 * BATCH * H * W * (Cin + Cout + Cres)
+        flops = 2 * batch * H * W * (9 * Cin + (Cres if res == "projected" else 0)) * Cout
+        nbytes = 4 * batch * H * W * (Cin + Cout + Cres)
         # each f32 product is three TF32 tensor-core products (3xTF32); the
         # same work at the f32 FMA rate is printed beside it
         tc_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
@@ -261,7 +269,7 @@ def phase_conv_gn(dev, sites):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound = max(tc_ms, bytes_ms)
         by = "operations" if tc_ms >= bytes_ms else "bytes"
-        log(f"conv_gn B={BATCH} H={H} W={W} Cin={Cin} Cout={Cout} prologue={act} residual={res} "
+        log(f"conv_gn B={batch} H={H} W={W} Cin={Cin} Cout={Cout} prologue={act} residual={res} "
             f"Cres={Cres} calls/forward={calls}: err {err:.3g} kernel {ms:.4f} ms plain "
             f"{plain:.4f} ms library {lib:.4f} ms bound {bound:.4f} ms ({by}; 3xTF32 tensor-core "
             f"{tc_ms:.4f}, bytes {bytes_ms:.4f}, f32 FMA {fma_ms:.4f}; "
@@ -269,11 +277,13 @@ def phase_conv_gn(dev, sites):
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bound_ms", bound), ("tc_ms", tc_ms), ("fma_ms", fma_ms),
                          ("bytes_ms", bytes_ms), ("gflop", flops / 1e9),
-                         ("gflop_taps", 2 * BATCH * H * W * 9 * Cin * Cout / 1e9),
+                         ("gflop_taps", 2 * batch * H * W * 9 * Cin * Cout / 1e9),
                          ("gbytes", nbytes / 1e9)):
             tot[key] += calls * val
         del x, xa, r, r_nchw, args
         torch.cuda.empty_cache()
+    if not timed:
+        return tot, worst
     log(f"conv_gn per fused UNet forward ({sum(sites.values())} calls; library = cuDNN "
         "F.conv2d on the activated input, + the 1x1 skip conv): "
         + " ".join(f"{k} {v:.4f}" for k, v in tot.items())
@@ -309,6 +319,117 @@ def phase_small_reference(opt, fused: bool = False):
                              f"max abs err {err} > {tol}")
     log(f"small input (1x128x128, patch 64, fused={fused}): card vs CPU max abs err {err:.3g} "
         f"(tol {tol:.3g})")
+
+
+def phase_cifar10(dev):
+    """configs/splitting_cifar10_indi.json served at its own width and patch
+    (inner 16, 6 channels, 32² patches, 20 steps; the mid block at 4×4, so
+    attention at N = 16 tokens) on two 64² frames, unfused and fused. The
+    launches are checked against the config's depth; each kernel is held
+    against its plain version at every shape this path gives it, at the
+    serving batch and at the last batch's (GN+Swish also bit-identical on two
+    launches); the fused output against the unfused one, and, with the noise
+    off, the card against the port on the CPU."""
+    import copy
+
+    import torch
+    from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
+    from diffsplitting_tpu_torch.data import TileIndexManager, TilingMode
+    from diffsplitting_tpu_torch.kernels.conv_gn_variants import conv_gn_sites
+    from diffsplitting_tpu_torch.kernels.groupnorm_variants import gn_shapes
+    from diffsplitting_tpu_torch.ops import attention_reference, fused_attention
+    from diffsplitting_tpu_torch.predict import predict_frames
+    from diffsplitting_tpu_torch.serving import SplittingModel
+
+    opt = dict_to_nonedict(load_json(CIFAR_CONFIG))
+    patch = int(opt["datasets"]["patch_size"])
+    unet = opt["model"]["unet"]
+    levels, res_blocks = len(unet["channel_multiplier"]), unet["res_blocks"]
+    # ResnetBlocks: res_blocks a level down, the mid pair, res_blocks + 1 a
+    # level up; two GN+Swish or conv_gn calls each, the head's GN+Swish, and
+    # an upsample conv between decoder levels
+    n_resnet = levels * res_blocks + 2 + levels * (res_blocks + 1)
+    gn_per_forward, conv_per_forward = 2 * n_resnet + 1, 2 * n_resnet + levels - 1
+    model = SplittingModel(opt, device=dev, seed=8)
+    net = model.unets()[0]
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(BATCH, patch, patch, unet["in_channel"], device=dev, generator=g)
+    t = torch.full((BATCH,), 0.5, device=dev)
+    with torch.inference_mode():
+        shapes, sites = gn_shapes(net, x, t), conv_gn_sites(net, x, t)
+    seen = (sum(shapes.values()), sum(sites.values()))
+    if seen != (gn_per_forward, conv_per_forward):
+        raise AssertionError(f"{CIFAR_CONFIG}: (GN+Swish, conv_gn) calls a forward {seen}, "
+                             f"expected {(gn_per_forward, conv_per_forward)} from its depth")
+
+    frames = torch.randn(*CIFAR_FRAMES, 1, device=dev, generator=g)
+    n_tiles = TileIndexManager(CIFAR_FRAMES, (1, patch // 2, patch // 2), (1, patch, patch),
+                               TilingMode.ShiftBoundary).total_grid_count()
+    forwards = model.process.num_timesteps * math.ceil(n_tiles / BATCH)
+
+    # every kernel at this path's shapes, at the serving batch and the last
+    # batch's (18 tiles: 8, 8, 2)
+    n_tok = (patch >> (levels - 1)) ** 2
+    dim = unet["inner_channel"] * unet["channel_multiplier"][-1]
+    for B in sorted({BATCH, n_tiles % BATCH or BATCH}, reverse=True):
+        _, gn_err = phase_group_norm(dev, shapes, int(unet["norm_groups"]), batch=B, timed=False)
+        _, conv_err = phase_conv_gn(dev, sites, batch=B, timed=False)
+        qkv = torch.randn(B, n_tok, 1, 3, dim, device=dev, generator=g)
+        q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+        got = fused_attention(q, k, v, 1 / math.sqrt(dim))
+        want = attention_reference(q, k, v, 1 / math.sqrt(dim))
+        err = max_err(got, want)
+        tol = 1e-4 * (1 + want.abs().max().item())  # f32 on both sides
+        if not err <= tol:
+            raise AssertionError(f"attention B={B} N={n_tok}: max abs err {err} > {tol}")
+        ms = time_ms(lambda: fused_attention(q, k, v, 1 / math.sqrt(dim)), 20)
+        log(f"cifar10 indi kernels at B={B}: GN+Swish at {len(shapes)} shapes max abs err "
+            f"{gn_err:.3g}, conv_gn at {len(sites)} sites {conv_err:.3g}, attention N={n_tok} "
+            f"D={dim} heads=1 {err:.3g} (tol {tol:.3g}), {ms:.4f} ms")
+    outs = {}
+    for fused in (False, True):
+        expected = {"group_norm_swish": (1 if fused else gn_per_forward) * forwards,
+                    "attention": forwards, "conv_gn": conv_per_forward * forwards if fused else 0}
+        model.generator.manual_seed(0)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = predict_frames(model, frames, patch, BATCH, fused=fused)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if launches != expected:
+            raise AssertionError(f"{CIFAR_CONFIG} fused={fused}: launches {launches}, "
+                                 f"expected {expected}")
+        if (tuple(out.shape) != CIFAR_FRAMES + (unet["out_channel"],)
+                or not torch.isfinite(out).all()):
+            raise AssertionError(f"{CIFAR_CONFIG} fused={fused}: output shape "
+                                 f"{tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+        log(f"cifar10 indi fused={fused}: {CIFAR_FRAMES[0]} frames {CIFAR_FRAMES[1]}x"
+            f"{CIFAR_FRAMES[2]}, {n_tiles} tiles of {patch}², {model.process.num_timesteps} "
+            f"steps, {forwards} UNet forwards in {wall * 1e3:.1f} ms, launches {launches}")
+        outs[fused] = out
+    err = max_err(outs[True], outs[False])
+    tol = 1e-3 * outs[False].abs().max().item() + 1e-4
+    if not err <= tol:
+        raise AssertionError(f"{CIFAR_CONFIG}: fused vs unfused max abs err {err} > {tol}")
+    log(f"cifar10 indi: fused vs unfused max abs err {err:.3g} (tol {tol:.3g})")
+
+    quiet = copy.deepcopy(opt)
+    quiet["model"]["indi"] = {"noise_mode": "none"}
+    cpu = SplittingModel(quiet, device="cpu", seed=8)
+    gpu = SplittingModel(quiet, device=dev, seed=8)
+    gpu.nets.load_state_dict(cpu.nets.state_dict())
+    for fused in (False, True):
+        want = predict_frames(cpu, frames.cpu(), patch, BATCH, fused=fused)
+        got = predict_frames(gpu, frames, patch, BATCH, fused=fused).cpu()
+        err = max_err(got, want)
+        tol = 2e-4 * max(1.0, want.abs().max().item())  # f32; cuDNN and CPU sum orders
+        if not err <= tol:
+            raise AssertionError(f"{CIFAR_CONFIG} fused={fused}: card vs CPU max abs err "
+                                 f"{err} > {tol}")
+        log(f"cifar10 indi fused={fused}, noise off: card vs CPU max abs err {err:.3g} "
+            f"(tol {tol:.3g})")
 
 
 # profile family -> the source whose __global__ functions make it up, and
@@ -440,7 +561,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
-    from diffsplitting_tpu_torch.kernels import build, conv_gn_variants
+    from diffsplitting_tpu_torch.kernels import build, conv_gn_variants, groupnorm_variants
     from diffsplitting_tpu_torch.models import fused_unet_forward
     from diffsplitting_tpu_torch.predict import predict_frames
     from diffsplitting_tpu_torch.serving import SplittingModel
@@ -473,7 +594,7 @@ def main() -> int:
 
     # GN+Swish at the unfused slice's shapes
     with torch.inference_mode():
-        shapes = gn_shapes(net, tile_batch, t_vec)
+        shapes = groupnorm_variants.gn_shapes(net, tile_batch, t_vec)
     if sum(shapes.values()) != 29:
         raise AssertionError(f"expected 29 GN+Swish calls per forward, saw {dict(shapes)}")
     gn, gn_err = phase_group_norm(dev, shapes, groups)
@@ -508,6 +629,7 @@ def main() -> int:
 
     phase_small_reference(opt)
     phase_small_reference(opt, fused=True)
+    phase_cifar10(dev)
 
     # the slice: joint-InDI tiled prediction at full width, unfused and fused
     frames = torch.randn(*FRAMES, 1, device=dev, generator=gen)
@@ -549,7 +671,7 @@ def main() -> int:
              replaces="diffsplitting_tpu/experimental/groupnorm_pallas.py:21,58",
              launches=launches["group_norm_swish"], max_abs_err=gn_err, ms=gn["ms"],
              plain_ms=gn["plain_ms"], bound_ms=gn["bound_ms"], bound_by="bytes",
-             library_ms=gn["library_ms"]),
+             library_ms=gn["library_ms"], device_ms=gn["device_ms"]),
         dict(name="attention", route="cuda",
              source="diffsplitting_tpu_torch/csrc/attention.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
@@ -563,8 +685,9 @@ def main() -> int:
              plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],
              library_ms=conv["library_ms"]),
     ]
-    log("group_norm_swish times are per UNet forward (29 calls at batch 8) and its launches "
-        "are the unfused slice's; attention times are per call at "
+    log("group_norm_swish times are per UNet forward (29 calls at batch 8), through a host loop "
+        "of calls (device_ms: its device time alone, by CUDA-graph replay), and its launches are "
+        "the unfused slice's; attention times are per call at "
         f"B={BATCH}, N={ATTN_N}, D={ATTN_D}; conv_gn times are per fused UNet forward "
         "(31 calls at batch 8) and its launches are the fused slice's")
     print(json.dumps({"kernels": kernels}))

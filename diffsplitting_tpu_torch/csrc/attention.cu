@@ -33,17 +33,18 @@
 //     block per SM on 132 SMs, with two warps per SM sub-partition to hide
 //     the mma and shared-memory latency. (64-query blocks of 4 warps would
 //     give 512 blocks but, at one block per SM by shared memory, only one
-//     warp per sub-partition, and twice the K/V reads from L2.) When N is an
-//     odd multiple of 64, the last block's upper four warps have no rows and
-//     only help stage K and V.
-//   * Dynamic shared memory, 192 KB of the 227 KB (cudaFuncSetAttribute): the
-//     block's Q tile (64 KB, raw f32) and a ring of two stages of 64-key K
-//     and V tiles (32 KB each a stage). cp.async.cg 16-byte copies fill stage
-//     k+1 while the warps compute on stage k; one barrier a tile. (32-key
-//     tiles in three stages measured 6 % slower.)
-//   * Registers: 231 a thread, no spills (-Xptxas -v): O is 64, S 32, and
-//     Q's fragments are loaded from shared memory and split per k-step
-//     rather than held (they would need 128 more).
+//     warp per sub-partition, and twice the K/V reads from L2.) In the last
+//     block, a warp whose 16 rows all lie past N only helps stage K and V;
+//     a warp with some rows past N computes on their zeros and stores none.
+//   * Dynamic shared memory, 160 KB of the 227 KB (cudaFuncSetAttribute): the
+//     block's Q tile (64 KB, raw f32) and a ring of three stages of 32-key K
+//     and V tiles (16 KB each a stage). cp.async.cg 16-byte copies fill the
+//     stages two tiles ahead while the warps compute; one barrier a tile.
+//   * Registers: 243 a thread, no spills (-Xptxas -v): O is 64, S 16, a
+//     tile's P V sum 64, and Q's fragments are loaded from shared memory and
+//     split per k-step rather than held (they would need 128 more). 32-key
+//     tiles are what make room for the P V sum: with 64-key tiles every
+//     arrangement of it spilled (PERF.md).
 //   * Fragment loads are 16 bytes and free of bank conflicts. The head dim is
 //     consumed in a permuted order that is the same for Q and K (a float4 of
 //     d = 16s+4t .. 16s+4t+3 feeds two k-steps), and rows are XOR-swizzled in
@@ -57,8 +58,19 @@
 //   * Online softmax in the exp2 domain: running max and a per-thread running
 //     sum in f32 registers, the O accumulator rescaled per tile, one division
 //     at the end.
-//   * N must be a multiple of 64 and D must be 128; the wrapper raises on
-//     anything else.
+//   * The sum over keys in f32 between tensor-core steps. The MMA's own
+//     accumulator rounds toward zero (measured on the H100 for conv_gn.cu),
+//     so O is not summed over all N keys in it: a tile's P V is summed from 0
+//     over its 32 keys (12 MMAs) for all 16 n-tiles, then added to O (4 FADD
+//     a 12 MMA). S, 128 terms of one row and key, stays in the accumulator.
+//     Summed in the accumulator over all N keys, the kernel erred 7.6e-6 at
+//     B = 8, N = 4096; now 7.2e-7. Summing S per 16-wide head-dim step from 0
+//     as well took the error to 4.4e-7 for 1-5 % more time (PERF.md).
+//   * Any N >= 1. The last K/V tile is zero-filled past N (cp.async with a
+//     source size of 0) and its scores there are set to -inf before the row
+//     max; every tile holds at least one real key, so a row max is finite and
+//     no exp2 sees -inf - -inf. Query rows past N are zero-filled and never
+//     stored. D must be 128; the wrapper raises on anything else.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,12 +82,12 @@ namespace {
 
 constexpr int kD = 128;
 constexpr int kChunks = kD / 4;   // 16-byte chunks a row
-constexpr int kTileK = 64;        // keys a stage
+constexpr int kTileK = 32;        // keys a stage
 constexpr int kNT = kTileK / 8;   // 8-key n-tiles of S a stage
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = kWarps * 16;  // queries a block
-constexpr int kStages = 2;
+constexpr int kStages = 3;
 constexpr size_t kSmemFloats = (size_t)kBlockQ * kD + (size_t)kStages * 2 * kTileK * kD;
 
 // 16-byte chunk offsets (in floats) of the swizzled tiles
@@ -109,26 +121,29 @@ attention_tf32x3_d128_kernel(const float* __restrict__ q, const float* __restric
     const bool active = q0 + r0 < n_tokens;  // warp-uniform
     const long long base = (long long)b * sb + (long long)h * sh;
 
-    // stage Q (rows past N are skipped: their warps are inactive)
+    // stage Q; rows past N are zeros (a source size of 0 reads nothing)
     for (int c = tid; c < kBlockQ * kChunks; c += kThreads) {
         const int row = c / kChunks, chunk = c % kChunks;
-        if (q0 + row < n_tokens)
-            cp_async16(Qs + qk_at(row, chunk), q + base + (long long)(q0 + row) * sn + chunk * 4);
+        const bool ok = q0 + row < n_tokens;
+        const long long src = base + (long long)(ok ? q0 + row : 0) * sn + chunk * 4;
+        cp_async16_zfill(Qs + qk_at(row, chunk), q + src, ok);
     }
+    // keys past N are zeros in K and V
     auto stage_kv = [&](int tile, int stage) {
         float* kd = Ks + stage * kTileK * kD;
         float* vd = Vs + stage * kTileK * kD;
-        const long long off = base + (long long)tile * kTileK * sn;
         for (int c = tid; c < kTileK * kChunks; c += kThreads) {
             const int key = c / kChunks, chunk = c % kChunks;
-            const long long src = off + (long long)key * sn + chunk * 4;
-            cp_async16(kd + qk_at(key, chunk), k + src);
-            cp_async16(vd + v_at(key, chunk), v + src);
+            const int kg = tile * kTileK + key;
+            const bool ok = kg < n_tokens;
+            const long long src = base + (long long)(ok ? kg : 0) * sn + chunk * 4;
+            cp_async16_zfill(kd + qk_at(key, chunk), k + src, ok);
+            cp_async16_zfill(vd + v_at(key, chunk), v + src, ok);
         }
     };
     // the ring runs kStages - 1 tiles ahead; a group is committed for every
     // tile slot, empty past the last tile, so the wait count holds throughout
-    const int n_tiles = n_tokens / kTileK;
+    const int n_tiles = (n_tokens + kTileK - 1) / kTileK;
     for (int p = 0; p < kStages - 1; ++p) {
         if (p < n_tiles) stage_kv(p, p);
         cp_async_commit();
@@ -154,8 +169,9 @@ attention_tf32x3_d128_kernel(const float* __restrict__ q, const float* __restric
             const float* Kt = Ks + (it % kStages) * kTileK * kD;
             const float* Vt = Vs + (it % kStages) * kTileK * kD;
 
-            // S = Q K^T for rows r0+g, r0+g+8 and the tile's 64 keys; k-step
-            // pair s takes d = 16s + 4t + {0, 1} and 16s + 4t + {2, 3}
+            // S = Q K^T for rows r0+g, r0+g+8 and the tile's 32 keys, summed
+            // over all of D in the MMA accumulator; k-step pair s takes
+            // d = 16s + 4t + {0, 1} and 16s + 4t + {2, 3}
             float s[kNT][4];
 #pragma unroll
             for (int n = 0; n < kNT; ++n)
@@ -188,8 +204,18 @@ attention_tf32x3_d128_kernel(const float* __restrict__ q, const float* __restric
                 }
             }
 
-            // online softmax; s[n] holds rows g (0, 1) and g+8 (2, 3), keys
-            // 8n + 2t and 8n + 2t + 1
+            // s[n] holds rows g (0, 1) and g+8 (2, 3), keys 8n + 2t and
+            // 8n + 2t + 1; keys past N take no weight
+            const int keys_left = n_tokens - it * kTileK;
+            if (keys_left < kTileK) {
+#pragma unroll
+                for (int n = 0; n < kNT; ++n) {
+                    if (8 * n + 2 * t >= keys_left) s[n][0] = s[n][2] = -INFINITY;
+                    if (8 * n + 2 * t + 1 >= keys_left) s[n][1] = s[n][3] = -INFINITY;
+                }
+            }
+
+            // online softmax
             float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
             for (int n = 0; n < kNT; ++n) {
@@ -226,7 +252,9 @@ attention_tf32x3_d128_kernel(const float* __restrict__ q, const float* __restric
             }
 
             // O += P V over k-steps of 8 keys: logical k t <-> key 8j + 2t,
-            // t + 4 <-> 8j + 2t + 1, so P's A fragment is S's C fragment
+            // t + 4 <-> 8j + 2t + 1, so P's A fragment is S's C fragment.
+            // The tile's P V is summed from 0, then added to O in f32.
+            float d[16][4] = {};  // this tile's P V, from 0
 #pragma unroll
             for (int j = 0; j < kNT; ++j) {
                 uint32_t pb[4], ps[4];
@@ -247,10 +275,14 @@ attention_tf32x3_d128_kernel(const float* __restrict__ q, const float* __restric
                         uint32_t b0b, b0s, b1b, b1s;
                         split(x0[e], b0b, b0s);
                         split(x1[e], b1b, b1s);
-                        mma_3xtf32(o[4 * c + e], pb, ps, b0b, b1b, b0s, b1s);
+                        mma_3xtf32(d[4 * c + e], pb, ps, b0b, b1b, b0s, b1s);
                     }
                 }
             }
+#pragma unroll
+            for (int n = 0; n < 16; ++n)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) o[n][i] += d[n][i];
         }
     }
 
@@ -264,6 +296,7 @@ attention_tf32x3_d128_kernel(const float* __restrict__ q, const float* __restric
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         const float inv = 1.0f / l;
         const int row = q0 + r0 + g + 8 * r;
+        if (row >= n_tokens) continue;
         float4* dst = reinterpret_cast<float4*>(
             out + (((long long)b * n_tokens + row) * heads + h) * kD + 32 * t);
 #pragma unroll
@@ -280,7 +313,7 @@ attention_tf32x3_d128_kernel(const float* __restrict__ q, const float* __restric
 
 // q, k, v: (B, N, heads, 128) f32 views sharing the element strides
 // (sb, sn, sh) with unit stride on the last dim and 16-byte aligned rows;
-// out: (B, N, heads, 128) contiguous. N % 64 == 0. Returns cudaGetLastError().
+// out: (B, N, heads, 128) contiguous. Any N >= 1. Returns cudaGetLastError().
 extern "C" int attention_f32_d128(const void* q, const void* k, const void* v, void* out, int B,
                                   int n_tokens, int heads, long long sb, long long sn,
                                   long long sh, float scale, void* stream) {

@@ -2,8 +2,8 @@
 
     python -m diffsplitting_tpu_torch.kernels.attention_variants [--baseline FILE]
 
-Each variant is the shipped source (and csrc/tf32x3.cuh) with one text
-substitution, built by its own `nvcc` into its own library (all started
+Each variant is the shipped source (and csrc/tf32x3.cuh) with text
+substitutions, built by its own `nvcc` into its own library (all started
 together) and called through the same C entry point, `attention_f32_d128`, at
 the mid block's shape (N = 4096, D = 128, one head; q, k, v views of one qkv
 tensor) at B = 8 and B = 2. The variants are timed in turns (forward, then in
@@ -25,22 +25,35 @@ from .variants import build_all, card, time_ms, variant_sources
 
 SOURCE = "attention.cu"
 HEADER = "tf32x3.cuh"
-SPLIT = ("    big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
-         "    small = __float_as_uint(x - __uint_as_float(big));")
-CVT = ('    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));\n'
-       '    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(x - __uint_as_float(big)));')
 ONE_TF32 = (HEADER, "    mma_tf32(d, a_small, b0_big, b1_big);\n"
             "    mma_tf32(d, a_big, b0_small, b1_small);\n", "")
+# S summed per 16-wide head-dim step from 0 and added in f32, rather than over
+# all of D in the tensor core's own accumulator (it rounds toward zero); O
+# summed over all N keys in the accumulator, rather than per tile from 0
+S_PER_STEP = [(SOURCE, "                    mma_3xtf32(s[n], a0b, a0s, xb, yb, xs, ys);\n"
+               "                    mma_3xtf32(s[n], a1b, a1s, zb, wb, zs, ws);\n",
+               "                    float d[4] = {0.f, 0.f, 0.f, 0.f};\n"
+               "                    mma_3xtf32(d, a0b, a0s, xb, yb, xs, ys);\n"
+               "                    mma_3xtf32(d, a1b, a1s, zb, wb, zs, ws);\n"
+               "                    for (int e = 0; e < 4; ++e) s[n][e] += d[e];\n")]
+O_IN_MMA = [(SOURCE, "float d[16][4] = {};  // this tile's P V, from 0", "float (&d)[16][4] = o;"),
+            (SOURCE, "o[n][i] += d[n][i];", "(void)0;")]
+RESCALE = "#pragma unroll\n            for (int n = 0; n < 16; ++n) {\n                o[n][0] *= corr[0];"
 # name -> (file, old, new) substitutions on the shipped sources
 VARIANTS = {
     "shipped": [],
-    # both halves rounded by cvt.rna.tf32.f32
-    "cvt_split": [(HEADER, SPLIT, CVT)],
     # big * big only: plain TF32, to record the error the split removes
     "1xtf32": [ONE_TF32],
-    # 32-key tiles in a ring of three stages
-    "k32_3stages": [(SOURCE, "constexpr int kTileK = 64;", "constexpr int kTileK = 32;"),
-                    (SOURCE, "constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+    # 64-key tiles in a ring of two stages (they spill with the P V sum)
+    "k64_2stages": [(SOURCE, "constexpr int kTileK = 32;", "constexpr int kTileK = 64;"),
+                    (SOURCE, "constexpr int kStages = 3;", "constexpr int kStages = 2;")],
+    # the summation of PRs 4 and 5: S and O in the MMA accumulator
+    "tc_accumulate": O_IN_MMA,
+    # S from 0 a head-dim step too
+    "s_per_step": S_PER_STEP,
+    # O's rescale skipped by a warp none of whose rows' max moved
+    "skip_rescale": [(SOURCE, RESCALE, "            if (!__all_sync(0xffffffffu, corr[0] == 1.f && "
+                      "corr[1] == 1.f))\n" + RESCALE)],
 }
 
 

@@ -121,12 +121,12 @@ def caller(lib, split_scratch: bool, args, tiles_by_bn=None):
     new = lambda *s: torch.empty(s, device=x.device)  # noqa: E731
     y, partials, stats = new(B, H, W, Cout), new(B, tiles, 2, Cout), new(2, B, Cout)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    scratch = []
+    scratch = [partials, stats]
     if split_scratch:
-        scratch = [new(conv_gn_split_floats(Cin, Cout, Cres if w_skip is not None else 0)).data_ptr()]
+        scratch.append(new(conv_gn_split_floats(Cin, Cout, Cres if w_skip is not None else 0)))
     ks = w_skip.stride() if w_skip is not None else (0, 0)
     argv = [x.data_ptr(), w.data_ptr(), *w.stride(), b.data_ptr(), ptr(scale), ptr(shift), ptr(r),
-            ptr(w_skip), *ks, y.data_ptr(), partials.data_ptr(), stats.data_ptr(), *scratch,
+            ptr(w_skip), *ks, y.data_ptr(), *(t.data_ptr() for t in scratch),
             B, H, W, Cin, Cout, Cres, int(scale is not None), int(r is not None),
             int(w_skip is not None), tr, tw, torch.cuda.current_stream().cuda_stream]
 
@@ -135,6 +135,7 @@ def caller(lib, split_scratch: bool, args, tiles_by_bn=None):
         if err:
             raise RuntimeError(f"CUDA error {err} at launch")
 
+    run.scratch = scratch  # the kernel writes it: keep it allocated while run lives
     return run, y
 
 

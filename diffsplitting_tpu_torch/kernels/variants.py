@@ -4,8 +4,8 @@ A variant is the shipped source and the headers it includes (csrc/*.cuh)
 with text substitutions in either; a baseline is any other source with the
 same entry point. Each is written to a directory of its own and built by its
 own `nvcc` into its own library, all started together, so a variant's header
-shadows the shipped one. Shared by `attention_variants` and
-`conv_gn_variants`; nothing here is used by the port.
+shadows the shipped one. Shared by `attention_variants`,
+`conv_gn_variants` and `groupnorm_variants`; nothing here is used by the port.
 """
 
 from __future__ import annotations
@@ -77,3 +77,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn over `iters` calls captured in one CUDA graph
+    and replayed: the kernels' own time, without the host's time to issue
+    them. fn must launch on the current stream."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * iters)

@@ -15,7 +15,6 @@ import torch
 from ..kernels.build import check, library
 
 KERNEL_HEAD_DIM = 128
-KERNEL_TILE = 64
 
 
 def attention_reference(q, k, v, scale: float):
@@ -33,8 +32,6 @@ def _launch(q, k, v, scale: float):
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
     if D != KERNEL_HEAD_DIM:
         raise ValueError(f"attention kernel takes head dim {KERNEL_HEAD_DIM}, got {D}")
-    if N % KERNEL_TILE:
-        raise ValueError(f"attention kernel takes N a multiple of {KERNEL_TILE}, got {N}")
     if not all(t.dtype == torch.float32 for t in (q, k, v)):
         raise TypeError("attention kernel takes float32")
     strides = q.stride()

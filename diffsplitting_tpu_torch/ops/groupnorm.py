@@ -12,6 +12,8 @@ its jnp reference.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..kernels.build import check, library
@@ -38,14 +40,24 @@ def group_norm_swish_reference(x, scale, bias, num_groups: int, eps: float = 1e-
     return (norm * torch.sigmoid(norm)).to(x.dtype)
 
 
-# per-block share of x in pass 1 and 2 (f32 elements), and the most partial
-# rows a pass-2 block folds
-_ELEMS_PER_BLOCK = 32768
-_MAX_CHUNKS = 64
+# 256-thread blocks a pass keeps resident on each SM (the kernels'
+# __launch_bounds__ minimum), and 16-byte loads in flight a thread (kUnroll)
+_BLOCKS_PER_SM = 4
+_THREADS = 256
+_UNROLL = 4
 
 
-def _chunking(hw: int, C: int):
-    chunks = max(1, min(_MAX_CHUNKS, hw * C // _ELEMS_PER_BLOCK))
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _chunking(B: int, hw: int, C: int, sms: int):
+    """(chunks, rows a chunk) of each batch element's H*W rows: one wave of
+    _BLOCKS_PER_SM blocks an SM over the B * chunks blocks, but no chunk
+    shorter than one unrolled step of its block's threads."""
+    rows_per_step = max(1, _THREADS // (C // 4)) * _UNROLL
+    chunks = max(1, min(sms * _BLOCKS_PER_SM // B, hw // rows_per_step))
     rows = -(-hw // chunks)
     return -(-hw // rows), rows
 
@@ -68,7 +80,7 @@ def _launch(x, scale, bias, num_groups: int, eps: float):
     if scale.numel() != C or bias.numel() != C:
         raise ValueError("scale and bias must have C elements")
     hw = H * W
-    chunks, rows = _chunking(hw, C)
+    chunks, rows = _chunking(B, hw, C, _sm_count(x.device.index))
     partials = torch.empty((B, chunks, 2, C), device=x.device, dtype=torch.float32)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream

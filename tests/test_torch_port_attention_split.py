@@ -5,11 +5,13 @@ operand x is split into big = x rounded to TF32 (10 mantissa bits, to nearest,
 ties away from zero, as cvt.rna.tf32.f32 rounds; the kernel does it with an
 integer add and mask) and small = x - big, which the tensor core reads
 truncated to TF32. A product accumulates small*big + big*small + big*big in
-f32. The emulation walks the keys in the kernel's 64-key tiles with its
-online softmax in the exp2 domain, and is held against JAX's
-`attention_reference` and the port's within the chip check's tolerance
-1e-4 * (1 + max|ref|). A 1xTF32 emulation (big*big only) is printed beside
-it to record what the split buys.
+f32. The emulation walks the keys in the kernel's 32-key tiles with its
+online softmax in the exp2 domain, and sums as the kernel does: S over all of
+D in one accumulator, each tile's P V from 0, then added to O in f32. A last
+tile that N does not fill is zero-padded and its scores there set to -inf. The emulation is held against JAX's `attention_reference`
+and the port's within the chip check's tolerance 1e-4 * (1 + max|ref|). A
+1xTF32 emulation (big*big only) is printed beside it to record what the split
+buys.
 """
 
 import jax.numpy as jnp
@@ -20,7 +22,8 @@ import torch
 from diffsplitting_tpu.ops.attention import attention_reference as jax_attention
 from diffsplitting_tpu_torch.ops import attention_reference
 
-TILE = 64  # keys a stage of the kernel
+TILE = 32  # keys a stage of the kernel
+STEP = 16  # head dims of S a step, where S is summed from 0 a step
 LOG2E = 1.4426950408889634
 
 
@@ -59,11 +62,16 @@ def emulate(q, k, v, scale: float, terms: int = 3):
     """(N, D) q, k, v of one (batch, head): the kernel's tile loop."""
     n, d = q.shape
     c2 = scale * LOG2E
+    pad = -n % TILE  # the last tile's keys past N are zeros
+    k = torch.cat([k, torch.zeros(pad, d)])
+    v = torch.cat([v, torch.zeros(pad, d)])
     o = torch.zeros(n, d)
     m = torch.full((n, 1), -torch.inf)
     l = torch.zeros(n, 1)
     for k0 in range(0, n, TILE):
-        s = mm(q, k[k0:k0 + TILE].T, terms) * c2
+        kt = k[k0:k0 + TILE]
+        s = mm(q, kt.T, terms) * c2
+        s[:, n - k0:] = -torch.inf  # keys past N take no weight
         m_new = torch.maximum(m, s.max(dim=1, keepdim=True).values)
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
@@ -96,10 +104,11 @@ def test_split_is_exact_and_small():
     assert ((small - tf32_trunc(small)).abs() <= x.abs() * 2.0 ** -21).all()
 
 
-@pytest.mark.parametrize("score_gain", [1, 8])
-def test_3xtf32_emulation_matches_references(score_gain):
-    B, N, H, D = 1, 256, 1, 128
-    rng = np.random.default_rng(2)
+def _emulation_errors(N: int, score_gain: float, seed: int):
+    """Max abs errors of the 3xTF32 and 1xTF32 emulations against the port's
+    reference, the 3xTF32 one's against JAX's, and the tolerance."""
+    B, H, D = 1, 1, 128
+    rng = np.random.default_rng(seed)
     q, k, v = (rng.normal(size=(B, N, H, D)).astype(np.float32) for _ in range(3))
     scale = score_gain / np.sqrt(D)
     want_jax = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale))
@@ -110,8 +119,93 @@ def test_3xtf32_emulation_matches_references(score_gain):
     tol = 1e-4 * (1 + np.abs(want).max())
     err3 = np.abs(got3 - want[0, :, 0]).max()
     err1 = np.abs(got1 - want[0, :, 0]).max()
-    print(f"score gain {score_gain}: 3xTF32 max abs err {err3:.3g}, 1xTF32 {err1:.3g}, "
+    print(f"N={N} score gain {score_gain}: 3xTF32 max abs err {err3:.3g}, 1xTF32 {err1:.3g}, "
           f"tolerance {tol:.3g}")
+    return err3, err1, np.abs(got3 - want_jax[0, :, 0]).max(), tol
+
+
+@pytest.mark.parametrize("score_gain", [1, 8])
+def test_3xtf32_emulation_matches_references(score_gain):
+    err3, err1, err3_jax, tol = _emulation_errors(256, score_gain, seed=2)
     assert err3 <= tol
-    assert np.abs(got3 - want_jax[0, :, 0]).max() <= tol
+    assert err3_jax <= tol
     assert err3 * 10 < err1  # the split buys f32 accuracy back
+
+
+# N = 100: three full tiles, then a tile of 4 keys and 28 zero-filled slots
+@pytest.mark.parametrize("score_gain", [1, 8])
+def test_3xtf32_emulation_masks_the_last_tile(score_gain):
+    err3, err1, err3_jax, tol = _emulation_errors(100, score_gain, seed=3)
+    assert err3 <= tol
+    assert err3_jax <= tol
+    assert err3 * 10 < err1
+
+
+def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """f64 values to the f32 next toward zero (as f64): what the tensor
+    core's accumulator keeps of a sum."""
+    f = x.float()
+    f = torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+    return f.double()
+
+
+def _mma_steps(a, b, acc):
+    """acc + a @ b in k-steps of 8 (one m16n8k8 MMA each, 3xTF32 products
+    exact), the accumulator rounded toward zero after every step."""
+    for k0 in range(0, a.shape[1], 8):
+        ab, as_ = split(a[:, k0:k0 + 8].float())
+        bb, bs = split(b[k0:k0 + 8].float())
+        acc = _round_toward_zero(acc + as_.double() @ bb.double() + ab.double() @ bs.double()
+                                 + ab.double() @ bb.double())
+    return acc
+
+
+def emulate_accumulator(q, k, v, scale: float, s_in_mma: bool, o_in_mma: bool):
+    """The kernel's tile loop with the MMA accumulator modelled as rounding
+    toward zero: S over all of D (s_in_mma) or per STEP head dims from 0, O
+    over all N keys (o_in_mma) or per tile from 0, the rest in f32."""
+    f32 = lambda x: x.float().double()  # noqa: E731
+    n, d = q.shape
+    q, k, v = q.double(), k.double(), v.double()
+    c2 = scale * LOG2E
+    o = torch.zeros(n, d, dtype=torch.float64)
+    m = torch.full((n, 1), -torch.inf, dtype=torch.float64)
+    l = torch.zeros(n, 1, dtype=torch.float64)
+    for k0 in range(0, n, TILE):
+        kt, vt = k[k0:k0 + TILE], v[k0:k0 + TILE]
+        zeros = torch.zeros(n, TILE, dtype=torch.float64)
+        if s_in_mma:
+            s = _mma_steps(q, kt.T, zeros)
+        else:
+            s = zeros
+            for d0 in range(0, d, STEP):
+                s = f32(s + _mma_steps(q[:, d0:d0 + STEP], kt[:, d0:d0 + STEP].T, zeros))
+        s = f32(s * c2)
+        m_new = torch.maximum(m, s.max(dim=1, keepdim=True).values)
+        corr = f32(torch.exp2(m - m_new))
+        p = f32(torch.exp2(s - m_new))
+        l = f32(l * corr + p.sum(dim=1, keepdim=True))
+        o = f32(o * corr)
+        o = _mma_steps(p, vt, o) if o_in_mma else f32(o + _mma_steps(p, vt, torch.zeros_like(o)))
+        m = m_new
+    return (o / l).float()
+
+
+def test_truncating_accumulator_error_comes_from_the_sum_over_keys():
+    """Why the kernel sums P V from 0 a tile and adds it in f32: with an
+    accumulator that rounds toward zero, summing O over all N keys in it
+    costs more than summing S over D in it, and the kernel's order (S in
+    it, O per tile) leaves well under half of the error of both in it."""
+    N, D = 512, 128
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)) for _ in range(3))
+    scale = 1 / np.sqrt(D)
+    exact = torch.softmax((q.double() @ k.double().T) * scale, dim=1) @ v.double()
+    err = {(s_acc, o_acc): (emulate_accumulator(q, k, v, scale, s_acc, o_acc).double() - exact)
+           .abs().max().item() for s_acc in (True, False) for o_acc in (True, False)}
+    print(f"N={N}: max abs err, S and O in the accumulator {err[True, True]:.3g}, O only "
+          f"{err[False, True]:.3g}, S only (the kernel) {err[True, False]:.3g}, neither "
+          f"{err[False, False]:.3g}")
+    assert err[False, True] > 2 * err[False, False]
+    assert err[False, True] > err[True, False]
+    assert err[True, True] > 2 * err[True, False]

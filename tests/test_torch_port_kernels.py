@@ -54,14 +54,44 @@ def test_group_norm_swish_kernel(cuda, B, H, C, G):
     assert (got - want).abs().max().item() <= 1e-4
 
 
+# every distinct (C, H) of an unfused forward of the splitting UNet on 512²
+# patches at batch 8 (C/G = 3 at C = 48, 6 at 96, 12 at 192; 403 MB of x at
+# C = 48, H = 512), the 4 x 4 mid-block maps of 32² patches, and ragged H*W
+# with C/G = 3
+GN_SLICE_CASES = [(8, 512, 512, 16), (8, 512, 512, 32), (8, 512, 512, 48), (8, 256, 256, 16),
+                  (8, 256, 256, 32), (8, 256, 256, 48), (8, 256, 256, 96), (8, 128, 128, 32),
+                  (8, 128, 128, 64), (8, 128, 128, 96), (8, 128, 128, 192), (8, 64, 64, 64),
+                  (8, 64, 64, 128), (8, 64, 64, 192), (8, 64, 64, 256), (8, 4, 4, 128),
+                  (8, 4, 4, 256), (3, 33, 17, 48), (5, 13, 20, 48)]
+
+
+@pytest.mark.parametrize("B,H,W,C", GN_SLICE_CASES)
+def test_group_norm_swish_kernel_at_slice_shapes(cuda, B, H, W, C):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(B, H, W, C, device=cuda, generator=g) * 2 + 0.5
+    scale = torch.randn(C, device=cuda, generator=g)
+    bias = torch.randn(C, device=cuda, generator=g)
+    got = fused_group_norm_swish(x, scale, bias, 16)
+    want = group_norm_swish_reference(x, scale, bias, 16)
+    # chip_smoke.py's tolerance: f32 group sums over up to 786K values in
+    # another order
+    assert (got - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
+
+
 # q, k, v are strided views of one (B, N, heads, 3, 128) qkv tensor, as the mid
-# block hands them over. N = 64 is one key tile and half a query block; 192 is
-# three key tiles and a last block with rows for half its warps; "big" scales
-# the scores by 8 so that the running max moves across key tiles.
+# block hands them over. N = 64 is two 32-key tiles and half a query block;
+# 192 is six key tiles and a last block with rows for half its warps; "big"
+# scales the scores by 8 so that the running max moves across key tiles. N = 16
+# (the 4 x 4 mid block of a 32² patch) fills half of one key tile and one
+# warp; 100 three tiles and 4 keys of a fourth, with warp 6 holding rows
+# 96-111; 4095 leaves one key slot and one query row of the last warp empty.
 @pytest.mark.parametrize("B,N,heads,big", [(2, 64, 1, False), (1, 256, 2, False),
                                            (1, 192, 1, False), (1, 4096, 1, False),
                                            (2, 64, 2, True), (1, 256, 1, True),
-                                           (1, 4096, 2, True)])
+                                           (1, 4096, 2, True), (8, 16, 1, False),
+                                           (2, 16, 2, True), (2, 100, 1, False),
+                                           (1, 100, 2, True), (1, 4095, 1, False),
+                                           (1, 4095, 2, True)])
 def test_attention_kernel(cuda, B, N, heads, big):
     g = torch.Generator(device=cuda).manual_seed(0)
     qkv = torch.randn(B, N, heads, 3, 128, device=cuda, generator=g)
@@ -77,6 +107,49 @@ def test_attention_kernel(cuda, B, N, heads, big):
     # sides, so those cases take the chip check's 1e-4 * (1 + max|ref|).
     tol = 1e-4 * (1 + want.abs().max().item()) if big else 1e-4
     assert (got - want).abs().max().item() <= tol
+
+
+def test_attention_kernel_leaves_no_trace_past_n(cuda):
+    """Rows past N are not written, and keys past N take no weight: the
+    kernel on the first 100 tokens of a tensor with NaN past them."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(1, 128, 1, 3, 128, device=cuda, generator=g)
+    qkv[:, 100:] = float("nan")
+    q, k, v = (qkv[:, :100, :, i, :] for i in range(3))
+    got = fused_attention(q, k, v, 1 / math.sqrt(128))
+    want = attention_reference(q, k, v, 1 / math.sqrt(128))
+    assert got.shape == (1, 100, 1, 128) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def _conv_gn_run(dev):
+    args = _conv_gn_inputs(dev, 2, 13, 20, 48, 128, True, "identity")
+    return lambda: conv_gn_fused(*args)
+
+
+def _gn_run(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    x, scale, bias = (torch.randn(*s, device=dev, generator=g) for s in ((8, 64, 64, 48), (48,),
+                                                                         (48,)))
+    return lambda: fused_group_norm_swish(x, scale, bias, 16)
+
+
+def _attention_run(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(2, 1000, 1, 3, 128, device=dev, generator=g)
+    return lambda: fused_attention(qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :], 0.1)
+
+
+# no atomics: the partial sums are folded in a fixed order
+@pytest.mark.parametrize("make", [_gn_run, _attention_run, _conv_gn_run],
+                         ids=["group_norm_swish", "attention", "conv_gn"])
+def test_kernel_gives_the_same_bits_on_two_launches(cuda, make):
+    run = make(cuda)
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    for a, b in zip(*((t,) if torch.is_tensor(t) else t for t in (first, second))):
+        assert torch.equal(a, b)
 
 
 def test_attention_kernel_refuses_other_head_dims(cuda):
