@@ -15,13 +15,25 @@ was launched, that the output is finite and of the right shape, and that it
 agrees with the same path run through the plain versions (or with the
 unfused slice) and, on a small input, with the port on the CPU. It also serves
 configs/splitting_cifar10_indi.json at its own width and patch (32², so
-attention at N = 16 tokens), unfused and fused, against the port on the CPU.
+attention at N = 16 tokens), and again with inner_channel 32 (attention at
+D = 256 through the any-D kernel; the fused walk plans its wide conv sites to
+library ops), unfused and fused, against the port on the CPU. The any-D
+attention kernel is also held against its plain version and timed beside
+SDPA at D = 16 ... 1024.
+
+Then it trains: the joint-InDI train step at full width (patch 512, batch 4,
+the config's) with the kernels against the same step through the plain
+versions (loss, grad_norm, every gradient), 58 GN+Swish and 2 attention
+launches a step asserted, a small step on the card against the port on the
+CPU, 30 steps on one batch (ms a step, samples/s, peak memory, a falling
+loss) and one step's device time by family.
 
 Every phase raises on failure, so the script exits non-zero with no result
 line. It prints the card's name and power limit, per-kernel times beside
-their bounds, each slice's tiles/s and peak memory, a device-time breakdown of
-one run of each slice (torch.profiler), one JSON line of kernels and, last,
-the device line.
+their bounds, each slice's tiles/s and peak memory, the train step's time and
+peak memory, a device-time breakdown of one run of each slice and of one
+train step (torch.profiler), one JSON line of kernels and, last, the device
+line.
 TF32 is off throughout, so the convolutions, matmuls and kernels all compute
 in float32.
 """
@@ -50,6 +62,8 @@ FRAMES = (2, 1024, 1024)
 ATTN_N, ATTN_D = 4096, 128
 CIFAR_CONFIG = "configs/splitting_cifar10_indi.json"
 CIFAR_FRAMES = (2, 64, 64)
+TRAIN_BATCH = 4  # the config's datasets.train.batch_size
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_TIMED = 30, 3, 10
 
 
 def log(msg: str) -> None:
@@ -203,6 +217,62 @@ def phase_attention(dev, batches):
     return res, worst
 
 
+# (B, N, D) of the any-D attention kernel: D = 16, 64 and 256 at N = 16, 100
+# and 1024; D = 512 at the SR3 attention site at 16² (B = 8, N = 256); D =
+# 1024 at the mid block of sr_sr3_64_512 (B = 2, N = 1024)
+ANY_D_SHAPES = ([(BATCH, n, d) for d in (16, 64, 256) for n in (16, 100, 1024)]
+                + [(BATCH, 256, 512), (2, 1024, 1024)])
+
+
+def phase_attention_any_d(dev):
+    """The SIMT any-D attention kernel against its plain version (two
+    launches must give the same bits), timed beside the plain version and
+    SDPA, at ANY_D_SHAPES. Returns {(B, N, D): times} and the worst error."""
+    import torch
+    import torch.nn.functional as F
+    from diffsplitting_tpu_torch.ops import FusedAttention, attention_reference, fused_attention
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    res, worst = {}, 0.0
+    for B, N, D in ANY_D_SHAPES:
+        qkv = torch.randn(B, N, 1, 3, D, device=dev, generator=g)
+        q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+        scale = 1.0 / math.sqrt(D)
+        before = FusedAttention.launches_any_d
+        got = fused_attention(q, k, v, scale)
+        again = fused_attention(q, k, v, scale)
+        want = attention_reference(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        # f32 FMA on both sides; sums over D and N in another order
+        tol = 1e-4 * (1 + want.abs().max().item())
+        if FusedAttention.launches_any_d != before + 2:
+            raise AssertionError(f"attention B={B} N={N} D={D}: the any-D kernel did not launch")
+        if not err <= tol or not torch.equal(got, again):
+            raise AssertionError(f"attention B={B} N={N} D={D}: max abs err {err} (tol {tol}), "
+                                 f"two launches equal {torch.equal(got, again)}")
+        worst = max(worst, err)
+        iters = 20 if B * N * N * D < 2**30 else 5
+        ms = time_ms(lambda: fused_attention(q, k, v, scale), iters)
+        plain = time_ms(lambda: attention_reference(q, k, v, scale), 3)
+        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), iters)
+        flops = 4 * B * N * N * D
+        fma_ms = flops / F32_FLOPS_PER_S * 1e3  # SIMT: the f32 FMA rate
+        bytes_ms = 4 * B * N * D * 4 / HBM_BYTES_PER_S * 1e3
+        bound = max(fma_ms, bytes_ms)
+        by = "operations" if fma_ms >= bytes_ms else "bytes"
+        log(f"attention any-D B={B} N={N} D={D} heads=1: err {err:.3g} (tol {tol:.3g}), two "
+            f"launches bit-identical; kernel {ms:.4f} ms plain {plain:.4f} ms SDPA {lib:.4f} ms "
+            f"bound {bound:.4f} ms ({by}; f32 FMA {fma_ms:.4f}, bytes {bytes_ms:.4f}; "
+            f"{bound / ms:.1%} of it, {flops / ms / 1e9:.2f} TFLOP/s)")
+        res[(B, N, D)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                              bound_by=by, max_abs_err=err)
+        del qkv, q, k, v, got, again, want
+        torch.cuda.empty_cache()
+    return res, worst
+
+
 def phase_conv_gn(dev, sites, batch=BATCH, timed=True):
     """conv_gn kernel vs plain version at every site of one fused forward.
     When `timed`, also the times; the library time is cuDNN's F.conv2d on
@@ -321,15 +391,19 @@ def phase_small_reference(opt, fused: bool = False):
         f"(tol {tol:.3g})")
 
 
-def phase_cifar10(dev):
-    """configs/splitting_cifar10_indi.json served at its own width and patch
-    (inner 16, 6 channels, 32² patches, 20 steps; the mid block at 4×4, so
-    attention at N = 16 tokens) on two 64² frames, unfused and fused. The
-    launches are checked against the config's depth; each kernel is held
-    against its plain version at every shape this path gives it, at the
-    serving batch and at the last batch's (GN+Swish also bit-identical on two
-    launches); the fused output against the unfused one, and, with the noise
-    off, the card against the port on the CPU."""
+def phase_cifar10(dev, inner=None, plan=(31, 0)):
+    """configs/splitting_cifar10_indi.json served at its own patch (32², 20
+    steps; the mid block at 4×4, so attention at N = 16 tokens) on two 64²
+    frames, unfused and fused, at its own width (inner 16: D = 128) or with
+    `inner_channel` set to `inner` in memory (inner 32: D = 256, the any-D
+    attention kernel; Cout 256 and Cin up to 512, sites the conv_gn kernel
+    does not take). `plan` is the (kernel, library) count of the fused walk's
+    conv sites a forward, asserted. The launches are checked against the
+    config's depth; each kernel is held against its plain version at every
+    shape this path gives it, at the serving batch and at the last batch's
+    (GN+Swish also bit-identical on two launches); the fused output against
+    the unfused one, and, with the noise off, the card against the port on
+    the CPU."""
     import copy
 
     import torch
@@ -337,19 +411,26 @@ def phase_cifar10(dev):
     from diffsplitting_tpu_torch.data import TileIndexManager, TilingMode
     from diffsplitting_tpu_torch.kernels.conv_gn_variants import conv_gn_sites
     from diffsplitting_tpu_torch.kernels.groupnorm_variants import gn_shapes
+    from diffsplitting_tpu_torch.models import fused_unet_forward
+    from diffsplitting_tpu_torch.models.fused_forward import ConvSitePlan
     from diffsplitting_tpu_torch.ops import attention_reference, fused_attention
     from diffsplitting_tpu_torch.predict import predict_frames
     from diffsplitting_tpu_torch.serving import SplittingModel
 
     opt = dict_to_nonedict(load_json(CIFAR_CONFIG))
+    if inner is not None:
+        opt["model"]["unet"]["inner_channel"] = inner
+    name = CIFAR_CONFIG + (f" at inner {inner}" if inner is not None else "")
     patch = int(opt["datasets"]["patch_size"])
     unet = opt["model"]["unet"]
     levels, res_blocks = len(unet["channel_multiplier"]), unet["res_blocks"]
     # ResnetBlocks: res_blocks a level down, the mid pair, res_blocks + 1 a
-    # level up; two GN+Swish or conv_gn calls each, the head's GN+Swish, and
-    # an upsample conv between decoder levels
+    # level up; two GN+Swish calls or conv sites each, the head's GN+Swish,
+    # and an upsample conv between decoder levels
     n_resnet = levels * res_blocks + 2 + levels * (res_blocks + 1)
     gn_per_forward, conv_per_forward = 2 * n_resnet + 1, 2 * n_resnet + levels - 1
+    dim = unet["inner_channel"] * unet["channel_multiplier"][-1]
+    attn_key = "attention" if dim == ATTN_D else "attention_any_d"
     model = SplittingModel(opt, device=dev, seed=8)
     net = model.unets()[0]
     g = torch.Generator(device=dev).manual_seed(9)
@@ -357,20 +438,25 @@ def phase_cifar10(dev):
     t = torch.full((BATCH,), 0.5, device=dev)
     with torch.inference_mode():
         shapes, sites = gn_shapes(net, x, t), conv_gn_sites(net, x, t)
+        reset_launches()
+        fused_unet_forward(net, x, t)
+        planned = (ConvSitePlan.kernel, ConvSitePlan.library)
     seen = (sum(shapes.values()), sum(sites.values()))
-    if seen != (gn_per_forward, conv_per_forward):
-        raise AssertionError(f"{CIFAR_CONFIG}: (GN+Swish, conv_gn) calls a forward {seen}, "
-                             f"expected {(gn_per_forward, conv_per_forward)} from its depth")
+    if seen != (gn_per_forward, plan[0]) or planned != plan or sum(plan) != conv_per_forward:
+        raise AssertionError(f"{name}: (GN+Swish, conv_gn) calls a forward {seen}, conv sites "
+                             f"(kernel, library) {planned}; expected {(gn_per_forward, plan[0])} "
+                             f"and {plan} of {conv_per_forward} from its depth")
+    log(f"{name}: fused walk plans {plan[0]} conv sites a forward to the conv_gn kernel and "
+        f"{plan[1]} to library ops")
 
     frames = torch.randn(*CIFAR_FRAMES, 1, device=dev, generator=g)
     n_tiles = TileIndexManager(CIFAR_FRAMES, (1, patch // 2, patch // 2), (1, patch, patch),
                                TilingMode.ShiftBoundary).total_grid_count()
-    forwards = model.process.num_timesteps * math.ceil(n_tiles / BATCH)
+    forwards = model.process.val_num_timesteps * math.ceil(n_tiles / BATCH)
 
     # every kernel at this path's shapes, at the serving batch and the last
     # batch's (18 tiles: 8, 8, 2)
     n_tok = (patch >> (levels - 1)) ** 2
-    dim = unet["inner_channel"] * unet["channel_multiplier"][-1]
     for B in sorted({BATCH, n_tiles % BATCH or BATCH}, reverse=True):
         _, gn_err = phase_group_norm(dev, shapes, int(unet["norm_groups"]), batch=B, timed=False)
         _, conv_err = phase_conv_gn(dev, sites, batch=B, timed=False)
@@ -381,15 +467,19 @@ def phase_cifar10(dev):
         err = max_err(got, want)
         tol = 1e-4 * (1 + want.abs().max().item())  # f32 on both sides
         if not err <= tol:
-            raise AssertionError(f"attention B={B} N={n_tok}: max abs err {err} > {tol}")
+            raise AssertionError(f"attention B={B} N={n_tok} D={dim}: max abs err {err} > {tol}")
         ms = time_ms(lambda: fused_attention(q, k, v, 1 / math.sqrt(dim)), 20)
-        log(f"cifar10 indi kernels at B={B}: GN+Swish at {len(shapes)} shapes max abs err "
+        log(f"{name} kernels at B={B}: GN+Swish at {len(shapes)} shapes max abs err "
             f"{gn_err:.3g}, conv_gn at {len(sites)} sites {conv_err:.3g}, attention N={n_tok} "
             f"D={dim} heads=1 {err:.3g} (tol {tol:.3g}), {ms:.4f} ms")
     outs = {}
     for fused in (False, True):
         expected = {"group_norm_swish": (1 if fused else gn_per_forward) * forwards,
-                    "attention": forwards, "conv_gn": conv_per_forward * forwards if fused else 0}
+                    "attention": 0, "attention_any_d": 0,
+                    "conv_gn": plan[0] * forwards if fused else 0,
+                    "sites_kernel": plan[0] * forwards if fused else 0,
+                    "sites_library": plan[1] * forwards if fused else 0}
+        expected[attn_key] = forwards
         model.generator.manual_seed(0)
         torch.cuda.synchronize()
         reset_launches()
@@ -399,21 +489,21 @@ def phase_cifar10(dev):
         wall = time.perf_counter() - t0
         launches = read_launches()
         if launches != expected:
-            raise AssertionError(f"{CIFAR_CONFIG} fused={fused}: launches {launches}, "
+            raise AssertionError(f"{name} fused={fused}: launches {launches}, "
                                  f"expected {expected}")
         if (tuple(out.shape) != CIFAR_FRAMES + (unet["out_channel"],)
                 or not torch.isfinite(out).all()):
-            raise AssertionError(f"{CIFAR_CONFIG} fused={fused}: output shape "
+            raise AssertionError(f"{name} fused={fused}: output shape "
                                  f"{tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
-        log(f"cifar10 indi fused={fused}: {CIFAR_FRAMES[0]} frames {CIFAR_FRAMES[1]}x"
-            f"{CIFAR_FRAMES[2]}, {n_tiles} tiles of {patch}², {model.process.num_timesteps} "
+        log(f"{name} fused={fused}: {CIFAR_FRAMES[0]} frames {CIFAR_FRAMES[1]}x"
+            f"{CIFAR_FRAMES[2]}, {n_tiles} tiles of {patch}², {model.process.val_num_timesteps} "
             f"steps, {forwards} UNet forwards in {wall * 1e3:.1f} ms, launches {launches}")
-        outs[fused] = out
-    err = max_err(outs[True], outs[False])
-    tol = 1e-3 * outs[False].abs().max().item() + 1e-4
+        outs[fused] = (out, launches)
+    err = max_err(outs[True][0], outs[False][0])
+    tol = 1e-3 * outs[False][0].abs().max().item() + 1e-4
     if not err <= tol:
-        raise AssertionError(f"{CIFAR_CONFIG}: fused vs unfused max abs err {err} > {tol}")
-    log(f"cifar10 indi: fused vs unfused max abs err {err:.3g} (tol {tol:.3g})")
+        raise AssertionError(f"{name}: fused vs unfused max abs err {err} > {tol}")
+    log(f"{name}: fused vs unfused max abs err {err:.3g} (tol {tol:.3g})")
 
     quiet = copy.deepcopy(opt)
     quiet["model"]["indi"] = {"noise_mode": "none"}
@@ -426,10 +516,11 @@ def phase_cifar10(dev):
         err = max_err(got, want)
         tol = 2e-4 * max(1.0, want.abs().max().item())  # f32; cuDNN and CPU sum orders
         if not err <= tol:
-            raise AssertionError(f"{CIFAR_CONFIG} fused={fused}: card vs CPU max abs err "
+            raise AssertionError(f"{name} fused={fused}: card vs CPU max abs err "
                                  f"{err} > {tol}")
-        log(f"cifar10 indi fused={fused}, noise off: card vs CPU max abs err {err:.3g} "
+        log(f"{name} fused={fused}, noise off: card vs CPU max abs err {err:.3g} "
             f"(tol {tol:.3g})")
+    return outs[False][1], outs[True][1]
 
 
 # profile family -> the source whose __global__ functions make it up, and
@@ -502,17 +593,24 @@ def phase_profile(model, frames, fused: bool) -> None:
 
 
 def reset_launches() -> None:
+    """Every launch count to 0, and the fused walk's conv-site plan counts."""
+    from diffsplitting_tpu_torch.models.fused_forward import ConvSitePlan
     from diffsplitting_tpu_torch.ops import FusedAttention, FusedConvGN, FusedGroupNormSwish
 
     for k in (FusedGroupNormSwish, FusedAttention, FusedConvGN):
         k.launches = 0
+    FusedAttention.launches_any_d = 0
+    ConvSitePlan.kernel = ConvSitePlan.library = 0
 
 
 def read_launches() -> dict:
+    from diffsplitting_tpu_torch.models.fused_forward import ConvSitePlan
     from diffsplitting_tpu_torch.ops import FusedAttention, FusedConvGN, FusedGroupNormSwish
 
     return {"group_norm_swish": FusedGroupNormSwish.launches,
-            "attention": FusedAttention.launches, "conv_gn": FusedConvGN.launches}
+            "attention": FusedAttention.launches,
+            "attention_any_d": FusedAttention.launches_any_d, "conv_gn": FusedConvGN.launches,
+            "sites_kernel": ConvSitePlan.kernel, "sites_library": ConvSitePlan.library}
 
 
 def phase_slice(model, frames, fused: bool, expected: dict, n_tiles: int, forwards: int):
@@ -548,10 +646,251 @@ def phase_slice(model, frames, fused: bool, expected: dict, n_tiles: int, forwar
         walls.append(time.perf_counter() - t0)
     tiles_per_s = n_tiles / sorted(walls)[1]
     log(f"slice fused={fused}: {FRAMES[0]} frames {FRAMES[1]}x{FRAMES[2]}, {n_tiles} tiles of "
-        f"{PATCH}², batch {BATCH}, {model.process.num_timesteps} steps, {forwards} UNet forwards: "
+        f"{PATCH}², batch {BATCH}, {model.process.val_num_timesteps} steps, {forwards} UNet "
+        "forwards: "
         f"runs {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median {tiles_per_s:.2f} "
         f"tiles/s, peak memory {peak / 2**30:.2f} GiB ({peak} bytes), launches {launches}")
     return out, launches
+
+
+def smooth_pair(rng, batch: int, patch: int) -> dict:
+    """A seeded two-channel batch of smooth structures, NHWC in [0, 1]:
+    channel 0 round blobs (sums of Gaussians), channel 1 oriented ridges
+    (cos^8 of plane waves); 'input' is their mean, the mixed image."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:patch, 0:patch].astype(np.float32) / patch
+    out = np.zeros((batch, patch, patch, 2), np.float32)
+    for i in range(batch):
+        for _ in range(12):
+            cy, cx = rng.uniform(0, 1, 2)
+            r = rng.uniform(0.02, 0.08)
+            out[i, ..., 0] += np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))
+        for _ in range(4):
+            th, f, ph = rng.uniform(0, np.pi), rng.uniform(3, 12), rng.uniform(0, 2 * np.pi)
+            out[i, ..., 1] += np.cos(2 * np.pi * f * (xx * np.cos(th) + yy * np.sin(th)) + ph) ** 8
+    out /= out.max(axis=(1, 2), keepdims=True)
+    return {"target": out, "input": out.mean(axis=-1, keepdims=True)}
+
+
+def train_draws(trainer, batch: int, patch: int, seed: int, device):
+    """Each net's (t, noise) for one step, drawn as the process draws them,
+    from a generator of their own."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [(proc.sample_t(batch, trainer.current_T, g, device),
+             torch.randn(batch, patch, patch, 1, generator=g, device=device))
+            for proc in (trainer.process.indi1, trainer.process.indi2)]
+
+
+def compare_steps(what: str, got, want, lr=None):
+    """Two trainers after one step from the same params and draws: loss
+    (relative 1e-5), pre-clip grad_norm (relative 1e-4), every gradient within
+    5e-3·s, where s = max(max|g| of its tensor, 1e-5·grad_norm) (f32 on both
+    sides; GroupNorm statistics, softmax and convolution sums in another
+    order, carried through the backward of 14 ResnetBlocks; a weight's
+    gradient sums up to B·H·W = 1M products, which cancel to far less than
+    their magnitudes). The floor holds tensors whose gradient is zero up to
+    rounding: a time-MLP weight whose per-channel bias the next GroupNorm,
+    one channel a group, removes. With
+    `lr` (both sides started from the same params), also each parameter
+    within 2·lr, and within 1e-2·lr where |g| > 1e-6 and |g| > 10 times the
+    element's gradient difference: Adam's first update is about
+    lr·g/(|g| + eps), ±lr wherever |g| ≫ eps, so it agrees wherever the sign
+    of g does, and moves by anything up to ±lr on rounding elsewhere."""
+    import torch
+
+    gl, wl = got.get_current_log(), want.get_current_log()
+    errs = {k: abs(gl[k] - wl[k]) / max(abs(wl[k]), 1e-30) for k in ("l_pix", "grad_norm")}
+    if not (errs["l_pix"] <= 1e-5 and errs["grad_norm"] <= 1e-4):
+        raise AssertionError(f"train step, {what}: loss {gl['l_pix']} vs {wl['l_pix']}, "
+                             f"grad_norm {gl['grad_norm']} vs {wl['grad_norm']}")
+    worst, worst_dp, worst_name = 0.0, 0.0, ""
+    wparams = dict(want.nets.named_parameters())
+    for name, p in got.nets.named_parameters():
+        q = wparams[name]
+        if (p.grad is None) != (q.grad is None):
+            raise AssertionError(f"train step, {what}: {name} has a gradient on one side only")
+        if p.grad is None:
+            continue
+        g, h = p.grad.detach().cpu(), q.grad.detach().cpu()
+        gmax = max(h.abs().max().item(), 1e-5 * wl["grad_norm"])
+        rel = (g - h).abs().max().item() / gmax
+        if not rel <= 5e-3:
+            raise AssertionError(f"train step, {what}: gradient of {name} off by {rel:.3g} of "
+                                 f"{gmax:.3g}")
+        if rel > worst:
+            worst, worst_name = rel, f"{name} (max|g| {h.abs().max().item():.3g})"
+        if lr is not None:
+            dp = (p.detach().cpu() - q.detach().cpu()).abs()
+            big = (h.abs() > 1e-6) & (h.abs() > 10 * (g - h).abs())
+            dp_big = dp[big].max().item() if big.any() else 0.0
+            if dp_big > 1e-2 * lr or dp.max().item() > 2 * lr:
+                raise AssertionError(f"train step, {what}: {name} moved differently")
+            worst_dp = max(worst_dp, dp_big / lr)
+    log(f"train step, {what}: loss rel err {errs['l_pix']:.3g} (tol 1e-05), grad_norm rel err "
+        f"{errs['grad_norm']:.3g} (tol 0.0001), worst gradient err {worst:.3g} of "
+        f"max(max|g|, 1e-5 grad_norm) (tol 0.005) at {worst_name}"
+        + (f", worst param err {worst_dp:.3g} lr where the sign of g is sure (tol 0.01)"
+           if lr is not None else ""))
+
+
+def train_family(name: str, ancestors) -> str:
+    """A train step's device kernel -> its family: the forward kernels by
+    name; the plain backward of GN+Swish and attention, the optimizer and the
+    backward by the CPU ops that launched them (autograd nodes
+    FusedGroupNormSwishBackward, FusedAttentionBackward; Optimizer.step)."""
+    fam = kernel_family(name)
+    if fam in ("group_norm_swish kernel", "attention kernel"):
+        return "forward: " + fam
+    joined = " ".join(ancestors)
+    if "FusedGroupNormSwishBackward" in joined:
+        return "backward: GN+Swish plain version"
+    if "FusedAttentionBackward" in joined:
+        return "backward: attention plain version"
+    if "Optimizer.step" in joined:
+        return "optimizer (Adam)"
+    side = "backward: " if "autograd::engine" in joined else "forward: "
+    if not ancestors:
+        side = "unattributed: "
+    if fam.startswith("convolutions"):
+        return side + "convolutions and linears (cuDNN, cuBLAS)"
+    return side + "other (elementwise, reductions, the loss)"
+
+
+def profile_train_step(trainer) -> dict:
+    """Device time of one train step by family (torch.profiler), and the
+    device's idle share of its wall time (profiler on). A kernel is
+    attributed through the CPU op that launched it (the profiler's `kernels`
+    of that op) and that op's ancestors; a kernel no op claims is classed by
+    its name alone."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.optimize_parameters()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    by_name = collections.Counter()
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    fams, claimed = collections.Counter(), collections.Counter()
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        ancestors, c = [], e
+        while c is not None:
+            ancestors.append(c.name)
+            c = c.cpu_parent
+        for k in e.kernels:
+            fams[train_family(k.name, ancestors)] += k.duration / 1e3
+            claimed[k.name] += k.duration / 1e3
+    for name, ms in by_name.items():
+        if ms - claimed[name] > 1e-6:
+            fams[train_family(name, [])] += ms - claimed[name]
+    busy = sum(by_name.values())
+    if not busy:
+        log("train profile: no device events recorded; breakdown not measured")
+        return {}
+    log(f"train profile (one step, profiler on): wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.1%}")
+    for fam, ms in fams.most_common():
+        log(f"train profile:   {fam}: {ms:.2f} ms ({ms / busy:.1%} of device time)")
+    for name, ms in by_name.most_common(8):
+        log(f"train profile:     {ms:8.2f} ms  {name[:110]}")
+    return dict(fams, wall_ms=wall_ms, busy_ms=busy)
+
+
+def phase_train(dev):
+    """The joint-InDI train step at full width (configs/splitting_hagen_indi_joint.json:
+    patch 512, its batch 4, seeded random weights, a seeded batch of smooth
+    structures): one step with the kernels against the same step under
+    plain_versions() from the same params, t and noise; exactly 58 GN+Swish
+    and 2 attention launches a step (29 and 1 a forward, 2 nets; none from
+    the backward or the optimizer); a small step (patch 64, batch 2) on the
+    card against the port on the CPU; then 30 steps on the batch: 3 warm-up
+    steps after the first, 10 timed (ms a step, samples/s, peak memory), one
+    profiled after them, and the mean loss of the last 5 below that of the
+    first 5."""
+    import numpy as np
+    import torch
+    from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
+    from diffsplitting_tpu_torch.train import DiffusionModel
+
+    opt = dict_to_nonedict(load_json(CONFIG))
+    batch_size = int(opt["datasets"]["train"]["batch_size"])
+    if (batch_size, int(opt["datasets"]["patch_size"])) != (TRAIN_BATCH, PATCH):
+        raise AssertionError(f"{CONFIG} no longer trains batch {TRAIN_BATCH} of {PATCH}²")
+    lr = float(opt["train"]["optimizer"]["lr"])
+    batch = smooth_pair(np.random.default_rng(12), TRAIN_BATCH, PATCH)
+
+    kern = DiffusionModel(opt, device=dev, seed=0)
+    plain = DiffusionModel(opt, device=dev, seed=0, state_dict=kern.nets.state_dict())
+    draws = train_draws(kern, TRAIN_BATCH, PATCH, 13, dev)
+    for m in (kern, plain):
+        m.feed_data(batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    kern.optimize_parameters(draws)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expected = {"group_norm_swish": 58, "attention": 2, "attention_any_d": 0, "conv_gn": 0,
+                "sites_kernel": 0, "sites_library": 0}
+    if launches != expected:
+        raise AssertionError(f"train step: launches {launches}, expected {expected}")
+    log(f"train step B={TRAIN_BATCH} {PATCH}²: launches {launches} (forward, backward and "
+        "optimizer)")
+    with plain_versions():
+        plain.optimize_parameters(draws)
+    compare_steps(f"kernels vs plain versions, B={TRAIN_BATCH} {PATCH}²", kern, plain)
+    losses = [kern.get_current_log()["l_pix"]]
+    del plain
+    torch.cuda.empty_cache()
+
+    cpu = DiffusionModel(opt, device="cpu", seed=1)
+    gpu = DiffusionModel(opt, device=dev, seed=1, state_dict=cpu.nets.state_dict())
+    small_batch = smooth_pair(np.random.default_rng(14), 2, 64)
+    small_draws = train_draws(cpu, 2, 64, 15, "cpu")
+    cpu.feed_data(small_batch)
+    cpu.optimize_parameters(small_draws)
+    gpu.feed_data(small_batch)
+    gpu.optimize_parameters([(t.to(dev), n.to(dev)) for t, n in small_draws])
+    compare_steps("card vs CPU, B=2 64²", gpu, cpu, lr)
+    del cpu, gpu
+
+    walls = []
+    for step in range(2, TRAIN_STEPS + 1):
+        timed = 2 + TRAIN_WARMUP <= step < 2 + TRAIN_WARMUP + TRAIN_TIMED
+        torch.cuda.synchronize()
+        if step == 2 + TRAIN_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        kern.optimize_parameters()
+        torch.cuda.synchronize()
+        if timed:
+            walls.append(time.perf_counter() - t0)
+        if step == 1 + TRAIN_WARMUP + TRAIN_TIMED:
+            peak = torch.cuda.max_memory_allocated()
+        losses.append(kern.get_current_log()["l_pix"])
+    ms = sorted(walls)[len(walls) // 2] * 1e3
+    log(f"train step B={TRAIN_BATCH} {PATCH}² x 2 nets: {TRAIN_TIMED} steps "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median {ms:.2f} ms, "
+        f"{TRAIN_BATCH / ms * 1e3:.2f} samples/s, peak memory {peak / 2**30:.2f} GiB "
+        f"({peak} bytes)")
+    prof = profile_train_step(kern)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"train loss over {TRAIN_STEPS} steps on one batch: " + ", ".join(f"{v:.4f}" for v in losses))
+    if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"train loss did not fall: mean of the first 5 {first}, of the "
+                             f"last 5 {last}")
+    log(f"train loss: mean of the first 5 steps {first:.5f}, of the last 5 {last:.5f}")
+    return dict(launches=launches, ms=ms, peak=peak, profile=prof)
 
 
 def main() -> int:
@@ -598,9 +937,15 @@ def main() -> int:
     if sum(shapes.values()) != 29:
         raise AssertionError(f"expected 29 GN+Swish calls per forward, saw {dict(shapes)}")
     gn, gn_err = phase_group_norm(dev, shapes, groups)
+    # and at the train step's batch, untimed
+    _, gn_train_err = phase_group_norm(dev, shapes, groups, batch=TRAIN_BATCH, timed=False)
+    gn_err = max(gn_err, gn_train_err)
 
-    # attention at the mid block's shape, at B=2 and at the serving batch
-    attn, attn_err = phase_attention(dev, (2, BATCH))
+    # attention at the mid block's shape, at B=2, the train batch and the
+    # serving batch (timed at the last)
+    attn, attn_err = phase_attention(dev, (2, TRAIN_BATCH, BATCH))
+    # the any-D kernel, at head dims of other configs
+    any_d, any_d_err = phase_attention_any_d(dev)
 
     # conv_gn at every site of one fused forward
     with torch.inference_mode():
@@ -630,15 +975,19 @@ def main() -> int:
     phase_small_reference(opt)
     phase_small_reference(opt, fused=True)
     phase_cifar10(dev)
+    # inner 32: attention at D = 256 (the any-D kernel), wide conv sites
+    # planned to library ops in the fused walk
+    wide = phase_cifar10(dev, inner=32, plan=(18, 13))
 
     # the slice: joint-InDI tiled prediction at full width, unfused and fused
     frames = torch.randn(*FRAMES, 1, device=dev, generator=gen)
-    steps = model.process.num_timesteps
+    steps = model.process.val_num_timesteps
     n_tiles = 18  # 3×3 tiles per 1024² frame: 512² patches on a 256² grid
     forwards = 2 * steps * math.ceil(n_tiles / BATCH)
     out, launches = phase_slice(
         model, frames, False,
-        {"group_norm_swish": 29 * forwards, "attention": forwards, "conv_gn": 0},
+        {"group_norm_swish": 29 * forwards, "attention": forwards, "attention_any_d": 0,
+         "conv_gn": 0, "sites_kernel": 0, "sites_library": 0},
         n_tiles, forwards)
     model.generator.manual_seed(0)
     with plain_versions():
@@ -655,7 +1004,8 @@ def main() -> int:
     # mid block's attention, and GroupNorm+Swish once, at the head
     out_fused, fused_launches = phase_slice(
         model, frames, True,
-        {"group_norm_swish": forwards, "attention": forwards, "conv_gn": 31 * forwards},
+        {"group_norm_swish": forwards, "attention": forwards, "attention_any_d": 0,
+         "conv_gn": 31 * forwards, "sites_kernel": 31 * forwards, "sites_library": 0},
         n_tiles, forwards)
     err = max_err(out_fused, out)
     tol = 1e-3 * out.abs().max().item() + 1e-4
@@ -664,20 +1014,33 @@ def main() -> int:
     log(f"slice: fused vs unfused max abs err {err:.3g} (tol {tol:.3g})")
     del out, out_fused
     phase_profile(model, frames, fused=True)
+    del model, frames, tile_batch
+    torch.cuda.empty_cache()
+
+    train = phase_train(dev)
+    wide_shape = (BATCH, 16, 256)  # the mid block of the inner-32 path
 
     kernels = [
         dict(name="group_norm_swish", route="cuda",
              source="diffsplitting_tpu_torch/csrc/groupnorm_swish.cu",
              replaces="diffsplitting_tpu/experimental/groupnorm_pallas.py:21,58",
-             launches=launches["group_norm_swish"], max_abs_err=gn_err, ms=gn["ms"],
+             launches=launches["group_norm_swish"] + train["launches"]["group_norm_swish"],
+             max_abs_err=gn_err, ms=gn["ms"],
              plain_ms=gn["plain_ms"], bound_ms=gn["bound_ms"], bound_by="bytes",
              library_ms=gn["library_ms"], device_ms=gn["device_ms"]),
         dict(name="attention", route="cuda",
              source="diffsplitting_tpu_torch/csrc/attention.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
-             launches=launches["attention"], max_abs_err=attn_err, ms=attn["ms"],
+             launches=launches["attention"] + train["launches"]["attention"],
+             max_abs_err=attn_err, ms=attn["ms"],
              plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"], bound_by=attn["bound_by"],
              library_ms=attn["library_ms"]),
+        dict(name="attention_any_d", route="cuda",
+             source="diffsplitting_tpu_torch/csrc/attention.cu",
+             replaces="diffsplitting_tpu/ops/attention.py:33",
+             launches=wide[0]["attention_any_d"] + wide[1]["attention_any_d"],
+             max_abs_err=any_d_err, at="B=%d N=%d D=%d" % wide_shape,
+             **{k: v for k, v in any_d[wide_shape].items() if k != "max_abs_err"}),
         dict(name="conv_gn", route="cuda",
              source="diffsplitting_tpu_torch/csrc/conv_gn.cu",
              replaces="diffsplitting_tpu/experimental/conv_gn.py:270",
@@ -687,8 +1050,10 @@ def main() -> int:
     ]
     log("group_norm_swish times are per UNet forward (29 calls at batch 8), through a host loop "
         "of calls (device_ms: its device time alone, by CUDA-graph replay), and its launches are "
-        "the unfused slice's; attention times are per call at "
-        f"B={BATCH}, N={ATTN_N}, D={ATTN_D}; conv_gn times are per fused UNet forward "
+        "the unfused slice's plus one train step's; attention times are per call at "
+        f"B={BATCH}, N={ATTN_N}, D={ATTN_D}, its launches the unfused slice's plus one train "
+        "step's; attention_any_d times are per call at the inner-32 cifar10 path's mid block "
+        "(its launches, unfused and fused); conv_gn times are per fused UNet forward "
         "(31 calls at batch 8) and its launches are the fused slice's")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,8 @@
-// Spatial self-attention softmax(q k^T * scale) v, float32, head dim 128,
-// for sm_90a, on the tensor cores at float32 accuracy.
+// Spatial self-attention softmax(q k^T * scale) v, float32, for sm_90a: at
+// head dim 128 on the tensor cores at float32 accuracy
+// (attention_tf32x3_d128_kernel), at any other head dim that is a multiple of
+// 4 up to 1024 on the f32 FMA units (attention_f32_simt_kernel, at the end of
+// this file).
 //
 // Replaces: diffsplitting_tpu/ops/attention.py:33, `_kernel` (launched by
 //   `_pallas_forward`), which held the whole N x N f32 score matrix of one
@@ -309,6 +312,218 @@ attention_tf32x3_d128_kernel(const float* __restrict__ q, const float* __restric
     }
 }
 
+
+// ---------------------------------------------------------------------------
+// Any head dim: attention_f32_simt_kernel.
+//
+// Replaces the same Pallas `_kernel` (diffsplitting_tpu/ops/attention.py:33)
+//   at the head dims the tensor-core kernel does not take: D a multiple of 4
+//   up to 1024 (the mid block of a UNet attends at D = inner_channel x the
+//   last channel multiplier: 16 in the parity tests, 256 at inner 32, 512 and
+//   1024 in the SR3 configs).
+//
+// Bound: operations, 4 * N^2 * D flops a (batch, head) at the f32 FMA rate
+//   (67 TFLOP/s), against 16 * N * D bytes of q, k, v and out.
+//
+// Design: correct first, a plain f32 flash loop.
+//   * One block of 256 threads per (b * head, 16R-query tile); 16R-key K and V
+//     tiles staged in shared memory with rows padded to D + 4 floats, so that
+//     at D a multiple of 32 the float4 loads of 8 rows at one column fall in
+//     8 distinct bank groups.
+//     R = 4 for D <= 256, 2 for D <= 512, 1 for D <= 1024, the most rows
+//     whose Q, K and V tiles fit: 3 * 16 * 1028 * 4 B = 197 KB of the 227 KB
+//     at D = 1024, 200 KB at D = 256 (R = 4), plus the score tile.
+//   * Thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty + 16i and keys
+//     tx + 16j (i, j < R) of the score tile, and of O the same rows and the
+//     16-byte column chunks tx + 16c: every O element it updates belongs to a
+//     row whose running max and sum it holds, so O stays in registers (at most
+//     64 floats) and the 16 threads of a row reduce its max and sum with
+//     shuffles.
+//   * Online softmax with expf, running max, sum and O in f32, one division
+//     at the end; fixed order, no atomics, so two launches give the same bits.
+//   * Any N >= 1: K and V rows past N are zero-filled and their scores set to
+//     -inf before the row max (every tile holds a real key, so a row max is
+//     finite); query rows past N compute on zeros and are not stored.
+
+template <int R>
+struct SimtTile {
+    static constexpr int kRows = 16 * R;         // queries a block, keys a tile
+    static constexpr int kChunks = 16 / R;        // 16-byte O chunks a thread, a row
+    static constexpr int kMaxD = 4 * 16 * kChunks;
+};
+
+template <int R>
+__global__ void __launch_bounds__(256)
+attention_f32_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ out, int n_tokens,
+                          int heads, int d, long long sb, long long sn, long long sh,
+                          float scale) {
+    constexpr int kRows = SimtTile<R>::kRows;
+    constexpr int kNC = SimtTile<R>::kChunks;
+    extern __shared__ float4 smem4[];
+    const int ld = d + 4;  // padded row, a multiple of 4 floats
+    float* Qs = reinterpret_cast<float*>(smem4);  // [kRows][ld]
+    float* Ks = Qs + kRows * ld;                   // [kRows][ld]
+    float* Vs = Ks + kRows * ld;                   // [kRows][ld]
+    float* Ps = Vs + kRows * ld;                   // [kRows][kRows + 1]
+
+    const int bh = blockIdx.y;
+    const int b = bh / heads;
+    const int h = bh % heads;
+    const int q0 = blockIdx.x * kRows;
+    const int tid = threadIdx.x;
+    const int ty = tid / 16, tx = tid % 16;
+    const int d4 = d / 4;
+    const long long base = (long long)b * sb + (long long)h * sh;
+
+    for (int c = tid; c < kRows * d4; c += 256) {
+        const int row = c / d4, chunk = c % d4;
+        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q0 + row < n_tokens)
+            val = *reinterpret_cast<const float4*>(q + base + (long long)(q0 + row) * sn +
+                                                   4 * chunk);
+        *reinterpret_cast<float4*>(Qs + row * ld + 4 * chunk) = val;
+    }
+
+    float m[R], l[R];
+    float4 o[R][kNC];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        m[i] = -INFINITY;
+        l[i] = 0.f;
+#pragma unroll
+        for (int c = 0; c < kNC; ++c) o[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+
+    for (int k0 = 0; k0 < n_tokens; k0 += kRows) {
+        __syncthreads();  // the last tile's K, V and P are read; Q is staged
+        for (int c = tid; c < kRows * d4; c += 256) {
+            const int row = c / d4, chunk = c % d4;
+            float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+            if (k0 + row < n_tokens) {
+                const long long src = base + (long long)(k0 + row) * sn + 4 * chunk;
+                kv = *reinterpret_cast<const float4*>(k + src);
+                vv = *reinterpret_cast<const float4*>(v + src);
+            }
+            *reinterpret_cast<float4*>(Ks + row * ld + 4 * chunk) = kv;
+            *reinterpret_cast<float4*>(Vs + row * ld + 4 * chunk) = vv;
+        }
+        __syncthreads();
+
+        float s[R][R];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < R; ++j) s[i][j] = 0.f;
+        for (int c = 0; c < d4; ++c) {
+            float4 a[R], bk[R];
+#pragma unroll
+            for (int i = 0; i < R; ++i)
+                a[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * ld + 4 * c);
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+                bk[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * ld + 4 * c);
+#pragma unroll
+            for (int i = 0; i < R; ++i)
+#pragma unroll
+                for (int j = 0; j < R; ++j) {
+                    s[i][j] = fmaf(a[i].x, bk[j].x, s[i][j]);
+                    s[i][j] = fmaf(a[i].y, bk[j].y, s[i][j]);
+                    s[i][j] = fmaf(a[i].z, bk[j].z, s[i][j]);
+                    s[i][j] = fmaf(a[i].w, bk[j].w, s[i][j]);
+                }
+        }
+
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+                s[i][j] = k0 + tx + 16 * j < n_tokens ? s[i][j] * scale : -INFINITY;
+                mx = fmaxf(mx, s[i][j]);
+            }
+#pragma unroll
+            for (int off = 8; off > 0; off >>= 1)
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            const float m_new = fmaxf(m[i], mx);
+            const float corr = expf(m[i] - m_new);  // 0 on the first tile
+            float rs = 0.f;
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+                const float pj = expf(s[i][j] - m_new);
+                rs += pj;
+                Ps[(ty + 16 * i) * (kRows + 1) + tx + 16 * j] = pj;
+            }
+#pragma unroll
+            for (int off = 8; off > 0; off >>= 1)
+                rs += __shfl_xor_sync(0xffffffffu, rs, off);
+            l[i] = l[i] * corr + rs;
+            m[i] = m_new;
+#pragma unroll
+            for (int c = 0; c < kNC; ++c) {
+                o[i][c].x *= corr;
+                o[i][c].y *= corr;
+                o[i][c].z *= corr;
+                o[i][c].w *= corr;
+            }
+        }
+        __syncthreads();  // P complete
+
+        for (int kk = 0; kk < kRows; ++kk) {
+            float p[R];
+#pragma unroll
+            for (int i = 0; i < R; ++i) p[i] = Ps[(ty + 16 * i) * (kRows + 1) + kk];
+#pragma unroll
+            for (int c = 0; c < kNC; ++c) {
+                const int chunk = tx + 16 * c;
+                if (chunk < d4) {
+                    const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * ld + 4 * chunk);
+#pragma unroll
+                    for (int i = 0; i < R; ++i) {
+                        o[i][c].x = fmaf(p[i], vv.x, o[i][c].x);
+                        o[i][c].y = fmaf(p[i], vv.y, o[i][c].y);
+                        o[i][c].z = fmaf(p[i], vv.z, o[i][c].z);
+                        o[i][c].w = fmaf(p[i], vv.w, o[i][c].w);
+                    }
+                }
+            }
+        }
+    }
+
+    // out is (B, N, heads, D) contiguous
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        const int row = q0 + ty + 16 * i;
+        if (row >= n_tokens) continue;
+        const float inv = 1.0f / l[i];
+        float* dst = out + (((long long)b * n_tokens + row) * heads + h) * d;
+#pragma unroll
+        for (int c = 0; c < kNC; ++c) {
+            const int chunk = tx + 16 * c;
+            if (chunk < d4)
+                *reinterpret_cast<float4*>(dst + 4 * chunk) = make_float4(
+                    o[i][c].x * inv, o[i][c].y * inv, o[i][c].z * inv, o[i][c].w * inv);
+        }
+    }
+}
+
+template <int R>
+int launch_simt(const float* q, const float* k, const float* v, float* out, int B,
+                int n_tokens, int heads, int d, long long sb, long long sn, long long sh,
+                float scale, cudaStream_t stream) {
+    constexpr int kRows = SimtTile<R>::kRows;
+    const size_t smem = ((size_t)3 * kRows * (d + 4) + (size_t)kRows * (kRows + 1)) *
+                        sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(attention_f32_simt_kernel<R>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((n_tokens + kRows - 1) / kRows, B * heads);
+    attention_f32_simt_kernel<R><<<grid, 256, smem, stream>>>(q, k, v, out, n_tokens, heads, d,
+                                                             sb, sn, sh, scale);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v: (B, N, heads, 128) f32 views sharing the element strides
@@ -326,4 +541,26 @@ extern "C" int attention_f32_d128(const void* q, const void* k, const void* v, v
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(out), n_tokens, heads, sb, sn, sh, scale);
     return (int)cudaGetLastError();
+}
+
+// q, k, v: (B, N, heads, D) f32 views sharing the element strides (sb, sn, sh)
+// with unit stride on the last dim and 16-byte aligned rows; out: (B, N,
+// heads, D) contiguous. D a multiple of 4 up to 1024, any N >= 1. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a D it does not take.
+extern "C" int attention_f32_any_d(const void* q, const void* k, const void* v, void* out,
+                                   int B, int n_tokens, int heads, int d, long long sb,
+                                   long long sn, long long sh, float scale, void* stream) {
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    float* of = static_cast<float*>(out);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (d <= 0 || d % 4) return (int)cudaErrorInvalidValue;
+    if (d <= SimtTile<4>::kMaxD)
+        return launch_simt<4>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+    if (d <= SimtTile<2>::kMaxD)
+        return launch_simt<2>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+    if (d <= SimtTile<1>::kMaxD)
+        return launch_simt<1>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+    return (int)cudaErrorInvalidValue;
 }

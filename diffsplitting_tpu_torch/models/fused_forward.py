@@ -3,7 +3,7 @@
 Counterpart: diffsplitting_tpu/experimental/fused_forward.py
 (`fused_unet_apply`). It runs the same weights as `models.unet.UNet`, read in
 place from the module, as a chain of fused conv+GroupNorm convolutions
-(ops/conv_gn.py): every ResnetBlock is two `conv_gn_fused` calls. No
+(ops/conv_gn.py): every ResnetBlock is two conv sites. No
 normalized tensor is written; each conv's epilogue emits the per-(B, C) sums
 and sums of squares that the next GroupNorm folds into its prologue
 (`fold_gn_affine`); the time bias of a ResnetBlock is absorbed into the
@@ -12,8 +12,16 @@ the residual is added in the conv's epilogue.
 
 Stem and downsampling convs run through `F.conv2d` with `channel_stats`, as
 the JAX walk leaves them to XLA; attention launches the attention kernel; each
-upsample is nearest ×2 then `conv_gn_fused` without a prologue; the head runs
-the GroupNorm+Swish kernel on its input, then `F.conv2d`.
+upsample is nearest ×2 then a conv without a prologue; the head runs the
+GroupNorm+Swish kernel on its input, then `F.conv2d`.
+
+Every ResnetBlock and upsample conv site is planned by its widths before
+anything is launched, as JAX's `_plan_conv` plans them: a site the conv_gn
+kernel takes (`ops.conv_gn.conv_gn_takes`) launches it; any other runs what
+JAX's `_xla_block` runs, out of library ops: the pending GroupNorm folded
+into a per-(B, C) scale and shift, swish, `F.conv2d`, the residual or its 1×1
+projection, and the channel sums the next GroupNorm needs. `ConvSitePlan`
+counts the sites planned each way.
 
 Activations are NHWC-contiguous tensors, as `ST.data` is in JAX. The pair
 layout and its lane maps exist only for the TPU and are not ported.
@@ -38,9 +46,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_attention
-from ..ops.conv_gn import channel_stats, conv_gn_fused, fold_gn_affine
+from ..ops.conv_gn import channel_stats, conv_gn_fused, conv_gn_takes, fold_gn_affine
 from ..ops.groupnorm import fused_group_norm_swish
-from .blocks import GN_EPS, ResnetBlockWithAttn
+from .blocks import GN_EPS, ResnetBlockWithAttn, swish
+
+
+class ConvSitePlan:
+    """Counts of the conv sites planned to the conv_gn kernel (`kernel`) and
+    to library ops (`library`), one per site as the walk reaches it."""
+
+    kernel = 0
+    library = 0
 
 
 @dataclasses.dataclass
@@ -127,8 +143,27 @@ def gn_conv(st: ST, gn_scale, gn_bias, groups: int, K, bias, *, residual: Option
     if residual is not None and (residual.cbias is not None or residual.cscale is not None):
         raise ValueError("gn_conv takes a residual without a pending affine")
     r = residual.data if residual is not None else None
-    y, sums, sumsqs = conv_gn_fused(st.data, K, bias, scale, shift, r, w_skip)
-    return ST(y, sums, sumsqs)
+    return ST(*conv_site(st.data, K, bias, scale, shift, r, w_skip))
+
+
+def conv_site(x, K, bias, scale=None, shift=None, residual=None, w_skip=None):
+    """[affine + swish] → conv3×3 (K HWIO) → [+ residual, projected by w_skip
+    when given] → (y, per-(B, C) sums, sums of squares): through the conv_gn
+    kernel when it takes these widths, else through library ops."""
+    Cres = residual.shape[-1] if residual is not None else 0
+    if conv_gn_takes(x.shape[-1], K.shape[-1], Cres):
+        ConvSitePlan.kernel += 1
+        return conv_gn_fused(x, K, bias, scale, shift, residual, w_skip)
+    ConvSitePlan.library += 1
+    xa = x
+    if scale is not None:
+        xa = swish(x * scale[:, None, None, :] + shift[:, None, None, :])
+    y = F.conv2d(xa.permute(0, 3, 1, 2), K.permute(3, 2, 0, 1), bias, padding=1)
+    y = y.permute(0, 2, 3, 1)
+    if residual is not None:
+        y = y + (residual @ w_skip if w_skip is not None else residual)
+    y = y.contiguous()
+    return (y, *channel_stats(y))
 
 
 def _hwio(conv: nn.Conv2d):
@@ -206,7 +241,7 @@ def fused_unet_forward(unet, x, time=None):
             d = materialize(h)
             B, H, W, C = d.shape
             up = d[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(B, 2 * H, 2 * W, C)
-            h = ST(*conv_gn_fused(up, _hwio(layer.conv), layer.conv.bias))
+            h = ST(*conv_site(up, _hwio(layer.conv), layer.conv.bias))
     if feats:
         raise AssertionError("unconsumed skip connections")
 

@@ -4,6 +4,7 @@ from .conv_gn import (
     channel_stats,
     conv_gn_fused,
     conv_gn_reference,
+    conv_gn_takes,
     fold_gn_affine,
 )
 from .groupnorm import FusedGroupNormSwish, fused_group_norm_swish, group_norm_swish_reference
@@ -16,6 +17,7 @@ __all__ = [
     "channel_stats",
     "conv_gn_fused",
     "conv_gn_reference",
+    "conv_gn_takes",
     "fold_gn_affine",
     "fused_attention",
     "fused_group_norm_swish",

@@ -3,9 +3,11 @@
 Counterpart: diffsplitting_tpu/ops/attention.py (`attention_reference`,
 `fused_attention` with its custom VJP; the Pallas `_kernel`).
 
-`fused_attention` launches the CUDA kernel of csrc/attention.cu for CUDA
-tensors and runs the plain version for CPU tensors. Backward runs autograd
-through the plain version, as the JAX custom VJP does.
+`fused_attention` launches a CUDA kernel of csrc/attention.cu for CUDA
+tensors, picked by the head dim D alone: the tensor-core kernel at D = 128,
+the f32 SIMT kernel at any other D that is a multiple of 4 up to 1024; it
+raises on any other D. CPU tensors run the plain version. Backward runs
+autograd through the plain version, as the JAX custom VJP does.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import torch
 
 from ..kernels.build import check, library
 
-KERNEL_HEAD_DIM = 128
+TENSOR_CORE_HEAD_DIM = 128  # attention_tf32x3_d128_kernel
+MAX_HEAD_DIM = 1024  # attention_f32_simt_kernel: any multiple of 4 up to this
 
 
 def attention_reference(q, k, v, scale: float):
@@ -30,8 +33,9 @@ def _launch(q, k, v, scale: float):
     B, N, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"attention kernel takes head dim {KERNEL_HEAD_DIM}, got {D}")
+    if D % 4 or not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"attention kernels take a head dim that is a multiple of 4 up to "
+                         f"{MAX_HEAD_DIM}, got {D}")
     if not all(t.dtype == torch.float32 for t in (q, k, v)):
         raise TypeError("attention kernel takes float32")
     strides = q.stride()
@@ -42,11 +46,16 @@ def _launch(q, k, v, scale: float):
         raise ValueError("attention kernel needs 16-byte aligned rows")
     out = torch.empty((B, N, H, D), device=q.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = library().attention_f32_d128(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H,
-        strides[0], strides[1], strides[2], float(scale), stream)
-    check(err, "attention_f32_d128")
-    FusedAttention.launches += 1
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if D == TENSOR_CORE_HEAD_DIM:
+        err = library().attention_f32_d128(*ptrs, B, N, H, *strides[:3], float(scale), stream)
+        check(err, "attention_f32_d128")
+        FusedAttention.launches += 1
+    else:
+        err = library().attention_f32_any_d(*ptrs, B, N, H, D, *strides[:3], float(scale),
+                                            stream)
+        check(err, "attention_f32_any_d")
+        FusedAttention.launches_any_d += 1
     return out
 
 
@@ -54,7 +63,8 @@ class FusedAttention(torch.autograd.Function):
     """Forward: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors. Backward: autograd through the plain version."""
 
-    launches = 0  # kernel launches, counted by _launch
+    launches = 0  # tensor-core kernel launches (D = 128), counted by _launch
+    launches_any_d = 0  # SIMT kernel launches (any other D), counted by _launch
 
     @staticmethod
     def forward(ctx, q, k, v, scale):

@@ -101,6 +101,14 @@ def conv_gn_split_floats(Cin: int, Cout: int, Cres_skip: int) -> int:
     return steps * 2 * _block_channels(Cout) * _KC
 
 
+def conv_gn_takes(Cin: int, Cout: int, Cres: int = 0) -> bool:
+    """Whether the kernel takes a site of these widths (Cres 0: no residual):
+    Cin and Cres multiples of 4 up to MAX_CIN, Cout a multiple of 4 up to
+    MAX_COUT. The fused walk plans its conv sites by it."""
+    return (all(c % 4 == 0 for c in (Cin, Cout, Cres)) and 0 < Cin <= MAX_CIN
+            and 0 < Cout <= MAX_COUT and Cres <= MAX_CIN)
+
+
 def _check(x, w, b, scale, shift, residual, w_skip):
     """Raise on anything the kernel does not take; return Cres (0 without a
     residual)."""

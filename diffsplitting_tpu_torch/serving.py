@@ -63,23 +63,35 @@ def unet_kwargs(model_opt: Mapping) -> dict:
 
 
 def define_generator(opt: Mapping):
-    """Config -> (process, nets module) for indi and joint_indi."""
+    """Config -> (process, nets module) for indi and joint_indi: the
+    process carries the train T (`num_timesteps`) and the serving N
+    (`val_num_timesteps`), the loss and the t-sampling strategy."""
     model_opt = opt["model"]
     which = model_opt["which_model_G"]
     if model_opt.get("compute_dtype") not in (None, "float32"):
         raise NotImplementedError(f"compute_dtype={model_opt['compute_dtype']!r} is not ported; "
                                   "the port computes in float32")
     indi_opt = model_opt.get("indi") or {}
+    sched = model_opt["beta_schedule"]
     kw = dict(
         out_channel=model_opt["unet"]["out_channel"],
         e=indi_opt.get("e", 0.01),
         noise_mode=indi_opt.get("noise_mode", "gaussian"),
-        num_timesteps=int(model_opt["beta_schedule"]["val"]["n_timestep"]),
+        num_timesteps=int(sched["train"]["n_timestep"]),
+        val_num_timesteps=int(sched["val"]["n_timestep"]),
+        loss_type=model_opt.get("loss_type") or "l1",
+        lr_reduction=model_opt.get("lr_reduction"),
+        conditional=bool((model_opt.get("diffusion") or {}).get("conditional")),
+        t_sampling_mode=indi_opt.get("t_sampling_mode", "linear_indi"),
+        linear_indi_a=indi_opt.get("linear_indi_a", 1.0),
     )
     if which == "indi":
         return InDIProcess(**kw), InDINet(UNet(**unet_kwargs(model_opt)))
     if which == "joint_indi":
-        return JointInDIProcess(**kw), JointInDINets(unet_kwargs(model_opt))
+        return (JointInDIProcess(**kw, w_input_loss=model_opt.get("w_input_loss") or 0.0,
+                                 allow_full_translation=bool(
+                                     model_opt.get("allow_full_translation", False))),
+                JointInDINets(unet_kwargs(model_opt)))
     raise NotImplementedError(f"which_model_G={which!r} is not ported")
 
 
@@ -95,16 +107,20 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 class SplittingModel:
     """Builds the nets from a config (random weights from `seed` until a state
     dict is loaded) and serves `test`. `fused` picks the UNet forward (see
-    `models.apply_unet`); a call's own `fused` overrides it."""
+    `models.apply_unet`); a call's own `fused` overrides it. `nets`, when
+    given, is a nets module already on the device that is served as it is
+    (the trainer's, or its EMA copy)."""
 
     def __init__(self, opt: Mapping, device=None, seed: int = 0,
-                 fused: Optional[bool] = None):
+                 fused: Optional[bool] = None, nets: Optional[nn.Module] = None):
         self.device = resolve_device(device)
         self.fused = fused
         self.which = opt["model"]["which_model_G"]
-        self.process, nets = define_generator(opt)
-        init_weights(nets, torch.Generator().manual_seed(seed))
-        self.nets = nets.to(self.device).eval()
+        self.process, built = define_generator(opt)
+        if nets is None:
+            init_weights(built, torch.Generator().manual_seed(seed))
+            nets = built.to(self.device).eval()
+        self.nets = nets
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.t_float_start = 0.5 if self.which == "joint_indi" else 1.0
 
@@ -121,9 +137,11 @@ class SplittingModel:
     @torch.inference_mode()
     def test(self, x_nhwc, t_float_start: Optional[float] = None,
              num_timesteps: Optional[int] = None, fused: Optional[bool] = None) -> torch.Tensor:
-        """Reverse process on an NHWC batch; returns an NHWC tensor on the
-        model's device (2 channels for joint_indi)."""
+        """Reverse process on an NHWC batch in `num_timesteps` steps (default:
+        the config's serving N, `beta_schedule.val.n_timestep`); returns an
+        NHWC tensor on the model's device (2 channels for joint_indi)."""
         x = torch.as_tensor(x_nhwc, dtype=torch.float32).to(self.device)
         t0 = self.t_float_start if t_float_start is None else t_float_start
-        return self.process.inference(*self.denoise_fns(fused), x, num_timesteps, t0,
+        n = self.process.val_num_timesteps if num_timesteps is None else num_timesteps
+        return self.process.inference(*self.denoise_fns(fused), x, n, t0,
                                       generator=self.generator)

@@ -1,5 +1,5 @@
-"""The port stands alone: it imports and runs (the fused forward included)
-with jax and the JAX package blocked, its sources import neither, and its entry points refuse to run
+"""The port stands alone: it imports and runs (the fused forward and a train
+step included) with jax and the JAX package blocked, its sources import neither, and its entry points refuse to run
 without CUDA unless the caller asks for the CPU."""
 
 import ast
@@ -43,6 +43,18 @@ from diffsplitting_tpu_torch.models import fused_unet_forward
 from diffsplitting_tpu_torch.ops import conv_gn_fused
 fused = predict_frames(model, frames, patch=16, batch_size=8, fused=True)
 assert fused.shape == out.shape and torch.isfinite(fused).all()
+# the trainer (diffusion losses, optim, clipping, EMA): one step on the CPU
+import numpy as np
+from diffsplitting_tpu_torch.train import DiffusionModel
+opt["model"]["diffusion"]["image_size"] = 16
+opt["train"]["optimizer"].update(grad_clip="auto", accum_steps=2,
+                                 schedule={"type": "cosine", "warmup": 1})
+opt["train"]["ema_scheduler"]["enabled"] = True
+trainer = DiffusionModel(opt, device="cpu", seed=0)
+rng = np.random.default_rng(0)
+trainer.feed_data({"target": rng.normal(size=(2, 16, 16, 2)).astype(np.float32)})
+trainer.optimize_parameters()
+assert np.isfinite(trainer.get_current_log()["l_pix"])
 print("OK")
 """
 
@@ -50,7 +62,7 @@ print("OK")
 def test_package_imports_and_runs_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", BLOCKED_RUN], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
 

@@ -122,6 +122,37 @@ def test_attention_kernel_leaves_no_trace_past_n(cuda):
     assert (got - want).abs().max().item() <= 1e-4
 
 
+# the SIMT kernel at every tile class (R = 4 up to D = 256, 2 up to 512, 1 up
+# to 1024) and ragged D (12, 20, 68: part-filled O chunks), with masked N (100
+# leaves 28 keys of a 64-key tile empty, 1023 one key of the last 16-key
+# tile), 1-2 heads, and scores x8 so that the running max moves
+ANY_D_CASES = [(2, 16, 1, 16, False), (2, 100, 1, 16, True), (1, 1024, 1, 16, False),
+               (2, 64, 2, 64, False), (1, 100, 1, 64, True), (1, 1024, 1, 64, False),
+               (2, 16, 1, 256, False), (1, 100, 2, 256, True), (1, 1024, 1, 256, False),
+               (8, 256, 1, 512, False), (1, 100, 1, 512, True), (2, 1023, 1, 1024, False),
+               (1, 100, 1, 1024, True), (3, 37, 1, 12, False), (1, 50, 2, 20, True),
+               (1, 70, 1, 68, False)]
+
+
+@pytest.mark.parametrize("B,N,heads,D,big", ANY_D_CASES)
+def test_attention_kernel_at_any_head_dim(cuda, B, N, heads, D, big):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn(B, N, heads, 3, D, device=cuda, generator=g)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    scale = (8 if big else 1) / math.sqrt(D * heads)
+    before = FusedAttention.launches, FusedAttention.launches_any_d
+    got = fused_attention(q, k, v, scale)
+    again = fused_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert (FusedAttention.launches, FusedAttention.launches_any_d) == (before[0],
+                                                                        before[1] + 2)
+    want = attention_reference(q, k, v, scale)
+    # f32 FMA on both sides, sums over D and N in another order; the chip
+    # check's tolerance
+    assert (got - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
+    assert torch.equal(got, again)
+
+
 def _conv_gn_run(dev):
     args = _conv_gn_inputs(dev, 2, 13, 20, 48, 128, True, "identity")
     return lambda: conv_gn_fused(*args)
@@ -152,10 +183,13 @@ def test_kernel_gives_the_same_bits_on_two_launches(cuda, make):
         assert torch.equal(a, b)
 
 
-def test_attention_kernel_refuses_other_head_dims(cuda):
-    q = torch.randn(1, 64, 1, 64, device=cuda)
+@pytest.mark.parametrize("D", [66, 1028])
+def test_attention_kernel_refuses_other_head_dims(cuda, D):
+    q = torch.randn(1, 64, 1, D, device=cuda)
+    before = FusedAttention.launches, FusedAttention.launches_any_d
     with pytest.raises(ValueError, match="head dim"):
         fused_attention(q, q, q, 0.1)
+    assert (FusedAttention.launches, FusedAttention.launches_any_d) == before
 
 
 def test_unet_forward_kernels_match_plain_versions(cuda, monkeypatch):
