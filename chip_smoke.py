@@ -15,11 +15,13 @@ was launched, that the output is finite and of the right shape, and that it
 agrees with the same path run through the plain versions (or with the
 unfused slice) and, on a small input, with the port on the CPU. It also serves
 configs/splitting_cifar10_indi.json at its own width and patch (32², so
-attention at N = 16 tokens), and again with inner_channel 32 (attention at
-D = 256 through the any-D kernel; the fused walk plans its wide conv sites to
-library ops), unfused and fused, against the port on the CPU. The any-D
-attention kernel is also held against its plain version and timed beside
-SDPA at D = 16 ... 1024.
+attention at N = 16 tokens), again with inner_channel 32 (attention at
+D = 256 through the wide tensor-core kernel; the fused walk plans its wide
+conv sites to library ops), and with inner_channel 8 and 8 groups (D = 64,
+the SIMT any-D kernel), unfused and fused, against the port on the CPU. The
+attention kernels at other head dims are also held against their plain
+version and timed beside it and SDPA, each on its route, at D = 16 ... 1024
+and at the SR3 / DDPM configs' own shapes.
 
 Then it trains: the joint-InDI train step at full width (patch 512, batch 4,
 the config's) with the kernels against the same step through the plain
@@ -217,58 +219,113 @@ def phase_attention(dev, batches):
     return res, worst
 
 
-# (B, N, D) of the any-D attention kernel: D = 16, 64 and 256 at N = 16, 100
-# and 1024; D = 512 at the SR3 attention site at 16² (B = 8, N = 256); D =
-# 1024 at the mid block of sr_sr3_64_512 (B = 2, N = 1024)
+# (B, N, D) of attention at head dims other than 128: D = 16, 64 and 256 at
+# N = 16, 100 and 1024; D = 512 at the SR3 attention site at 16² (B = 8, N =
+# 256); D = 1024 at the mid block of sr_sr3_64_512 (B = 2, N = 1024)
 ANY_D_SHAPES = ([(BATCH, n, d) for d in (16, 64, 256) for n in (16, 100, 1024)]
                 + [(BATCH, 256, 512), (2, 1024, 1024)])
+# the SR3 / DDPM configs' own: sr_sr3_16_128 and sr_ddpm_16_128 at their batch
+# 4 (the 16² sites and the 8² mid block, D = 512), sample_ddpm_128's 4² mid
+# block at batch 12 (D = 256)
+SR3_SHAPES = [(4, 256, 512), (4, 64, 512), (12, 16, 256)]
+# route of ops.attention.head_dim_route -> its launch count in read_launches()
+ROUTE_COUNTER = {"d128": "attention", "wide": "attention_wide", "simt": "attention_any_d"}
+
+
+def simt_attention(q, k, v, scale):
+    """The SIMT kernel called through its C entry point, at any D it takes
+    (the wrapper routes D = 256 ... 1024 to the wide kernel): to time the two
+    side by side. Not counted as a launch."""
+    import torch
+    from diffsplitting_tpu_torch.kernels.build import check, library
+
+    B, N, H, D = q.shape
+    out = torch.empty((B, N, H, D), device=q.device)
+    check(library().attention_f32_any_d(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                        B, N, H, D, *q.stride()[:3], scale,
+                                        torch.cuda.current_stream().cuda_stream),
+          "attention_f32_any_d")
+    return out
 
 
 def phase_attention_any_d(dev):
-    """The SIMT any-D attention kernel against its plain version (two
-    launches must give the same bits), timed beside the plain version and
-    SDPA, at ANY_D_SHAPES. Returns {(B, N, D): times} and the worst error."""
+    """Attention at head dims other than 128, at ANY_D_SHAPES and SR3_SHAPES,
+    each on its route (the wide tensor-core kernel at D = 256 ... 1024 in
+    steps of 128, the SIMT kernel at other D): against the plain version
+    (two launches must give the same bits), the error of both against f64,
+    and the times of the kernel, the plain version and SDPA through a host
+    loop of calls, with the kernel's and SDPA's device time alone by
+    CUDA-graph replay (the wrapper's host time exceeds a small call's device
+    time); at a wide shape also the SIMT kernel's, at the same D. Returns
+    {(B, N, D): results} and the worst error against the plain version, by
+    route."""
     import torch
     import torch.nn.functional as F
-    from diffsplitting_tpu_torch.ops import FusedAttention, attention_reference, fused_attention
+    from diffsplitting_tpu_torch.kernels.variants import device_ms
+    from diffsplitting_tpu_torch.ops import attention_reference, fused_attention, head_dim_route
 
     g = torch.Generator(device=dev).manual_seed(10)
-    res, worst = {}, 0.0
-    for B, N, D in ANY_D_SHAPES:
+    res, worst = {}, {"wide": 0.0, "simt": 0.0}
+    for B, N, D in ANY_D_SHAPES + SR3_SHAPES:
+        route = head_dim_route(D)
         qkv = torch.randn(B, N, 1, 3, D, device=dev, generator=g)
         q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
         scale = 1.0 / math.sqrt(D)
-        before = FusedAttention.launches_any_d
+        reset_launches()
         got = fused_attention(q, k, v, scale)
         again = fused_attention(q, k, v, scale)
+        launched = read_launches()
         want = attention_reference(q, k, v, scale)
+        exact = attention_reference(q.double(), k.double(), v.double(), scale)
         torch.cuda.synchronize()
         err = max_err(got, want)
-        # f32 FMA on both sides; sums over D and N in another order
+        err64, plain64 = max_err(got, exact), max_err(want, exact)
+        # f32 accuracy on both sides (3xTF32 or f32 FMA); sums over D and N
+        # in another order
         tol = 1e-4 * (1 + want.abs().max().item())
-        if FusedAttention.launches_any_d != before + 2:
-            raise AssertionError(f"attention B={B} N={N} D={D}: the any-D kernel did not launch")
+        if launched[ROUTE_COUNTER[route]] != 2 or sum(launched[c] for c in
+                                                      ROUTE_COUNTER.values()) != 2:
+            raise AssertionError(f"attention B={B} N={N} D={D}: launches {launched}, expected "
+                                 f"2 of the {route} kernel")
         if not err <= tol or not torch.equal(got, again):
             raise AssertionError(f"attention B={B} N={N} D={D}: max abs err {err} (tol {tol}), "
                                  f"two launches equal {torch.equal(got, again)}")
-        worst = max(worst, err)
-        iters = 20 if B * N * N * D < 2**30 else 5
-        ms = time_ms(lambda: fused_attention(q, k, v, scale), iters)
+        worst[route] = max(worst[route], err)
+        ms = time_ms(lambda: fused_attention(q, k, v, scale), 20)
+        dev_ms = device_ms(lambda: fused_attention(q, k, v, scale))
         plain = time_ms(lambda: attention_reference(q, k, v, scale), 3)
         qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), iters)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 20)
+        lib_dev = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+        simt = ""
+        if route == "wide":
+            simt_err = max_err(simt_attention(q, k, v, scale), want)
+            if not simt_err <= tol:
+                raise AssertionError(f"SIMT attention B={B} N={N} D={D}: max abs err {simt_err}")
+            simt_dev = device_ms(lambda: simt_attention(q, k, v, scale))
+            simt = f"; the SIMT kernel at this D: device time {simt_dev:.4f} ms"
         flops = 4 * B * N * N * D
-        fma_ms = flops / F32_FLOPS_PER_S * 1e3  # SIMT: the f32 FMA rate
+        # the wide kernel does each f32 product as three TF32 tensor-core
+        # products (3xTF32); the SIMT kernel runs on the f32 FMA units
+        ops_ms = (3 * flops / TF32_FLOPS_PER_S if route == "wide"
+                  else flops / F32_FLOPS_PER_S) * 1e3
         bytes_ms = 4 * B * N * D * 4 / HBM_BYTES_PER_S * 1e3
-        bound = max(fma_ms, bytes_ms)
-        by = "operations" if fma_ms >= bytes_ms else "bytes"
-        log(f"attention any-D B={B} N={N} D={D} heads=1: err {err:.3g} (tol {tol:.3g}), two "
-            f"launches bit-identical; kernel {ms:.4f} ms plain {plain:.4f} ms SDPA {lib:.4f} ms "
-            f"bound {bound:.4f} ms ({by}; f32 FMA {fma_ms:.4f}, bytes {bytes_ms:.4f}; "
-            f"{bound / ms:.1%} of it, {flops / ms / 1e9:.2f} TFLOP/s)")
-        res[(B, N, D)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                              bound_by=by, max_abs_err=err)
-        del qkv, q, k, v, got, again, want
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        rate = "3xTF32 tensor-core" if route == "wide" else "f32 FMA"
+        log(f"attention {route} B={B} N={N} D={D} heads=1: err {err:.3g} (tol {tol:.3g}; against "
+            f"f64 {err64:.3g}, the plain version's {plain64:.3g}), two launches bit-identical; "
+            f"kernel {ms:.4f} ms (device time {dev_ms:.4f}) plain {plain:.4f} ms SDPA {lib:.4f} "
+            f"ms (device time {lib_dev:.4f}; {lib_dev / dev_ms:.2f}x the kernel's) bound "
+            f"{bound:.4f} ms ({by}; {rate} {ops_ms:.4f}, bytes {bytes_ms:.4f}; "
+            f"{bound / dev_ms:.1%} of it by device time, {flops / dev_ms / 1e9:.2f} f32 "
+            f"TFLOP/s){simt}")
+        res[(B, N, D)] = dict(route=route, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                              library_ms=lib, library_device_ms=lib_dev, bound_ms=bound,
+                              bound_by=by, max_abs_err=err, err_f64=err64)
+        if route == "wide":
+            res[(B, N, D)]["simt_device_ms"] = simt_dev
+        del qkv, q, k, v, got, again, want, exact
         torch.cuda.empty_cache()
     return res, worst
 
@@ -391,14 +448,15 @@ def phase_small_reference(opt, fused: bool = False):
         f"(tol {tol:.3g})")
 
 
-def phase_cifar10(dev, inner=None, plan=(31, 0)):
+def phase_cifar10(dev, inner=None, plan=(31, 0), groups=None):
     """configs/splitting_cifar10_indi.json served at its own patch (32², 20
     steps; the mid block at 4×4, so attention at N = 16 tokens) on two 64²
     frames, unfused and fused, at its own width (inner 16: D = 128) or with
-    `inner_channel` set to `inner` in memory (inner 32: D = 256, the any-D
-    attention kernel; Cout 256 and Cin up to 512, sites the conv_gn kernel
-    does not take). `plan` is the (kernel, library) count of the fused walk's
-    conv sites a forward, asserted. The launches are checked against the
+    `inner_channel` set to `inner` and `norm_groups` to `groups` in memory
+    (inner 32: D = 256, the wide attention kernel; Cout 256 and Cin up to
+    512, sites the conv_gn kernel does not take; inner 8 and 8 groups: D =
+    64, the SIMT attention kernel). `plan` is the (kernel, library) count of
+    the fused walk's conv sites a forward, asserted. The launches are checked against the
     config's depth; each kernel is held against its plain version at every
     shape this path gives it, at the serving batch and at the last batch's
     (GN+Swish also bit-identical on two launches); the fused output against
@@ -413,14 +471,17 @@ def phase_cifar10(dev, inner=None, plan=(31, 0)):
     from diffsplitting_tpu_torch.kernels.groupnorm_variants import gn_shapes
     from diffsplitting_tpu_torch.models import fused_unet_forward
     from diffsplitting_tpu_torch.models.fused_forward import ConvSitePlan
-    from diffsplitting_tpu_torch.ops import attention_reference, fused_attention
+    from diffsplitting_tpu_torch.ops import attention_reference, fused_attention, head_dim_route
     from diffsplitting_tpu_torch.predict import predict_frames
     from diffsplitting_tpu_torch.serving import SplittingModel
 
     opt = dict_to_nonedict(load_json(CIFAR_CONFIG))
     if inner is not None:
         opt["model"]["unet"]["inner_channel"] = inner
-    name = CIFAR_CONFIG + (f" at inner {inner}" if inner is not None else "")
+    if groups is not None:
+        opt["model"]["unet"]["norm_groups"] = groups
+    name = CIFAR_CONFIG + (f" at inner {inner}" if inner is not None else "") + (
+        f", {groups} groups" if groups is not None else "")
     patch = int(opt["datasets"]["patch_size"])
     unet = opt["model"]["unet"]
     levels, res_blocks = len(unet["channel_multiplier"]), unet["res_blocks"]
@@ -430,7 +491,7 @@ def phase_cifar10(dev, inner=None, plan=(31, 0)):
     n_resnet = levels * res_blocks + 2 + levels * (res_blocks + 1)
     gn_per_forward, conv_per_forward = 2 * n_resnet + 1, 2 * n_resnet + levels - 1
     dim = unet["inner_channel"] * unet["channel_multiplier"][-1]
-    attn_key = "attention" if dim == ATTN_D else "attention_any_d"
+    attn_key = ROUTE_COUNTER[head_dim_route(dim)]
     model = SplittingModel(opt, device=dev, seed=8)
     net = model.unets()[0]
     g = torch.Generator(device=dev).manual_seed(9)
@@ -475,7 +536,7 @@ def phase_cifar10(dev, inner=None, plan=(31, 0)):
     outs = {}
     for fused in (False, True):
         expected = {"group_norm_swish": (1 if fused else gn_per_forward) * forwards,
-                    "attention": 0, "attention_any_d": 0,
+                    "attention": 0, "attention_wide": 0, "attention_any_d": 0,
                     "conv_gn": plan[0] * forwards if fused else 0,
                     "sites_kernel": plan[0] * forwards if fused else 0,
                     "sites_library": plan[1] * forwards if fused else 0}
@@ -599,7 +660,7 @@ def reset_launches() -> None:
 
     for k in (FusedGroupNormSwish, FusedAttention, FusedConvGN):
         k.launches = 0
-    FusedAttention.launches_any_d = 0
+    FusedAttention.launches_wide = FusedAttention.launches_any_d = 0
     ConvSitePlan.kernel = ConvSitePlan.library = 0
 
 
@@ -608,7 +669,7 @@ def read_launches() -> dict:
     from diffsplitting_tpu_torch.ops import FusedAttention, FusedConvGN, FusedGroupNormSwish
 
     return {"group_norm_swish": FusedGroupNormSwish.launches,
-            "attention": FusedAttention.launches,
+            "attention": FusedAttention.launches, "attention_wide": FusedAttention.launches_wide,
             "attention_any_d": FusedAttention.launches_any_d, "conv_gn": FusedConvGN.launches,
             "sites_kernel": ConvSitePlan.kernel, "sites_library": ConvSitePlan.library}
 
@@ -840,8 +901,8 @@ def phase_train(dev):
     kern.optimize_parameters(draws)
     torch.cuda.synchronize()
     launches = read_launches()
-    expected = {"group_norm_swish": 58, "attention": 2, "attention_any_d": 0, "conv_gn": 0,
-                "sites_kernel": 0, "sites_library": 0}
+    expected = {"group_norm_swish": 58, "attention": 2, "attention_wide": 0, "attention_any_d": 0,
+                "conv_gn": 0, "sites_kernel": 0, "sites_library": 0}
     if launches != expected:
         raise AssertionError(f"train step: launches {launches}, expected {expected}")
     log(f"train step B={TRAIN_BATCH} {PATCH}²: launches {launches} (forward, backward and "
@@ -944,7 +1005,7 @@ def main() -> int:
     # attention at the mid block's shape, at B=2, the train batch and the
     # serving batch (timed at the last)
     attn, attn_err = phase_attention(dev, (2, TRAIN_BATCH, BATCH))
-    # the any-D kernel, at head dims of other configs
+    # the wide and SIMT kernels, at head dims of other configs
     any_d, any_d_err = phase_attention_any_d(dev)
 
     # conv_gn at every site of one fused forward
@@ -975,9 +1036,11 @@ def main() -> int:
     phase_small_reference(opt)
     phase_small_reference(opt, fused=True)
     phase_cifar10(dev)
-    # inner 32: attention at D = 256 (the any-D kernel), wide conv sites
+    # inner 32: attention at D = 256 (the wide kernel), wide conv sites
     # planned to library ops in the fused walk
     wide = phase_cifar10(dev, inner=32, plan=(18, 13))
+    # inner 8, 8 groups: attention at D = 64 (the SIMT kernel)
+    narrow = phase_cifar10(dev, inner=8, plan=(31, 0), groups=8)
 
     # the slice: joint-InDI tiled prediction at full width, unfused and fused
     frames = torch.randn(*FRAMES, 1, device=dev, generator=gen)
@@ -986,7 +1049,8 @@ def main() -> int:
     forwards = 2 * steps * math.ceil(n_tiles / BATCH)
     out, launches = phase_slice(
         model, frames, False,
-        {"group_norm_swish": 29 * forwards, "attention": forwards, "attention_any_d": 0,
+        {"group_norm_swish": 29 * forwards, "attention": forwards, "attention_wide": 0,
+         "attention_any_d": 0,
          "conv_gn": 0, "sites_kernel": 0, "sites_library": 0},
         n_tiles, forwards)
     model.generator.manual_seed(0)
@@ -1004,7 +1068,8 @@ def main() -> int:
     # mid block's attention, and GroupNorm+Swish once, at the head
     out_fused, fused_launches = phase_slice(
         model, frames, True,
-        {"group_norm_swish": forwards, "attention": forwards, "attention_any_d": 0,
+        {"group_norm_swish": forwards, "attention": forwards, "attention_wide": 0,
+         "attention_any_d": 0,
          "conv_gn": 31 * forwards, "sites_kernel": 31 * forwards, "sites_library": 0},
         n_tiles, forwards)
     err = max_err(out_fused, out)
@@ -1019,6 +1084,7 @@ def main() -> int:
 
     train = phase_train(dev)
     wide_shape = (BATCH, 16, 256)  # the mid block of the inner-32 path
+    simt_shape = (BATCH, 16, 64)  # the mid block of the inner-8 path
 
     kernels = [
         dict(name="group_norm_swish", route="cuda",
@@ -1035,12 +1101,23 @@ def main() -> int:
              max_abs_err=attn_err, ms=attn["ms"],
              plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"], bound_by=attn["bound_by"],
              library_ms=attn["library_ms"]),
+        dict(name="attention_wide", route="cuda",
+             source="diffsplitting_tpu_torch/csrc/attention.cu",
+             replaces="diffsplitting_tpu/ops/attention.py:33",
+             launches=wide[0]["attention_wide"] + wide[1]["attention_wide"],
+             max_abs_err=any_d_err["wide"], at="B=%d N=%d D=%d" % wide_shape,
+             **{k: any_d[wide_shape][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "device_ms")},
+             by_shape={"B=%d N=%d D=%d" % key: {k: r[k] for k in (
+                 "device_ms", "library_device_ms", "simt_device_ms", "bound_ms")}
+                 for key, r in any_d.items() if r["route"] == "wide"}),
         dict(name="attention_any_d", route="cuda",
              source="diffsplitting_tpu_torch/csrc/attention.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
-             launches=wide[0]["attention_any_d"] + wide[1]["attention_any_d"],
-             max_abs_err=any_d_err, at="B=%d N=%d D=%d" % wide_shape,
-             **{k: v for k, v in any_d[wide_shape].items() if k != "max_abs_err"}),
+             launches=narrow[0]["attention_any_d"] + narrow[1]["attention_any_d"],
+             max_abs_err=any_d_err["simt"], at="B=%d N=%d D=%d" % simt_shape,
+             **{k: any_d[simt_shape][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "device_ms")}),
         dict(name="conv_gn", route="cuda",
              source="diffsplitting_tpu_torch/csrc/conv_gn.cu",
              replaces="diffsplitting_tpu/experimental/conv_gn.py:270",
@@ -1052,8 +1129,10 @@ def main() -> int:
         "of calls (device_ms: its device time alone, by CUDA-graph replay), and its launches are "
         "the unfused slice's plus one train step's; attention times are per call at "
         f"B={BATCH}, N={ATTN_N}, D={ATTN_D}, its launches the unfused slice's plus one train "
-        "step's; attention_any_d times are per call at the inner-32 cifar10 path's mid block "
-        "(its launches, unfused and fused); conv_gn times are per fused UNet forward "
+        "step's; attention_wide times are per call at the inner-32 cifar10 path's mid block "
+        "(its launches, unfused and fused; by_shape: device times at other shapes, with SDPA's "
+        "and the SIMT kernel's), attention_any_d (SIMT) times at the inner-8 path's (its "
+        "launches), device_ms by CUDA-graph replay; conv_gn times are per fused UNet forward "
         "(31 calls at batch 8) and its launches are the fused slice's")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,7 @@ shadows the shipped one. Shared by `attention_variants`,
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 from pathlib import Path
 
@@ -57,10 +58,42 @@ def build_all(sources: dict, main: str, work: Path) -> dict:
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        print(f"{name}: " + "; ".join(line.split(":", 1)[-1].strip() for line in out.splitlines()
-                                     if "Used" in line or "spill" in line or "Compiling" in line))
+        print(f"{name}: " + "; ".join(_ptxas_summary(out)))
         libs[name] = ctypes.CDLL(str(work / name / "lib.so"))
     return libs
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name
+    (_Z[N]<length><identifier>... then any I...E arguments)."""
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    pos, name = m.end(), mangled
+    while (d := re.match(r"\d+", mangled[pos:])):
+        n = int(d.group())
+        name = mangled[pos + d.end():pos + d.end() + n]
+        pos += d.end() + n
+    rest = mangled[pos:]
+    if rest.startswith("I"):
+        name += "<" + ",".join(re.findall(r"Li(\d+)E", rest.split("EE")[0] + "E")) + ">"
+    return name
+
+
+def _ptxas_summary(log: str) -> list:
+    """'kernel<template args>: registers, spill bytes' for each entry function
+    in an `-Xptxas -v` log."""
+    out, name, spill = [], None, "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+        elif "spill stores" in line:
+            spill = line.split(",")[1].strip().split()[0]
+        elif "Used" in line and name:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            out.append(f"{name}: {regs} registers, {spill} B spilled")
+            name = None
+    return out
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:

@@ -1,4 +1,4 @@
-from .attention import FusedAttention, attention_reference, fused_attention
+from .attention import FusedAttention, attention_reference, fused_attention, head_dim_route
 from .conv_gn import (
     FusedConvGN,
     channel_stats,
@@ -22,4 +22,5 @@ __all__ = [
     "fused_attention",
     "fused_group_norm_swish",
     "group_norm_swish_reference",
+    "head_dim_route",
 ]

@@ -4,10 +4,12 @@ Counterpart: diffsplitting_tpu/ops/attention.py (`attention_reference`,
 `fused_attention` with its custom VJP; the Pallas `_kernel`).
 
 `fused_attention` launches a CUDA kernel of csrc/attention.cu for CUDA
-tensors, picked by the head dim D alone: the tensor-core kernel at D = 128,
-the f32 SIMT kernel at any other D that is a multiple of 4 up to 1024; it
-raises on any other D. CPU tensors run the plain version. Backward runs
-autograd through the plain version, as the JAX custom VJP does.
+tensors, picked by the head dim D alone (`head_dim_route`): the tensor-core
+kernel at D = 128; the wide tensor-core kernel, in 128-wide head-dim slices,
+at D = 256, 384, ..., 1024; the f32 SIMT kernel at any other D that is a
+multiple of 4 up to 1024. It raises on any other D. CPU tensors run the plain
+version. Backward runs autograd through the plain version, as the JAX custom
+VJP does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 from ..kernels.build import check, library
 
 TENSOR_CORE_HEAD_DIM = 128  # attention_tf32x3_d128_kernel
-MAX_HEAD_DIM = 1024  # attention_f32_simt_kernel: any multiple of 4 up to this
+WIDE_HEAD_DIMS = range(256, 1025, 128)  # attention_tf32x3_wide_kernel
+MAX_HEAD_DIM = 1024  # attention_f32_simt_kernel: any other multiple of 4 up to this
 
 
 def attention_reference(q, k, v, scale: float):
@@ -28,14 +31,23 @@ def attention_reference(q, k, v, scale: float):
     return torch.einsum("bhqk,bkhd->bqhd", attn.to(q.dtype), v)
 
 
+def head_dim_route(D: int) -> str:
+    """The kernel that takes head dim D: "d128", "wide" or "simt"; raises on a
+    D that none takes."""
+    if D % 4 or not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"attention kernels take a head dim that is a multiple of 4 up to "
+                         f"{MAX_HEAD_DIM}, got {D}")
+    if D == TENSOR_CORE_HEAD_DIM:
+        return "d128"
+    return "wide" if D in WIDE_HEAD_DIMS else "simt"
+
+
 def _launch(q, k, v, scale: float):
     """Run csrc/attention.cu on CUDA tensors; raises on what it does not take."""
     B, N, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
-    if D % 4 or not 0 < D <= MAX_HEAD_DIM:
-        raise ValueError(f"attention kernels take a head dim that is a multiple of 4 up to "
-                         f"{MAX_HEAD_DIM}, got {D}")
+    route = head_dim_route(D)
     if not all(t.dtype == torch.float32 for t in (q, k, v)):
         raise TypeError("attention kernel takes float32")
     strides = q.stride()
@@ -47,10 +59,14 @@ def _launch(q, k, v, scale: float):
     out = torch.empty((B, N, H, D), device=q.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    if D == TENSOR_CORE_HEAD_DIM:
+    if route == "d128":
         err = library().attention_f32_d128(*ptrs, B, N, H, *strides[:3], float(scale), stream)
         check(err, "attention_f32_d128")
         FusedAttention.launches += 1
+    elif route == "wide":
+        err = library().attention_f32_wide(*ptrs, B, N, H, D, *strides[:3], float(scale), stream)
+        check(err, "attention_f32_wide")
+        FusedAttention.launches_wide += 1
     else:
         err = library().attention_f32_any_d(*ptrs, B, N, H, D, *strides[:3], float(scale),
                                             stream)
@@ -64,6 +80,7 @@ class FusedAttention(torch.autograd.Function):
     tensors. Backward: autograd through the plain version."""
 
     launches = 0  # tensor-core kernel launches (D = 128), counted by _launch
+    launches_wide = 0  # wide tensor-core kernel launches (D = 256 ... 1024), by _launch
     launches_any_d = 0  # SIMT kernel launches (any other D), counted by _launch
 
     @staticmethod

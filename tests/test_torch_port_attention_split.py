@@ -12,6 +12,11 @@ tile that N does not fill is zero-padded and its scores there set to -inf. The e
 and the port's within the chip check's tolerance 1e-4 * (1 + max|ref|). A
 1xTF32 emulation (big*big only) is printed beside it to record what the split
 buys.
+
+The wide kernel (D = 256 ... 1024 in steps of 128) is emulated in its own
+order of sums, with the accumulator rounding toward zero after every MMA:
+each 128-wide slice's partial S in 16-wide head-dim steps from 0, added in
+f32; the partials added in f32 in slice order; each key tile's P V from 0.
 """
 
 import jax.numpy as jnp
@@ -209,3 +214,98 @@ def test_truncating_accumulator_error_comes_from_the_sum_over_keys():
     assert err[False, True] > 2 * err[False, False]
     assert err[False, True] > err[True, False]
     assert err[True, True] > 2 * err[True, False]
+
+
+# The wide kernel (attention_tf32x3_wide_kernel, D = 128·DS): keys a tile by
+# D, as WideTile's kTileK in csrc/attention.cu
+WIDE_TILE = {256: 32, 384: 32, 512: 32, 640: 16, 768: 16, 896: 16, 1024: 16}
+SLICE = 128  # head dims a warp owns
+
+
+def _mma3(a, b, acc):
+    """acc + a @ b in k-steps of 8, each step three MMAs in mma_3xtf32's
+    order (small·big, big·small, big·big), the accumulator rounded toward
+    zero after each (f64 values, f32 operands)."""
+    for k0 in range(0, a.shape[1], 8):
+        ab, as_ = split(a[:, k0:k0 + 8].float())
+        bb, bs = split(b[k0:k0 + 8].float())
+        for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+            acc = _round_toward_zero(acc + x.double() @ y.double())
+    return acc
+
+
+def emulate_wide(q, k, v, scale: float, tile: int, s_step: int = STEP):
+    """(N, D) q, k, v of one (batch, head): the wide kernel's tile loop. Each
+    128-wide slice's partial S is summed in `s_step`-wide head-dim steps,
+    each from 0 in the accumulator, the steps added in f32; the partials are
+    added in f32 in slice order; each tile's P V is summed from 0 in the
+    accumulator and added to O in f32. Keys past N are zeros, their scores
+    -inf."""
+    f32 = lambda x: x.float().double()  # noqa: E731
+    n, d = q.shape
+    pad = -n % tile
+    q = q.double()
+    k = torch.cat([k.double(), torch.zeros(pad, d, dtype=torch.float64)])
+    v = torch.cat([v.double(), torch.zeros(pad, d, dtype=torch.float64)])
+    c2 = scale * LOG2E
+    o = torch.zeros(n, d, dtype=torch.float64)
+    m = torch.full((n, 1), -torch.inf, dtype=torch.float64)
+    l = torch.zeros(n, 1, dtype=torch.float64)
+    for k0 in range(0, n, tile):
+        kt, vt = k[k0:k0 + tile], v[k0:k0 + tile]
+        zeros = torch.zeros(n, tile, dtype=torch.float64)
+        s = None
+        for s0 in range(0, d, SLICE):
+            part = zeros
+            for d0 in range(s0, s0 + SLICE, s_step):
+                part = f32(part + _mma3(q[:, d0:d0 + s_step], kt[:, d0:d0 + s_step].T, zeros))
+            s = part if s is None else f32(s + part)
+        s = f32(s * c2)
+        s[:, n - k0:] = -torch.inf  # keys past N take no weight
+        m_new = torch.maximum(m, s.max(dim=1, keepdim=True).values)
+        corr = f32(torch.exp2(m - m_new))
+        p = f32(torch.exp2(s - m_new))
+        l = f32(l * corr + p.sum(dim=1, keepdim=True))
+        o = f32(f32(o * corr) + _mma3(p, vt, torch.zeros_like(o)))
+        m = m_new
+    return (o / l).float()
+
+
+# N = 40: a full tile and a masked one (8 of 32 keys, or 8 of 16 at D = 1024)
+@pytest.mark.parametrize("D,score_gain", [(256, 1), (256, 8), (512, 8), (1024, 1)])
+def test_wide_kernel_emulation_matches_references(D, score_gain):
+    N = 40
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(size=(1, N, 1, D)).astype(np.float32) for _ in range(3))
+    scale = score_gain / np.sqrt(D)
+    want_jax = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale))
+    want = attention_reference(*map(torch.from_numpy, (q, k, v)), scale).numpy()
+    tq, tk, tv = (torch.from_numpy(a[0, :, 0]) for a in (q, k, v))
+    exact = (torch.softmax(tq.double() @ tk.double().T * scale, dim=1) @ tv.double()).numpy()
+    got = emulate_wide(tq, tk, tv, scale, WIDE_TILE[D]).numpy()
+    tol = 1e-4 * (1 + np.abs(want).max())
+    err_jax = np.abs(got - want_jax[0, :, 0]).max()
+    err_exact = np.abs(got - exact).max()
+    print(f"D={D} N={N} score gain {score_gain}: against JAX {err_jax:.3g}, the port's "
+          f"reference {np.abs(got - want[0, :, 0]).max():.3g}, f64 {err_exact:.3g}")
+    assert err_jax <= tol
+    assert np.abs(got - want[0, :, 0]).max() <= tol
+    # the error the kernel is held to on the card at scores of unit scale;
+    # scores x8 carry 8x the absolute score error into exp
+    assert err_exact <= 2e-6 * score_gain
+
+
+def test_wide_kernel_sums_s_per_step():
+    """Why the wide kernel sums S a 16-wide head-dim step at a time: with an
+    accumulator that rounds toward zero, a slice's 128 terms summed in it
+    err more than the same terms in steps from 0 added in f32."""
+    N, D = 64, 512
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)) for _ in range(3))
+    scale = 1 / np.sqrt(D)
+    exact = torch.softmax((q.double() @ k.double().T) * scale, dim=1) @ v.double()
+    err = {step: (emulate_wide(q, k, v, scale, WIDE_TILE[D], s_step=step).double() - exact)
+           .abs().max().item() for step in (STEP, SLICE)}
+    print(f"N={N} D={D}: max abs err, S in 16-wide steps {err[STEP]:.3g}, a slice in the "
+          f"accumulator {err[SLICE]:.3g}")
+    assert 2 * err[STEP] < err[SLICE]

@@ -123,15 +123,20 @@ def test_attention_kernel_leaves_no_trace_past_n(cuda):
 
 
 # the SIMT kernel at every tile class (R = 4 up to D = 256, 2 up to 512, 1 up
-# to 1024) and ragged D (12, 20, 68: part-filled O chunks), with masked N (100
-# leaves 28 keys of a 64-key tile empty, 1023 one key of the last 16-key
-# tile), 1-2 heads, and scores x8 so that the running max moves
+# to 1024) at head dims it still serves (the multiples of 128 from 256 go to
+# the wide kernel), and ragged D (12, 20, 68: part-filled O chunks), with
+# masked N (100 leaves 28 keys of a 64-key tile empty, 1023 one key of the
+# last 16-key tile), 1-2 heads, and scores x8 so that the running max moves
 ANY_D_CASES = [(2, 16, 1, 16, False), (2, 100, 1, 16, True), (1, 1024, 1, 16, False),
                (2, 64, 2, 64, False), (1, 100, 1, 64, True), (1, 1024, 1, 64, False),
-               (2, 16, 1, 256, False), (1, 100, 2, 256, True), (1, 1024, 1, 256, False),
-               (8, 256, 1, 512, False), (1, 100, 1, 512, True), (2, 1023, 1, 1024, False),
-               (1, 100, 1, 1024, True), (3, 37, 1, 12, False), (1, 50, 2, 20, True),
+               (2, 16, 1, 192, False), (1, 100, 2, 252, True), (1, 1024, 1, 192, False),
+               (8, 256, 1, 320, False), (1, 100, 1, 500, True), (2, 1023, 1, 1020, False),
+               (1, 100, 1, 900, True), (3, 37, 1, 12, False), (1, 50, 2, 20, True),
                (1, 70, 1, 68, False)]
+
+
+def _counts():
+    return FusedAttention.launches, FusedAttention.launches_wide, FusedAttention.launches_any_d
 
 
 @pytest.mark.parametrize("B,N,heads,D,big", ANY_D_CASES)
@@ -140,17 +145,59 @@ def test_attention_kernel_at_any_head_dim(cuda, B, N, heads, D, big):
     qkv = torch.randn(B, N, heads, 3, D, device=cuda, generator=g)
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     scale = (8 if big else 1) / math.sqrt(D * heads)
-    before = FusedAttention.launches, FusedAttention.launches_any_d
+    before = _counts()
     got = fused_attention(q, k, v, scale)
     again = fused_attention(q, k, v, scale)
     torch.cuda.synchronize()
-    assert (FusedAttention.launches, FusedAttention.launches_any_d) == (before[0],
-                                                                        before[1] + 2)
+    assert _counts() == (before[0], before[1], before[2] + 2)
     want = attention_reference(q, k, v, scale)
     # f32 FMA on both sides, sums over D and N in another order; the chip
     # check's tolerance
     assert (got - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
     assert torch.equal(got, again)
+
+
+# the wide tensor-core kernel at every head dim it takes: D = 256, 384, 512,
+# 768 and 1024 at N = 1 (one key, 15 rows of a row group empty), 17 (a last
+# key tile of one or two keys, at 16- and 32-key tiles), 100 and 1023
+# (a key slot of the last tile empty), with 640 and 896 at two N; 1-2 heads
+# as strided views of one qkv tensor, and scores x8 so that the running max
+# moves across key tiles
+WIDE_CASES = ([(2, n, 1 + i % 2, d, bool(i % 2)) for d in (256, 384, 512, 768, 1024)
+               for i, n in enumerate((1, 17, 100, 1023))]
+              + [(2, 100, 1, 640, True), (1, 1023, 2, 640, False), (1, 17, 2, 896, False),
+                 (2, 1023, 1, 896, True)])
+
+
+@pytest.mark.parametrize("B,N,heads,D,big", WIDE_CASES)
+def test_attention_wide_kernel(cuda, B, N, heads, D, big):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qkv = torch.randn(B, N, heads, 3, D, device=cuda, generator=g)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    scale = (8 if big else 1) / math.sqrt(D * heads)
+    before = _counts()
+    got = fused_attention(q, k, v, scale)
+    again = fused_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1] + 2, before[2])
+    want = attention_reference(q, k, v, scale)
+    # 3xTF32 keeps f32 accuracy; S is added across 128-wide slices and the
+    # sums run in another order than cuBLAS's; the chip check's tolerance
+    assert (got - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
+    assert torch.equal(got, again)
+
+
+def test_attention_routes_by_head_dim(cuda):
+    """D = 128 to the tensor-core kernel, 256 ... 1024 in steps of 128 to the
+    wide one, and any other multiple of 4 to the SIMT kernel."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for D, which in [(128, 0), (256, 1), (384, 1), (512, 1), (768, 1), (1024, 1), (12, 2),
+                     (16, 2), (64, 2), (68, 2), (192, 2), (1020, 2)]:
+        q = torch.randn(1, 40, 1, D, device=cuda, generator=g)
+        before = list(_counts())
+        fused_attention(q, q, q, 0.1)
+        before[which] += 1
+        assert list(_counts()) == before, D
 
 
 def _conv_gn_run(dev):
@@ -186,10 +233,10 @@ def test_kernel_gives_the_same_bits_on_two_launches(cuda, make):
 @pytest.mark.parametrize("D", [66, 1028])
 def test_attention_kernel_refuses_other_head_dims(cuda, D):
     q = torch.randn(1, 64, 1, D, device=cuda)
-    before = FusedAttention.launches, FusedAttention.launches_any_d
+    before = _counts()
     with pytest.raises(ValueError, match="head dim"):
         fused_attention(q, q, q, 0.1)
-    assert (FusedAttention.launches, FusedAttention.launches_any_d) == before
+    assert _counts() == before
 
 
 def test_unet_forward_kernels_match_plain_versions(cuda, monkeypatch):

@@ -24,6 +24,7 @@ from diffsplitting_tpu_torch.ops import (
     fused_attention,
     fused_group_norm_swish,
     group_norm_swish_reference,
+    head_dim_route,
 )
 
 TOL = 1e-5
@@ -93,3 +94,17 @@ def test_fused_attention_on_cpu_runs_plain_version_and_backward():
                      argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
     for t, g in zip((tq, tk, tv), grads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("D,route", [(128, "d128"), (256, "wide"), (384, "wide"), (512, "wide"),
+                                     (640, "wide"), (768, "wide"), (896, "wide"), (1024, "wide"),
+                                     (12, "simt"), (16, "simt"), (64, "simt"), (68, "simt"),
+                                     (192, "simt"), (1020, "simt")])
+def test_attention_kernel_is_picked_by_head_dim(D, route):
+    assert head_dim_route(D) == route
+
+
+@pytest.mark.parametrize("D", [0, 66, 1028, 2048])
+def test_attention_kernels_refuse_other_head_dims(D):
+    with pytest.raises(ValueError, match="head dim"):
+        head_dim_route(D)
