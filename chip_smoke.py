@@ -28,7 +28,13 @@ the config's) with the kernels against the same step through the plain
 versions (loss, grad_norm, every gradient), 58 GN+Swish and 2 attention
 launches a step asserted, a small step on the card against the port on the
 CPU, 30 steps on one batch (ms a step, samples/s, peak memory, a falling
-loss) and one step's device time by family.
+loss) and one step's device time by family. Last, the training loop
+(`phase_train_loop`): the port's split.py at the same width on seeded
+synthetic frames, 10 iterations on the device pool and 10 more resumed from
+the I10 checkpoint on the host loader (validation, checkpoint pairs and
+launches asserted), an exact resume (state and one step, bit for bit, against
+the model that never stopped), the loop's it/s, peak memory and idle share on
+each data path, and `-p val` from the I20 checkpoint.
 
 Every phase raises on failure, so the script exits non-zero with no result
 line. It prints the card's name and power limit, per-kernel times beside
@@ -45,6 +51,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import itertools
 import json
 import math
 import re
@@ -954,6 +961,275 @@ def phase_train(dev):
     return dict(launches=launches, ms=ms, peak=peak, profile=prof)
 
 
+LOOP_FRAMES, LOOP_SIZE = 8, 1024  # train frames; the synthesis adds 2 val frames
+LOOP_WARMUP, LOOP_TIMED = 2, 8
+
+
+def loop_config(work: str, iters: int, resume=None, pool=None) -> str:
+    """The Hagen joint config at its own patch (512) and batch (4) on the
+    synthetic stacks in `work`: print every 5 iterations, validate and save
+    every 10, the EMA on (exact tracking before step_start_ema), the device
+    pool as `pool` says (None: auto). Returns the config's path."""
+    from diffsplitting_tpu_torch.scripts import quality_joint_indi_synthetic as quality
+
+    path = quality.write_config(work, iters, PATCH, TRAIN_BATCH, save_freq=10, resume=resume,
+                                print_freq=5, val_freq=10)
+    with open(path) as f:
+        opt = json.load(f)
+    opt["datasets"]["train"]["device_pool"] = pool
+    opt["train"]["ema_scheduler"]["enabled"] = True
+    with open(path, "w") as f:
+        json.dump(opt, f)
+    return path
+
+
+def checkpoint_prefix(run: dict, iters: int) -> str:
+    """The `I{iters}_E*` prefix a split run saved, asserting both files."""
+    ckpt_dir = Path(run["opt"]["path"]["checkpoint"])
+    gens = sorted(ckpt_dir.glob(f"I{iters}_E*_gen.pth"))
+    if len(gens) != 1 or not Path(str(gens[0]).replace("_gen.pth", "_opt.pth")).is_file():
+        raise AssertionError(f"no I{iters}_E* checkpoint pair in {ckpt_dir}: "
+                             f"{sorted(p.name for p in ckpt_dir.iterdir())}")
+    return str(gens[0])[: -len("_gen.pth")]
+
+
+def trainer_state(m) -> dict:
+    """Every tensor an exact resume needs, by name."""
+    import torch
+
+    out = {f"net.{k}": v for k, v in m.nets.state_dict().items()}
+    if m.ema_nets is not None:
+        out.update({f"ema.{k}": v for k, v in m.ema_nets.state_dict().items()})
+    for i, st in m.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": torch.as_tensor(v) for k, v in st.items()})
+    out.update({f"acc.{i}": a for i, a in enumerate(m._acc or [])})
+    out["generator"] = m.generator.get_state()
+    return out
+
+
+def assert_same_state(what: str, a: dict, b: dict) -> None:
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: state keys differ: {sorted(set(a) ^ set(b))[:5]}")
+    for k in a:
+        if not torch_equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return torch.equal(x.detach().cpu(), y.detach().cpu())
+
+
+def time_loop(model, paths: dict, step_ms: float) -> dict:
+    """The split loop's body (`feed_data`, `optimize_parameters`) on each
+    data path of `paths` (name -> an endless iterator of batches; the first
+    is the reference the others are held to): per path a warm-up, the
+    launches of one iteration (asserted) and one iteration under
+    torch.profiler (the device's idle share of its wall time); then timed
+    passes of LOOP_TIMED iterations, each ended by a synchronize, in turns
+    (A, B, C, C, B, A): it/s from the two passes of a path, peak memory over
+    them, and the host's time in each iteration's calls (the calls return
+    before the device is done: near the iteration's time, the loop waits on
+    the host or on a copy)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def step(batches):
+        model.feed_data(next(batches))
+        model.optimize_parameters()
+
+    out = {}
+    for what, batches in paths.items():
+        for _ in range(LOOP_WARMUP):
+            step(batches)
+        torch.cuda.synchronize()
+        reset_launches()
+        step(batches)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if (launches["group_norm_swish"], launches["attention"]) != (58, 2):
+            raise AssertionError(f"train loop, {what}: launches an iteration {launches}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            step(batches)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t1) * 1e3
+        busy = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+        out[what] = dict(launches=launches, prof_ms=prof_ms, busy=busy, walls=[], host=[],
+                         peak=0)
+    order = list(paths)
+    for what in order + order[::-1]:
+        r = out[what]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(LOOP_TIMED):
+            t1 = time.perf_counter()
+            step(paths[what])
+            r["host"].append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        r["walls"].append(time.perf_counter() - t0)
+        r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+    for what, r in out.items():
+        its = 2 * LOOP_TIMED / sum(r["walls"])
+        idle = (f"{1 - r['busy'] / r['prof_ms']:.1%}" if r["busy"]
+                else "not measured (no device events)")
+        log(f"train loop, {what}: {its:.3f} it/s over 2 x {LOOP_TIMED} iterations in turns "
+            f"(passes {', '.join(f'{w / LOOP_TIMED * 1e3:.2f}' for w in r['walls'])} ms an "
+            f"iteration, each ended by a synchronize; the host's time in an iteration's calls "
+            f"{sorted(r['host'])[len(r['host']) // 2] * 1e3:.2f} ms, median), "
+            f"{its * step_ms / 1e3:.1%} of phase_train's lone step ({step_ms:.2f} ms); "
+            f"peak memory {r['peak'] / 2**30:.2f} GiB ({r['peak']} bytes); one profiled "
+            f"iteration: wall {r['prof_ms']:.1f} ms, device busy {r['busy']:.1f} ms, idle share "
+            f"{idle}; launches an iteration: group_norm_swish "
+            f"{r['launches']['group_norm_swish']}, attention {r['launches']['attention']}")
+        r["its"] = its
+    base = out[order[0]]["its"]
+    log("train loop, it/s against " + order[0] + " in the same turns: " + ", ".join(
+        f"{what} {r['its'] / base:.1%}" for what, r in out.items()))
+    return out
+
+
+def phase_train_loop(dev, step_ms: float) -> dict:
+    """The port's split.py at full width on the Hagen joint config (patch
+    512, batch 4, two nets, Adam at lr 1e-3, the EMA on) and seeded synthetic
+    frames (8 train and 2 val frames of 1024², from
+    scripts/quality_joint_indi_synthetic.py):
+      * `split.main -p train` for 10 iterations (the device pool, as auto
+        picks it), then resumed from its I10 checkpoint to 20 on the host
+        loader: print every 5, validate and save every 10; both I10 and I20
+        pairs, finite validation PSNRs and the launches of each run
+        (58 GN+Swish and 2 attention an iteration, 522 and 18 a validation:
+        3 items, 3 steps, 2 nets) asserted;
+      * a model resumed from I10 holds exactly the state of the first run's
+        model, which never stopped (weights, EMA, Adam, counters, generator)
+        and the files' contents; one step of each on one fed batch, with
+        cuDNN deterministic, gives the same bits;
+      * the loop's body timed on each data path in turns with one fed batch
+        (`time_loop`), beside the lone step's `step_ms`, and the pool's
+        draw alone;
+      * `split.main -p val` from the I20 checkpoint.
+    Returns the launches of the two train runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from diffsplitting_tpu_torch import split
+    from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
+    from diffsplitting_tpu_torch.data.device_pool import DevicePatchPool
+    from diffsplitting_tpu_torch.scripts import quality_joint_indi_synthetic as quality
+    from diffsplitting_tpu_torch.train import create_model
+
+    t_phase = time.perf_counter()
+    per_run = {"group_norm_swish": 10 * 58 + 522, "attention": 10 * 2 + 18}
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        quality.make_stacks(work, LOOP_FRAMES, LOOP_SIZE, seed=0)
+        log(f"train loop: synthesized {LOOP_FRAMES} + 2 frames of {LOOP_SIZE}² in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        runs, launches = [], collections.Counter()
+        # the first run's stacks (64 MiB as float32) fit the pool's cap: auto takes it
+        for iters, resume, pool in ((10, None, None), (20, "I10", False)):
+            cfg = loop_config(work, iters, resume and checkpoint_prefix(runs[0], 10), pool)
+            reset_launches()
+            t0 = time.perf_counter()
+            run = split.main(["-c", cfg, "-p", "train"])
+            torch.cuda.synchronize()
+            got = read_launches()
+            prefix = checkpoint_prefix(run, iters)
+            psnrs = run["val_psnrs"]
+            if len(psnrs) != 1 or not np.isfinite(psnrs).all():
+                raise AssertionError(f"split run to {iters}: validation PSNRs {psnrs}")
+            want = dict(per_run, attention_wide=0, attention_any_d=0, conv_gn=0,
+                        sites_kernel=0, sites_library=0)
+            if got != want:
+                raise AssertionError(f"split run to {iters}: launches {got}, expected {want}")
+            launches.update({k: got[k] for k in per_run})
+            log(f"train loop: split.main -p train to iteration {iters} "
+                f"({'resumed from ' + resume if resume else 'from scratch'}, "
+                f"{'device pool, picked by auto' if pool is None else 'host loader'}): "
+                f"{time.perf_counter() - t0:.1f} s, saved {Path(prefix).name}, validation PSNR "
+                f"{psnrs[0]:.3f} dB, launches {got}")
+            runs.append(run)
+
+        # resume from I10: the state of the model that never stopped
+        never = runs[0]["model"]
+        opt = dict_to_nonedict(load_json(loop_config(work, 20)))
+        opt["phase"] = "train"
+        opt["path"]["checkpoint"] = runs[0]["opt"]["path"]["checkpoint"]
+        opt["path"]["resume_state"] = checkpoint_prefix(runs[0], 10)
+        resumed = create_model(opt, device=dev)
+        assert_same_state("resume from I10 vs the model that never stopped",
+                          trainer_state(resumed), trainer_state(never))
+        gen = torch.load(opt["path"]["resume_state"] + "_gen.pth", map_location="cpu")
+        saved = torch.load(opt["path"]["resume_state"] + "_opt.pth", map_location="cpu")
+        assert_same_state("resume from I10 vs its _gen.pth",
+                          {f"net.{k}": v for k, v in resumed.nets.state_dict().items()},
+                          {f"net.{k}": v for k, v in gen.items()})
+        if not ((resumed.begin_step, resumed.global_step, resumed.updates)
+                == (saved["iter"], saved["global_step"], saved["updates"]) == (10, 10, 10)
+                and torch_equal(resumed.generator.get_state(), saved["generator"])):
+            raise AssertionError("resume from I10: counters or generator differ from the file")
+        batch = smooth_pair(np.random.default_rng(16), TRAIN_BATCH, PATCH)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for m in (never, resumed):
+                m.feed_data(batch)
+                m.optimize_parameters()
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        assert_same_state("one step after resume vs without a stop", trainer_state(resumed),
+                          trainer_state(never))
+        if resumed.get_current_log() != never.get_current_log():
+            raise AssertionError("one step after resume: logs differ")
+        log("train loop: resumed from I10 = the model that never stopped (weights, EMA, Adam, "
+            "counters, generator; and the files), and one step of each on one batch gives the "
+            "same bits (cuDNN deterministic)")
+        del never, resumed
+
+        # the loop's body on each data path, on the resumed run's model, with
+        # the EMA off as the config trains (and as phase_train's lone step runs)
+        model = runs[1]["model"]
+        model.use_ema = False
+        train_set, _ = split.get_datasets(runs[1]["opt"])
+        # the reference: one batch fed once, as phase_train steps
+        fixed = {k: torch.as_tensor(v, device=dev)
+                 for k, v in smooth_pair(np.random.default_rng(17), TRAIN_BATCH, PATCH).items()}
+        paths = {"one fed batch": itertools.repeat(fixed)}
+        for what, pool in (("host loader", False), ("device pool", True)):
+            runs[1]["opt"]["datasets"]["train"]["device_pool"] = pool
+            epochs = split.train_batches(runs[1]["opt"], train_set, dev)
+            paths[what] = (b for _ in iter(int, 1) for b in epochs())
+        loop = time_loop(model, paths, step_ms)
+        pool = DevicePatchPool(train_set, TRAIN_BATCH, seed=1, device=dev)
+        draw_ms = time_ms(pool.draw, 20)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            pool.draw()
+        draw_host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        log(f"train loop: the device pool's draw of a batch alone: {draw_ms:.4f} ms (CUDA events "
+            f"over 20 draws), the host's time in a draw {draw_host_ms:.4f} ms")
+        del pool
+        del model, runs[0]
+
+        val = split.main(["-c", loop_config(work, 20, checkpoint_prefix(runs[-1], 20)), "-p", "val"])
+        if not (np.isfinite(val["psnr"]) and 0 < val["ssim"] <= 1):
+            raise AssertionError(f"split -p val from I20: PSNR {val['psnr']}, SSIM {val['ssim']}")
+        log(f"train loop: split.main -p val from I20: PSNR {val['psnr']:.3f} dB, SSIM "
+            f"{val['ssim']:.4f} over the 8 val patches")
+        del runs, val
+    torch.cuda.empty_cache()
+    log(f"train loop phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=dict(launches), loop=loop)
+
+
 def main() -> int:
     import torch
 
@@ -1083,6 +1359,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     train = phase_train(dev)
+    loop = phase_train_loop(dev, train["ms"])
     wide_shape = (BATCH, 16, 256)  # the mid block of the inner-32 path
     simt_shape = (BATCH, 16, 64)  # the mid block of the inner-8 path
 
@@ -1090,14 +1367,16 @@ def main() -> int:
         dict(name="group_norm_swish", route="cuda",
              source="diffsplitting_tpu_torch/csrc/groupnorm_swish.cu",
              replaces="diffsplitting_tpu/experimental/groupnorm_pallas.py:21,58",
-             launches=launches["group_norm_swish"] + train["launches"]["group_norm_swish"],
+             launches=launches["group_norm_swish"] + train["launches"]["group_norm_swish"]
+             + loop["launches"]["group_norm_swish"],
              max_abs_err=gn_err, ms=gn["ms"],
              plain_ms=gn["plain_ms"], bound_ms=gn["bound_ms"], bound_by="bytes",
              library_ms=gn["library_ms"], device_ms=gn["device_ms"]),
         dict(name="attention", route="cuda",
              source="diffsplitting_tpu_torch/csrc/attention.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
-             launches=launches["attention"] + train["launches"]["attention"],
+             launches=launches["attention"] + train["launches"]["attention"]
+             + loop["launches"]["attention"],
              max_abs_err=attn_err, ms=attn["ms"],
              plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"], bound_by=attn["bound_by"],
              library_ms=attn["library_ms"]),
@@ -1127,9 +1406,9 @@ def main() -> int:
     ]
     log("group_norm_swish times are per UNet forward (29 calls at batch 8), through a host loop "
         "of calls (device_ms: its device time alone, by CUDA-graph replay), and its launches are "
-        "the unfused slice's plus one train step's; attention times are per call at "
-        f"B={BATCH}, N={ATTN_N}, D={ATTN_D}, its launches the unfused slice's plus one train "
-        "step's; attention_wide times are per call at the inner-32 cifar10 path's mid block "
+        "the unfused slice's plus one train step's plus the two split.py train runs'; attention "
+        f"times are per call at B={BATCH}, N={ATTN_N}, D={ATTN_D}, its launches likewise; "
+        "attention_wide times are per call at the inner-32 cifar10 path's mid block "
         "(its launches, unfused and fused; by_shape: device times at other shapes, with SDPA's "
         "and the SIMT kernel's), attention_any_d (SIMT) times at the inner-8 path's (its "
         "launches), device_ms by CUDA-graph replay; conv_gn times are per fused UNet forward "

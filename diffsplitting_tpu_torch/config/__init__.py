@@ -1,3 +1,5 @@
-from .loader import NoneDict, dict_to_nonedict, load_json
+from .loader import (NoneDict, apply_debug_overrides, dict2str, dict_to_nonedict, load_json,
+                     parse, parse_config)
 
-__all__ = ["NoneDict", "dict_to_nonedict", "load_json"]
+__all__ = ["NoneDict", "apply_debug_overrides", "dict2str", "dict_to_nonedict", "load_json",
+           "parse", "parse_config"]

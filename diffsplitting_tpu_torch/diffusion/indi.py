@@ -1,13 +1,15 @@
 """InDI — Inversion by Direct Iteration: the deterministic-bridge process.
 
 Counterpart: diffsplitting_tpu/diffusion/indi.py (`get_t_times_e`,
-`q_sample`, and `inference` with continuous=False):
+`q_sample`, `inference`):
 
   * forward bridge: x_t = (1-t)·x_start + t·x_end + ε·e(t), with
     e(t) = e·t (gaussian, none) or e·√t (brownian);
   * inference: N uniform steps down from t_start; with δ = t_start/N and
     step times t = t_start − δ·idx in f32,
-    x ← (δ/t)·x̂0 + (1−δ/t)·x + ε·e(t−δ).
+    x ← (δ/t)·x̂0 + (1−δ/t)·x + ε·e(t−δ);
+  * continuous=True returns the trajectory: frame 0 the noised input, then
+    the steps of `capture_plan(range(N), 1 | (N // 20), include_last=True)`.
 
 Training (`sample_t`, `_snap_to_max`, `get_prediction_during_training`,
 `p_losses`): x0-prediction on the bridge at a per-sample t drawn by the
@@ -29,7 +31,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .common import make_loss_fn
+from .common import capture_plan, make_loss_fn
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -148,9 +150,10 @@ class InDIProcess:
     @torch.no_grad()
     def inference(self, denoise_fn: DenoiseFn, x_in, num_timesteps: Optional[int] = None,
                   t_float_start: float = 1.0, generator: Optional[torch.Generator] = None,
-                  noise: Optional[Sequence[torch.Tensor]] = None):
+                  noise: Optional[Sequence[torch.Tensor]] = None, continuous: bool = False):
         """Bridge inversion of NHWC `x_in` from t_float_start to 0 in N steps;
-        returns (B, H, W, C·out_channel)."""
+        returns (B, H, W, C·out_channel), or with `continuous` the trajectory
+        (n_frames, B, H, W, C·out_channel)."""
         N = int(num_timesteps if num_timesteps is not None else self.num_timesteps)
         if noise is not None and len(noise) != N + 1:
             raise ValueError(f"need {N + 1} injected noise tensors, got {len(noise)}")
@@ -166,10 +169,14 @@ class InDIProcess:
         delta = np.float32(t_float_start / N)
         cur_ts = np.float32(t_float_start) - delta * np.arange(N, dtype=np.float32)
         b = x_in.shape[0]
+        flags, _ = capture_plan(range(N), 1 | (N // 20), include_last=True)
+        frames = [x] if continuous else None
         for idx, t_cur in enumerate(cur_ts):
             t_vec = torch.full((b,), float(t_cur), device=x.device, dtype=x.dtype)
             x0 = denoise_fn(x, t_vec)
             coef = delta / t_cur
             sigma = self.get_t_times_e(t_cur - delta)
             x = x0 * float(coef) + x * float(np.float32(1) - coef) + draw(idx + 1) * float(sigma)
-        return x
+            if continuous and flags[idx]:
+                frames.append(x)
+        return torch.stack(frames) if continuous else x

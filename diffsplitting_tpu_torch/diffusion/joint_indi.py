@@ -8,7 +8,8 @@ Counterpart: diffsplitting_tpu/diffusion/joint_indi.py:
     (0, 1), snapped to 0.5) when `allow_full_translation`;
   * `extra_param_logs`: the logged-but-unused alpha/offset/scale scalars;
   * `inference`: net 1 inverts from t_float_start (default 0.5), net 2 from
-    1 − t_float_start, and the two outputs are concatenated on channels.
+    1 − t_float_start, and the two outputs (or, with continuous=True, the two
+    trajectories) are concatenated on channels.
 """
 
 from __future__ import annotations
@@ -70,11 +71,12 @@ class JointInDIProcess:
     def inference(self, denoise_fn_ch1: DenoiseFn, denoise_fn_ch2: DenoiseFn, x_in,
                   num_timesteps: Optional[int] = None, t_float_start: float = 0.5,
                   generator: Optional[torch.Generator] = None,
-                  noise: Optional[Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]] = None):
+                  noise: Optional[Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]] = None,
+                  continuous: bool = False):
         """`noise`, when given, is (noise for net 1, noise for net 2)."""
         n1, n2 = noise if noise is not None else (None, None)
         ch1 = self.indi1.inference(denoise_fn_ch1, x_in, num_timesteps, t_float_start,
-                                   generator, n1)
+                                   generator, n1, continuous)
         ch2 = self.indi2.inference(denoise_fn_ch2, x_in, num_timesteps, 1 - t_float_start,
-                                   generator, n2)
+                                   generator, n2, continuous)
         return torch.cat([ch1, ch2], dim=-1)

@@ -96,12 +96,16 @@ def define_generator(opt: Mapping):
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded random weights: orthogonal matrices and kernels (the JAX
-    package's initializer); norms, biases and scalars keep their defaults."""
+    """Seeded random weights as the JAX package draws them
+    (diffsplitting_tpu/models/blocks.py `conv_kwargs`): orthogonal
+    matrices and kernels, zero conv and linear biases (torch's default would
+    draw them uniform); norms (ones, zeros) and scalars keep their defaults."""
     with torch.no_grad():
-        for p in module.parameters():
+        for name, p in module.named_parameters():
             if p.ndim >= 2:
                 nn.init.orthogonal_(p, generator=generator)
+            elif name.endswith(".bias"):
+                p.zero_()
 
 
 class SplittingModel:
@@ -136,12 +140,14 @@ class SplittingModel:
 
     @torch.inference_mode()
     def test(self, x_nhwc, t_float_start: Optional[float] = None,
-             num_timesteps: Optional[int] = None, fused: Optional[bool] = None) -> torch.Tensor:
+             num_timesteps: Optional[int] = None, fused: Optional[bool] = None,
+             continuous: bool = False) -> torch.Tensor:
         """Reverse process on an NHWC batch in `num_timesteps` steps (default:
         the config's serving N, `beta_schedule.val.n_timestep`); returns an
-        NHWC tensor on the model's device (2 channels for joint_indi)."""
+        NHWC tensor on the model's device (2 channels for joint_indi), or
+        with `continuous` the trajectory (n_frames, B, H, W, C)."""
         x = torch.as_tensor(x_nhwc, dtype=torch.float32).to(self.device)
         t0 = self.t_float_start if t_float_start is None else t_float_start
         n = self.process.val_num_timesteps if num_timesteps is None else num_timesteps
         return self.process.inference(*self.denoise_fns(fused), x, n, t0,
-                                      generator=self.generator)
+                                      generator=self.generator, continuous=continuous)

@@ -1,3 +1,3 @@
-from .trainer import DiffusionModel
+from .trainer import DiffusionModel, create_model
 
-__all__ = ["DiffusionModel"]
+__all__ = ["DiffusionModel", "create_model"]

@@ -18,14 +18,25 @@ t and the noise come from one device `torch.Generator` seeded by `seed`;
 `optimize_parameters(draws=...)` injects them instead, which the parity tests
 use to replay the JAX draws.
 
+Checkpoints (`save_network`, `load_network`; `train/checkpoints.py`): the
+`I{iter}_E{epoch}_gen.pth` / `_opt.pth` pair, resumed by prefix from
+`path.resume_state` at construction, as JAX does. A `.pth` file, or a prefix
+without `_opt.pth`, loads the weights only; outside the train phase only the
+weights are read.
+
+Serving (`test`, `inference`, `get_current_visuals`): the reverse process on
+the fed input through `SplittingModel.test`, with the trajectory when
+`continuous`; visuals are NHWC numpy, as JAX gives them.
+
 Not ported: dropout (`unet.dropout` > 0 raises; the UNet's `block.2` is an
-identity), `remat`, compute dtypes other than float32, checkpoints, the data
-pool, sharding, and the ddpm/sr3 families.
+identity), `remat`, compute dtypes other than float32, sharding, and the
+ddpm/sr3 families.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 from collections import OrderedDict
 from typing import Mapping, Optional
 
@@ -35,8 +46,18 @@ import torch
 from ..device import resolve_device
 from ..diffusion import JointInDIProcess
 from ..serving import SplittingModel, define_generator, init_weights
+from ..utils.weights import load_reference_checkpoint
+from .checkpoints import load_trainer_state, resolve_checkpoint, save_checkpoint
 from .clipping import global_norm, make_clip
 from .optim import make_lr
+
+logger = logging.getLogger("base")
+
+
+def create_model(opt: Mapping, **kwargs) -> "DiffusionModel":
+    m = DiffusionModel(opt, **kwargs)
+    logger.info("Model [%s] is created.", m.__class__.__name__)
+    return m
 
 
 class DiffusionModel:
@@ -48,6 +69,7 @@ class DiffusionModel:
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None):
         self.opt = opt
         self.device = resolve_device(device)
+        self.phase = opt.get("phase") or "train"
         model_opt = opt["model"]
         self.which = model_opt["which_model_G"]
         if self.which not in ("indi", "joint_indi"):
@@ -61,8 +83,9 @@ class DiffusionModel:
             # 'transformer' and raises when none does; no UNet has one
             raise ValueError("finetune_norm matched no trainable parameters "
                              "(no param path contains 'transformer')")
-        # biases and scalars take the modules' default init from the global
-        # RNG: seed it here, so that `seed` alone fixes the weights
+        # the modules' default init draws from the global RNG before
+        # init_weights replaces it: fork it, so building a model leaves the
+        # caller's stream alone and `seed` alone fixes the weights
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.process, nets = define_generator(opt)
@@ -88,9 +111,11 @@ class DiffusionModel:
         self.use_ema = bool(ema_opt.get("enabled", False))
         self.ema_decay = float(ema_opt.get("ema_decay", 0.9999))
         self.ema_start = int(ema_opt.get("step_start_ema", 5000))
-        # seeded from the params as loaded
+        # seeded from the params as loaded (load_network reseeds or restores it)
         self.ema_nets = copy.deepcopy(self.nets).requires_grad_(False) if self.use_ema else None
         self.global_step = 0
+        self.begin_step = 0
+        self.begin_epoch = 0
 
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.log_dict = OrderedDict()
@@ -100,6 +125,7 @@ class DiffusionModel:
         self.current_T = None
         self.set_new_noise_schedule(model_opt["beta_schedule"]["train"], "train")
         self._server = SplittingModel(opt, self.device, seed, nets=self.nets)
+        self.load_network()
 
     def set_new_noise_schedule(self, schedule_opt: Mapping, schedule_phase: str = "train"):
         """InDI and joint-InDI only track the step count T of the phase."""
@@ -109,9 +135,10 @@ class DiffusionModel:
         self.current_T = int(schedule_opt["n_timestep"])
 
     def feed_data(self, data: Mapping):
-        """NHWC numpy arrays (or tensors) -> float32 tensors on the device."""
-        self.data = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32).to(self.device)
-                     for k, v in data.items()}
+        """NHWC numpy arrays or tensors -> float32 tensors on the device (a
+        tensor already there, e.g. a device-pool batch, is taken as it is)."""
+        self.data = {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v)))
+                     .to(self.device, torch.float32) for k, v in data.items()}
 
     def unets(self):
         if self.which == "joint_indi":
@@ -179,11 +206,86 @@ class DiffusionModel:
     def _inference_nets(self):
         return self.ema_nets if self.use_ema else self.nets
 
-    def test(self, t_float_start: Optional[float] = None, fused: Optional[bool] = None):
+    def test(self, continuous: bool = False, t_float_start: Optional[float] = None,
+             fused: Optional[bool] = None):
         """The reverse process on the fed batch's 'input', in the current
         phase's T steps, through `SplittingModel.test`, from the EMA weights
-        when the EMA is on."""
+        when the EMA is on; with `continuous` the trajectory
+        (n_frames, B, H, W, C)."""
         self._server.nets = self._inference_nets()
         self.prediction = self._server.test(self.data["input"], t_float_start,
-                                            self.current_T, fused)
+                                            self.current_T, fused, continuous)
         return self.prediction
+
+    def inference(self, x_in, continuous: bool = False, num_timesteps: Optional[int] = None,
+                  t_float_start: Optional[float] = None):
+        """`test` on an explicit NHWC input batch, in `num_timesteps` steps
+        when given (else the current phase's T)."""
+        self.feed_data({"input": x_in})
+        if num_timesteps is None:
+            return self.test(continuous, t_float_start)
+        old_T, self.current_T = self.current_T, int(num_timesteps)
+        try:
+            return self.test(continuous, t_float_start)
+        finally:
+            self.current_T = old_T
+
+    def get_current_visuals(self) -> OrderedDict:
+        """The last prediction and the fed batch, NHWC numpy."""
+        out = OrderedDict(prediction=self.prediction.detach().cpu().numpy(),
+                          input=self.data["input"].cpu().numpy())
+        if "target" in self.data:
+            out["target"] = self.data["target"].cpu().numpy()
+        return out
+
+    def print_network(self):
+        n = sum(p.numel() for p in self.params)
+        logger.info("Network G structure: %s (%s), with parameters: %s",
+                    self.__class__.__name__, self.which, f"{n:,d}")
+
+    # ------------------------------------------------------------- checkpoints
+    def save_network(self, epoch: int, iter_step: int):
+        """Write `I{iter}_E{epoch}_gen.pth` / `_opt.pth` under the config's
+        `path.checkpoint`."""
+        payload = {
+            "epoch": int(epoch),
+            "iter": int(iter_step),
+            "optimizer": self.optimizer.state_dict(),
+            "updates": self.updates,
+            "global_step": self.global_step,
+            "mini_step": self._mini_step,
+            "acc": None if self._acc is None else [a.detach().cpu() for a in self._acc],
+            "generator": self.generator.get_state(),
+        }
+        if self.use_ema:
+            payload["ema"] = {k: v.detach().cpu() for k, v in self.ema_nets.state_dict().items()}
+        gen_path, _ = save_checkpoint(self.opt["path"]["checkpoint"], f"I{iter_step}_E{epoch}",
+                                      self.nets.state_dict(), payload)
+        logger.info("Saved model in [%s] ...", gen_path)
+
+    def load_network(self):
+        """Resume from `path.resume_state`: a prefix of a checkpoint pair, or a
+        `.pth` file in the reference layout (weights only)."""
+        load_path = (self.opt.get("path") or {}).get("resume_state")
+        if not load_path:
+            return
+        gen_path, opt_path = resolve_checkpoint(load_path)
+        logger.info("Loading pretrained model for G [%s] ...", gen_path)
+        self.nets.load_state_dict(load_reference_checkpoint(gen_path, self.which), strict=True)
+        state = (load_trainer_state(opt_path)
+                 if opt_path is not None and self.phase == "train" else None)
+        if self.use_ema:
+            ema = state.get("ema") if state is not None else None
+            self.ema_nets.load_state_dict(ema if ema is not None else self.nets.state_dict())
+        if state is None:
+            return
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.begin_epoch = int(state["epoch"])
+        self.begin_step = int(state["iter"])
+        self.global_step = int(state.get("global_step", self.begin_step))
+        self.updates = int(state.get("updates", self.global_step // self.accum_steps))
+        self._mini_step = int(state.get("mini_step", 0))
+        acc = state.get("acc")
+        self._acc = None if acc is None else [a.to(self.device) for a in acc]
+        if state.get("generator") is not None:
+            self.generator.set_state(state["generator"])
