@@ -36,6 +36,19 @@ launches asserted), an exact resume (state and one step, bit for bit, against
 the model that never stopped), the loop's it/s, peak memory and idle share on
 each data path, and `-p val` from the I20 checkpoint.
 
+Then the time predictor (`phase_time_predictor`,
+configs/splitting_hagen_time_predictor.json at its widths, dropout 0.2):
+its forward with the kernels against the plain versions at B = 8 and 1,
+attention at B = 1 beside SDPA, one train step against the plain versions
+with the same dropout masks, ms a step and peak memory, and
+`time_prediction_training.start_training` on synthetic frames with its best
+checkpoint reloaded; and the t-refinement workflow (`phase_t_refinement`)
+on the Hagen joint config at patch 512, batch 8, 10 steps, with the kernels
+against the plain versions (classifier t̂, consensus t, PSNRs), UNet
+forwards by batch and launches asserted for each t_true, the joint
+outputs from the refined start held to differ from those from 0.5, and
+each stage's host time.
+
 Every phase raises on failure, so the script exits non-zero with no result
 line. It prints the card's name and power limit, per-kernel times beside
 their bounds, each slice's tiles/s and peak memory, the train step's time and
@@ -57,6 +70,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -774,16 +788,28 @@ def compare_steps(what: str, got, want, lr=None):
     if not (errs["l_pix"] <= 1e-5 and errs["grad_norm"] <= 1e-4):
         raise AssertionError(f"train step, {what}: loss {gl['l_pix']} vs {wl['l_pix']}, "
                              f"grad_norm {gl['grad_norm']} vs {wl['grad_norm']}")
+    worst, worst_name, worst_dp = compare_grads(what, got.nets, want.nets, wl["grad_norm"], lr)
+    log(f"train step, {what}: loss rel err {errs['l_pix']:.3g} (tol 1e-05), grad_norm rel err "
+        f"{errs['grad_norm']:.3g} (tol 0.0001), worst gradient err {worst:.3g} of "
+        f"max(max|g|, 1e-5 grad_norm) (tol 0.005) at {worst_name}"
+        + (f", worst param err {worst_dp:.3g} lr where the sign of g is sure (tol 0.01)"
+           if lr is not None else ""))
+
+
+def compare_grads(what: str, got_net, want_net, grad_norm: float, lr=None):
+    """The gradient (and, with `lr`, parameter) checks of `compare_steps`
+    over two modules' parameters; returns (worst gradient error, where,
+    worst parameter error in lr)."""
     worst, worst_dp, worst_name = 0.0, 0.0, ""
-    wparams = dict(want.nets.named_parameters())
-    for name, p in got.nets.named_parameters():
+    wparams = dict(want_net.named_parameters())
+    for name, p in got_net.named_parameters():
         q = wparams[name]
         if (p.grad is None) != (q.grad is None):
             raise AssertionError(f"train step, {what}: {name} has a gradient on one side only")
         if p.grad is None:
             continue
         g, h = p.grad.detach().cpu(), q.grad.detach().cpu()
-        gmax = max(h.abs().max().item(), 1e-5 * wl["grad_norm"])
+        gmax = max(h.abs().max().item(), 1e-5 * grad_norm)
         rel = (g - h).abs().max().item() / gmax
         if not rel <= 5e-3:
             raise AssertionError(f"train step, {what}: gradient of {name} off by {rel:.3g} of "
@@ -797,11 +823,7 @@ def compare_steps(what: str, got, want, lr=None):
             if dp_big > 1e-2 * lr or dp.max().item() > 2 * lr:
                 raise AssertionError(f"train step, {what}: {name} moved differently")
             worst_dp = max(worst_dp, dp_big / lr)
-    log(f"train step, {what}: loss rel err {errs['l_pix']:.3g} (tol 1e-05), grad_norm rel err "
-        f"{errs['grad_norm']:.3g} (tol 0.0001), worst gradient err {worst:.3g} of "
-        f"max(max|g|, 1e-5 grad_norm) (tol 0.005) at {worst_name}"
-        + (f", worst param err {worst_dp:.3g} lr where the sign of g is sure (tol 0.01)"
-           if lr is not None else ""))
+    return worst, worst_name, worst_dp
 
 
 def train_family(name: str, ancestors) -> str:
@@ -1229,6 +1251,383 @@ def phase_train_loop(dev, step_ms: float) -> dict:
     log(f"train loop phase: {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=dict(launches), loop=loop)
 
+TP_CONFIG = "configs/splitting_hagen_time_predictor.json"
+TP_WARMUP, TP_TIMED = 3, 10
+TREF_T_TRUE = (0.35, 0.5, 0.65)
+TREF_STEPS, TREF_TRAIN_STEPS = 10, 30
+GN_ATTN_ONLY = {"attention_wide": 0, "attention_any_d": 0, "conv_gn": 0, "sites_kernel": 0,
+                "sites_library": 0}
+
+
+def tp_mixtures(rng, batch: int, patch: int):
+    """Seeded classifier inputs: t·ch0 + (1 − t)·ch1 of smooth_pair's two
+    channels, rescaled to [−1, 1], NHWC, with their t in [0.1, 0.9]."""
+    import numpy as np
+
+    pair = smooth_pair(rng, batch, patch)["target"]
+    t = rng.uniform(0.1, 0.9, batch).astype(np.float32)
+    mix = t[:, None, None] * pair[..., 0] + (1 - t[:, None, None]) * pair[..., 1]
+    return (2 * mix - 1)[..., None].astype(np.float32), t
+
+
+def attention_at_batch(dev, B: int) -> dict:
+    """The D = 128 attention kernel at B, N = 4096 (the one-step inversions'
+    mid block at B = 1) against its plain version, with the kernel's, the
+    plain version's and SDPA's device time by CUDA-graph replay (and the
+    kernel's through a host loop of calls)."""
+    import torch
+    import torch.nn.functional as F
+    from diffsplitting_tpu_torch.kernels.variants import device_ms
+    from diffsplitting_tpu_torch.ops import attention_reference, fused_attention
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    scale = 1.0 / math.sqrt(ATTN_D)
+    qkv = torch.randn(B, ATTN_N, 1, 3, ATTN_D, device=dev, generator=g)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    got = fused_attention(q, k, v, scale)
+    want = attention_reference(q, k, v, scale)
+    err = max_err(got, want)
+    tol = 1e-4 * (1 + want.abs().max().item())  # as phase_attention
+    if not err <= tol:
+        raise AssertionError(f"attention B={B}: max abs err {err} > {tol}")
+    ms = time_ms(lambda: fused_attention(q, k, v, scale), 20)
+    dev_ms = device_ms(lambda: fused_attention(q, k, v, scale))
+    plain_dev = device_ms(lambda: attention_reference(q, k, v, scale), 5)
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    lib_dev = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+    flops = 4 * B * ATTN_N * ATTN_N * ATTN_D
+    tc_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    bytes_ms = 4 * B * ATTN_N * ATTN_D * 4 / HBM_BYTES_PER_S * 1e3
+    bound = max(tc_ms, bytes_ms)
+    log(f"attention B={B} N={ATTN_N} D={ATTN_D}: err {err:.3g} (tol {tol:.3g}); device time "
+        f"(CUDA-graph replay): kernel {dev_ms:.4f} ms, SDPA {lib_dev:.4f} ms ({lib_dev / dev_ms:.2f}x "
+        f"the kernel's), plain {plain_dev:.4f} ms; kernel through a host loop {ms:.4f} ms; bound "
+        f"{bound:.4f} ms ({'operations' if tc_ms >= bytes_ms else 'bytes'}; {bound / dev_ms:.1%} "
+        "of it by device time)")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_device_ms=plain_dev,
+                library_device_ms=lib_dev, bound_ms=bound)
+
+
+def phase_time_predictor(dev, work: str) -> dict:
+    """The time predictor at full width (configs/splitting_hagen_time_predictor.json:
+    inner 16, 16 groups, mults (1,2,4,8), dropout 0.2, patch 512, batch 8,
+    seeded weights):
+      * the forward (eval) with the kernels against the plain versions at
+        B = 8 and B = 1, 29 GN+Swish and 1 attention launches a forward;
+      * attention at B = 1, N = 4096, D = 128 beside SDPA and the plain
+        version (`attention_at_batch`);
+      * one train step (Adam, l2, dropout on) with the kernels against the
+        same step through the plain versions, the masks from generators of
+        one seed: loss and every gradient; then ms a step over TP_TIMED steps
+        (median), samples/s, peak memory; the forward's time at B = 8;
+      * `time_prediction_training.start_training` on seeded synthetic frames
+        (8 train frames of 1024² and 2 val frames, so one val batch of 8): 2
+        epochs of 3 steps, launches asserted, the best checkpoint written and
+        reloaded by `load_time_predictor` into a fresh classifier that gives
+        the same outputs as the weights it saved.
+    Returns the launches of start_training and what the JSON line reports."""
+    import copy
+
+    import numpy as np
+    import torch
+    from diffsplitting_tpu_torch import time_prediction_training as tpt
+    from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
+    from diffsplitting_tpu_torch.models import set_dropout_generator
+    from diffsplitting_tpu_torch.scripts import quality_joint_indi_synthetic as quality
+    from diffsplitting_tpu_torch.train.optim import optax_adam
+
+    t_phase = time.perf_counter()
+    opt = load_json(TP_CONFIG)
+    u, ds = opt["model"]["unet"], opt["datasets"]
+    if ((u["inner_channel"], u["norm_groups"], tuple(u["channel_multiplier"]), u["dropout"],
+         ds["patch_size"], ds["train"]["batch_size"]) != (16, 16, (1, 2, 4, 8), 0.2, PATCH, BATCH)):
+        raise AssertionError(f"{TP_CONFIG} no longer has the time predictor's published widths")
+    rng = np.random.default_rng(20)
+    per_forward = dict(GN_ATTN_ONLY, group_norm_swish=29, attention=1)
+
+    net = tpt.build_time_predictor(dict_to_nonedict(opt), seed=0).to(dev).eval()
+    for B in (BATCH, 1):
+        x = torch.from_numpy(tp_mixtures(rng, B, PATCH)[0]).to(dev)
+        with torch.inference_mode():
+            reset_launches()
+            got = net(x)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            with plain_versions():
+                want = net(x)
+        err = max_err(got, want)
+        # f32 on both sides; 29 GroupNorms and a softmax over 4096 keys in
+        # another order, then a masked mean over 512² pixels
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        if launches != per_forward:
+            raise AssertionError(f"time predictor forward B={B}: launches {launches}")
+        if not (got.shape == (B,) and torch.isfinite(got).all() and err <= tol):
+            raise AssertionError(f"time predictor forward B={B}: shape {tuple(got.shape)}, max "
+                                 f"abs err {err} > {tol}")
+        log(f"time predictor forward (eval) B={B} {PATCH}²: kernels vs plain versions max abs "
+            f"err {err:.3g} (tol {tol:.3g}), t̂ {[round(v, 4) for v in got.tolist()]}, launches "
+            f"{launches}")
+    x8 = torch.from_numpy(tp_mixtures(rng, BATCH, PATCH)[0]).to(dev)
+    walls = []
+    with torch.inference_mode():
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net(x8)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    fwd_ms = sorted(walls[1:])[2] * 1e3
+    del net
+
+    attn_b1 = attention_at_batch(dev, 1)
+
+    lr = float(opt["train"]["optimizer"]["lr"])
+    x, t = tp_mixtures(rng, BATCH, PATCH)
+    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)
+    steps = []
+    for plain in (False, True):
+        m = tpt.build_time_predictor(dict_to_nonedict(opt), seed=0).to(dev).train()
+        set_dropout_generator(m, torch.Generator(device=dev).manual_seed(21))
+        optim = optax_adam(m.parameters(), lr)
+        reset_launches()
+        with plain_versions() if plain else contextlib.nullcontext():
+            loss = float(tpt.train_step(m, optim, x, y, "l2"))
+        torch.cuda.synchronize()
+        steps.append((m, optim, loss, read_launches()))
+    (kern, kopt, kloss, klaunch), (plain, _, ploss, plaunch) = steps
+    if klaunch != per_forward or plaunch["group_norm_swish"] or plaunch["attention"]:
+        raise AssertionError(f"time predictor train step: launches {klaunch} with the kernels, "
+                             f"{plaunch} through the plain versions")
+    rel = abs(kloss - ploss) / abs(ploss)
+    grad_norm = math.sqrt(sum(float((p.grad.double() ** 2).sum()) for p in plain.parameters()
+                              if p.grad is not None))
+    if not rel <= 1e-5:
+        raise AssertionError(f"time predictor train step: loss {kloss} vs {ploss}")
+    worst, where, _ = compare_grads("time predictor, kernels vs plain versions", kern, plain,
+                                    grad_norm)
+    log(f"time predictor train step B={BATCH} {PATCH}² (dropout 0.2, the same masks): kernels "
+        f"vs plain versions loss rel err {rel:.3g} (tol 1e-05), worst gradient err {worst:.3g} of "
+        f"max(max|g|, 1e-5 grad_norm) (tol 0.005) at {where}; launches {klaunch}")
+    del plain, steps
+    torch.cuda.empty_cache()
+
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TP_WARMUP + TP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tpt.train_step(kern, kopt, x, y, "l2")
+        torch.cuda.synchronize()
+        if i >= TP_WARMUP:
+            walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(walls)[len(walls) // 2] * 1e3
+    log(f"time predictor train step B={BATCH} {PATCH}²: {TP_TIMED} steps "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median {step_ms:.2f} ms, "
+        f"{BATCH / step_ms * 1e3:.2f} samples/s, peak memory {peak / 2**30:.2f} GiB ({peak} "
+        f"bytes); forward (eval) B={BATCH}: {fwd_ms:.2f} ms (median of 5, host clock ended by a "
+        "synchronize)")
+    del kern, kopt
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    data = f"{work}/tp_data"
+    quality.make_stacks(data, LOOP_FRAMES, LOOP_SIZE, seed=0)
+    log(f"time predictor: synthesized {LOOP_FRAMES} + 2 frames of {LOOP_SIZE}² in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = copy.deepcopy(opt)
+    for split_name in ("train", "val"):
+        cfg["datasets"][split_name]["datapath"] = {
+            "ch0": f"{data}/{split_name}/{split_name}_actin.tif",
+            "ch1": f"{data}/{split_name}/{split_name}_mito.tif"}
+    cfg["path"] = {"experiment_root": f"{work}/tp_experiment"}
+    cfg["enable_wandb"] = False
+    cfg = dict_to_nonedict(cfg)
+    saved = []
+    real_save = tpt.save_checkpoint
+
+    def keep_a_copy(ckpt_dir, prefix, gen_state, payload):
+        saved.append({k: v.detach().cpu().clone() for k, v in gen_state.items()})
+        return real_save(ckpt_dir, prefix, gen_state, payload)
+
+    tpt.save_checkpoint = keep_a_copy
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        _, best = tpt.start_training(cfg, max_epochs=2, steps_per_epoch=3, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        tpt.save_checkpoint = real_save
+    # 3 train steps and the val batches (at most 3) an epoch: at patch 512, 8
+    # forwards (the 2 val frames give one batch of 8)
+    val_batches = min(3, 2 * (LOOP_SIZE // PATCH) ** 2 // BATCH)
+    forwards = 2 * (3 + val_batches)
+    want = dict(GN_ATTN_ONLY, group_norm_swish=29 * forwards, attention=forwards)
+    if launches != want:
+        raise AssertionError(f"start_training: launches {launches}, expected {want}")
+    prefix = f"{work}/tp_experiment/{tpt.BEST_PREFIX}"
+    state = torch.load(prefix + "_opt.pth", map_location="cpu", weights_only=True)
+    if not (saved and np.isfinite(best) and state["val_loss"] == best
+            and state["iter"] == 3 * (state["epoch"] + 1)):
+        raise AssertionError(f"start_training: best {best}, checkpoint {state['epoch']}, "
+                             f"{state['iter']}, {state['val_loss']}")
+    fresh = tpt.load_time_predictor(cfg, prefix, dev)
+    ref = tpt.build_time_predictor(cfg)
+    ref.load_state_dict(saved[-1])
+    ref = ref.to(dev).eval()
+    with torch.inference_mode():
+        a, b = fresh(x), ref(x)
+    if not torch.equal(a, b):
+        raise AssertionError("the reloaded best checkpoint gives other outputs than its weights")
+    log(f"time predictor: start_training 2 epochs x 3 steps + validation in {train_s:.1f} s, "
+        f"best val loss {best:.5f} (epoch {state['epoch']}), saved {Path(prefix).name}_gen.pth "
+        f"/ _opt.pth; reloaded into a fresh classifier: outputs equal to its saved weights' "
+        f"({[round(v, 4) for v in a.tolist()]}); launches {launches}")
+    del fresh, ref
+    torch.cuda.empty_cache()
+    log(f"time predictor phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, classifier=prefix, attn_b1=attn_b1, step_ms=step_ms,
+                fwd_ms=fwd_ms, peak=peak)
+
+
+def phase_t_refinement(dev, work: str, classifier: str) -> dict:
+    """The t-refinement workflow's `main(argv)` on configs/splitting_hagen_indi_joint.json
+    at patch 512, batch 8 (the 8 synthetic train frames of phase_time_predictor,
+    center-cropped), `--num_steps 10`, each t_true of TREF_T_TRUE in a run of
+    its own, with the classifier `phase_time_predictor` trained and joint
+    weights seeded and trained here for TREF_TRAIN_STEPS steps on the same
+    crops (so the PSNR grid's consensus lies inside (0, 1)), saved as a
+    reference-layout `.pth`. Each run once with the kernels and once through
+    the plain versions: the classifier's t̂ within 1e-4, the per-sample and
+    consensus t equal, the PSNRs within 1e-3 dB, all finite. Asserted with
+    the kernels, per t_true: 2 classifier forwards at B = 8, 16 one-step
+    forwards at B = 1, 40 joint forwards at B = 8 (UNet forwards counted by
+    batch), and 58 × 29 GN+Swish and 58 attention launches; none through the
+    plain versions. The refined start must differ from the naive 0.5 and
+    reach the joint inference: the two inferences' outputs differ by more
+    than 1e-3 somewhere (their range-invariant PSNRs may not, as with
+    weights trained this briefly). Logs each stage's host time."""
+    import copy
+
+    import numpy as np
+    import torch
+    from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
+    from diffsplitting_tpu_torch.models import unet as unet_mod
+    from diffsplitting_tpu_torch.scripts import t_refinement_workflow as workflow
+    from diffsplitting_tpu_torch.train import DiffusionModel
+
+    t_phase = time.perf_counter()
+    opt = load_json(CONFIG)
+    frames = f"{work}/tp_data/train"
+    opt["datasets"]["val"]["datapath"] = {"ch0": f"{frames}/train_actin.tif",
+                                          "ch1": f"{frames}/train_mito.tif"}
+    cfg = f"{work}/tref_joint.json"
+    with open(cfg, "w") as f:
+        json.dump(opt, f)
+    nopt = dict_to_nonedict(copy.deepcopy(opt))
+    c0, c1 = workflow.load_normalized_channels(nopt, patch=PATCH)
+    target = np.stack([c0, c1], axis=-1).astype(np.float32)
+    m = DiffusionModel(nopt, device=dev, seed=0)
+    t0 = time.perf_counter()
+    for i in range(TREF_TRAIN_STEPS):
+        m.feed_data({"target": target[(i % 2) * TRAIN_BATCH: (i % 2 + 1) * TRAIN_BATCH]})
+        m.optimize_parameters()
+    torch.cuda.synchronize()
+    joint = f"{work}/tref_joint_gen.pth"
+    torch.save({k: v.detach().cpu() for k, v in m.nets.state_dict().items()}, joint)
+    log(f"t-refinement: joint weights from seed 0 and {TREF_TRAIN_STEPS} train steps on the "
+        f"{len(target)} crops ({time.perf_counter() - t0:.1f} s, last loss "
+        f"{m.get_current_log()['l_pix']:.4f}), saved as {Path(joint).name}")
+    del m
+    torch.cuda.empty_cache()
+
+    calls = collections.Counter()
+    forward = unet_mod.UNet.forward
+    test = DiffusionModel.test
+    outputs = []
+
+    def counted(self, x, time=None):
+        calls["classifier" if self.time_mlp is None else "joint", x.shape[0]] += 1
+        return forward(self, x, time)
+
+    def kept(self, *args, **kwargs):
+        out = test(self, *args, **kwargs)
+        outputs.append(out.detach().cpu())
+        return out
+
+    argv = ["-c", cfg, "--resume", joint, "--time-config", TP_CONFIG, "--time-resume",
+            classifier, "--num_steps", str(TREF_STEPS), "--batch", str(BATCH), "--patch",
+            str(PATCH), "--device", str(dev)]
+    want_calls = {("classifier", BATCH): 2, ("joint", 1): 2 * BATCH, ("joint", BATCH): 4 * TREF_STEPS}
+    forwards = sum(want_calls.values())  # 58 at batch 8
+    per_t = dict(GN_ATTN_ONLY, group_norm_swish=29 * forwards, attention=forwards)
+    launches, rows = collections.Counter(), []
+    unet_mod.UNet.forward = counted
+    DiffusionModel.test = kept
+    try:
+        for t_true in TREF_T_TRUE:
+            pair = []
+            for plain in (False, True):
+                calls.clear()
+                outputs.clear()
+                reset_launches()
+                t0 = time.perf_counter()
+                with plain_versions() if plain else contextlib.nullcontext():
+                    (row,) = workflow.main(argv + ["--t-true", str(t_true)])
+                torch.cuda.synchronize()
+                row["run_s"] = time.perf_counter() - t0
+                got = read_launches()
+                if dict(calls) != want_calls:
+                    raise AssertionError(f"t-refinement t_true={t_true}: UNet forwards by batch "
+                                         f"{dict(calls)}, expected {want_calls}")
+                if plain and (got["group_norm_swish"] or got["attention"]):
+                    raise AssertionError(f"t-refinement, plain versions: launches {got}")
+                if not plain:
+                    if got != per_t:
+                        raise AssertionError(f"t-refinement t_true={t_true}: launches {got}, "
+                                             f"expected {per_t}")
+                    launches.update({k: got[k] for k in ("group_norm_swish", "attention")})
+                    refined_out, naive_out = outputs
+                    start_gap = float((refined_out - naive_out).abs().max())
+                    if row["refined_t_start"] == 0.5 or not start_gap > 1e-3:
+                        raise AssertionError(
+                            f"t-refinement t_true={t_true}: refined start "
+                            f"{row['refined_t_start']}, joint outputs refined vs naive differ "
+                            f"by at most {start_gap:.3g} (need > 1e-3)")
+                    row["refined_vs_naive_max_abs"] = start_gap
+                pair.append(row)
+            kern, ref = pair
+            psnr_keys = [k for k in kern if k.startswith("psnr_")]
+            errs = {k: abs(kern[k] - ref[k]) for k in psnr_keys}
+            ok = (abs(kern["classifier_t"] - ref["classifier_t"]) <= 1e-4
+                  and all(kern[k] == ref[k] for k in ("per_sample_t_mean", "consensus_t",
+                                                      "refined_t_start"))
+                  and all(np.isfinite(kern[k]) for k in psnr_keys)
+                  and max(errs.values()) <= 1e-3)
+            if not ok:
+                raise AssertionError(f"t-refinement t_true={t_true}: kernels {kern}, plain "
+                                     f"versions {ref}")
+            sec = kern["seconds"]
+            log(f"t-refinement t_true={t_true}: classifier t̂ {kern['classifier_t']:.4f} (plain "
+                f"{ref['classifier_t']:.4f}), consensus t {kern['consensus_t']:.2f} (equal), "
+                f"per-sample mean {kern['per_sample_t_mean']:.4f}; joint outputs from the refined "
+                f"start {kern['refined_t_start']:.2f} and from 0.5 differ by up to "
+                f"{kern['refined_vs_naive_max_abs']:.4g}; PSNR refined "
+                f"{kern['psnr_refined_ch0']:.3f} / {kern['psnr_refined_ch1']:.3f} dB, naive "
+                f"{kern['psnr_naive_ch0']:.3f} / {kern['psnr_naive_ch1']:.3f} dB (kernels vs "
+                f"plain versions max {max(errs.values()):.3g} dB, tol 1e-3); host s: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in sec.items())
+                + f"; whole run {kern['run_s']:.2f} s (plain versions {ref['run_s']:.2f} s); "
+                f"launches {per_t['group_norm_swish']} GN+Swish, {per_t['attention']} attention")
+            rows.append(kern)
+    finally:
+        unet_mod.UNet.forward = forward
+        DiffusionModel.test = test
+    log(f"t-refinement phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=dict(launches), rows=rows)
+
 
 def main() -> int:
     import torch
@@ -1360,6 +1759,9 @@ def main() -> int:
 
     train = phase_train(dev)
     loop = phase_train_loop(dev, train["ms"])
+    with tempfile.TemporaryDirectory() as work:
+        tp = phase_time_predictor(dev, work)
+        tref = phase_t_refinement(dev, work, tp["classifier"])
     wide_shape = (BATCH, 16, 256)  # the mid block of the inner-32 path
     simt_shape = (BATCH, 16, 64)  # the mid block of the inner-8 path
 
@@ -1368,7 +1770,8 @@ def main() -> int:
              source="diffsplitting_tpu_torch/csrc/groupnorm_swish.cu",
              replaces="diffsplitting_tpu/experimental/groupnorm_pallas.py:21,58",
              launches=launches["group_norm_swish"] + train["launches"]["group_norm_swish"]
-             + loop["launches"]["group_norm_swish"],
+             + loop["launches"]["group_norm_swish"] + tp["launches"]["group_norm_swish"]
+             + tref["launches"]["group_norm_swish"],
              max_abs_err=gn_err, ms=gn["ms"],
              plain_ms=gn["plain_ms"], bound_ms=gn["bound_ms"], bound_by="bytes",
              library_ms=gn["library_ms"], device_ms=gn["device_ms"]),
@@ -1376,10 +1779,13 @@ def main() -> int:
              source="diffsplitting_tpu_torch/csrc/attention.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
              launches=launches["attention"] + train["launches"]["attention"]
-             + loop["launches"]["attention"],
-             max_abs_err=attn_err, ms=attn["ms"],
+             + loop["launches"]["attention"] + tp["launches"]["attention"]
+             + tref["launches"]["attention"],
+             max_abs_err=max(attn_err, tp["attn_b1"]["max_abs_err"]), ms=attn["ms"],
              plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"], bound_by=attn["bound_by"],
-             library_ms=attn["library_ms"]),
+             library_ms=attn["library_ms"],
+             by_shape={f"B=1 N={ATTN_N} D={ATTN_D}": {k: tp["attn_b1"][k] for k in (
+                 "ms", "device_ms", "plain_device_ms", "library_device_ms", "bound_ms")}}),
         dict(name="attention_wide", route="cuda",
              source="diffsplitting_tpu_torch/csrc/attention.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
@@ -1406,8 +1812,11 @@ def main() -> int:
     ]
     log("group_norm_swish times are per UNet forward (29 calls at batch 8), through a host loop "
         "of calls (device_ms: its device time alone, by CUDA-graph replay), and its launches are "
-        "the unfused slice's plus one train step's plus the two split.py train runs'; attention "
-        f"times are per call at B={BATCH}, N={ATTN_N}, D={ATTN_D}, its launches likewise; "
+        "the unfused slice's plus one train step's plus the two split.py train runs' plus the "
+        "time predictor's start_training run's plus the t-refinement workflow's three runs "
+        f"(kernels); attention times are per call at B={BATCH}, N={ATTN_N}, D={ATTN_D}, its "
+        "launches likewise (by_shape: at B=1, the one-step inversions', device times by CUDA-graph "
+        "replay); "
         "attention_wide times are per call at the inner-32 cifar10 path's mid block "
         "(its launches, unfused and fused; by_shape: device times at other shapes, with SDPA's "
         "and the SIMT kernel's), attention_any_d (SIMT) times at the inner-8 path's (its "

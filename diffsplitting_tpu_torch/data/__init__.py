@@ -2,6 +2,7 @@ from .loader import NumpyLoader
 from .split_dataset import DataLocation, SplitDataset, load_data
 from .stitcher import stitch_predictions
 from .tiled_dataset import SplitDatasetTiledPred
+from .time_predictor_dataset import TimePredictorDataset, compute_input_normalization_dict
 from .tiled_infer import extract_tiles, predict_tiled, stitch_tiles, tile_plan
 from .tiling import TileIndexManager, TilingMode
 
@@ -32,6 +33,8 @@ __all__ = [
     "SplitDatasetTiledPred",
     "TileIndexManager",
     "TilingMode",
+    "TimePredictorDataset",
+    "compute_input_normalization_dict",
     "create_dataloader",
     "extract_tiles",
     "load_data",

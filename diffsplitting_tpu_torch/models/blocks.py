@@ -9,8 +9,10 @@ reference torch naming that utils/torch_export.py emits, so reference
 Activations are logical NCHW tensors in `torch.channels_last` memory, so the
 NHWC view the kernels take is contiguous. Convolutions and linears stay
 F.conv2d / F.linear: the JAX package leaves them to XLA, outside any Pallas
-kernel. Serving only: dropout is not applied (the JAX forward is
-deterministic at inference).
+kernel. Dropout sits after the GroupNorm+Swish of each ResnetBlock's second
+Block, as in JAX (`Dropout`, `block.2`): a plain op on the kernel's output,
+active only in `train()` mode, with its mask drawn from an explicit generator
+(`set_dropout_generator`).
 """
 
 from __future__ import annotations
@@ -69,14 +71,48 @@ class GroupNormSwish(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
-class Block(nn.Module):
-    """GroupNorm → Swish → (Dropout) → 3×3 conv; `block.{0,3}` carry the
-    parameters."""
+class Dropout(nn.Module):
+    """Inverted dropout as flax's `nn.Dropout`: in `train()` mode with p > 0,
+    keep each element where a uniform draw is below 1 − p and scale it by
+    1/(1 − p); otherwise the identity. The mask comes from `generator` (set
+    by `set_dropout_generator`), never from the global RNG, and is drawn in
+    the tensor's NHWC order."""
 
-    def __init__(self, dim: int, dim_out: int, groups: int):
+    def __init__(self, p: float):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {p}")
+        self.p = float(p)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in train mode needs a generator: call "
+                               "set_dropout_generator(module, generator) first")
+        nhwc = x.permute(0, 2, 3, 1)
+        u = torch.rand(nhwc.shape, generator=self.generator, device=x.device, dtype=x.dtype)
+        keep_prob = 1.0 - self.p
+        return torch.where(u < keep_prob, nhwc / keep_prob, 0.0).permute(0, 3, 1, 2)
+
+
+def set_dropout_generator(module: nn.Module, generator) -> None:
+    """Every `Dropout` under `module` draws its masks from `generator`."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+class Block(nn.Module):
+    """GroupNorm → Swish → Dropout → 3×3 conv; `block.{0,3}` carry the
+    parameters, `block.2` is the dropout (an identity at rate 0)."""
+
+    def __init__(self, dim: int, dim_out: int, groups: int, dropout: float = 0.0):
         super().__init__()
         self.block = nn.Sequential(
-            GroupNormSwish(groups, dim), nn.Identity(), nn.Identity(),
+            GroupNormSwish(groups, dim), nn.Identity(),
+            Dropout(dropout) if dropout > 0 else nn.Identity(),
             nn.Conv2d(dim, dim_out, 3, padding=1))
 
     def forward(self, x):
@@ -84,18 +120,19 @@ class Block(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """Two Blocks; cond_type 'time' adds Linear(swish(t)) as a channel bias
-    after block1; a 1×1 `res_conv` when the widths differ."""
+    """Two Blocks, the dropout in the second; cond_type 'time' adds
+    Linear(swish(t)) as a channel bias after block1; a 1×1 `res_conv` when the
+    widths differ."""
 
     def __init__(self, dim: int, dim_out: int, time_dim, norm_groups: int,
-                 cond_type: str = "time"):
+                 cond_type: str = "time", dropout: float = 0.0):
         super().__init__()
         if cond_type not in ("time", "none"):
             raise ValueError(f"cond_type {cond_type!r} is not ported")
         self.mlp = (nn.Sequential(Swish(), nn.Linear(time_dim, dim_out))
                     if cond_type == "time" else None)
         self.block1 = Block(dim, dim_out, norm_groups)
-        self.block2 = Block(dim_out, dim_out, norm_groups)
+        self.block2 = Block(dim_out, dim_out, norm_groups, dropout)
         self.res_conv = nn.Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
     def forward(self, x, time_emb=None):
@@ -133,9 +170,9 @@ class SelfAttention(nn.Module):
 
 class ResnetBlockWithAttn(nn.Module):
     def __init__(self, dim: int, dim_out: int, time_dim, norm_groups: int,
-                 cond_type: str = "time", with_attn: bool = False):
+                 cond_type: str = "time", with_attn: bool = False, dropout: float = 0.0):
         super().__init__()
-        self.res_block = ResnetBlock(dim, dim_out, time_dim, norm_groups, cond_type)
+        self.res_block = ResnetBlock(dim, dim_out, time_dim, norm_groups, cond_type, dropout)
         self.attn = SelfAttention(dim_out, norm_groups) if with_attn else None
 
     def forward(self, x, time_emb=None):

@@ -11,6 +11,8 @@ Counterpart: diffsplitting_tpu/models/unet.py. The topology is the same:
     one skip by channel concat, then Upsample except for the outermost stage;
   * head: Block to out_channel.
 
+`dropout` goes to the second Block of every ResnetBlock (the head Block has
+none), as in JAX; it acts in `train()` mode only (`blocks.Dropout`).
 Submodule names give exactly the state-dict keys of the reference torch
 UNet (`time_mlp.*`, `downs.*`, `mid.*`, `ups.*`, `final_conv.*`).
 `forward(x, t)` takes NHWC like the JAX UNet and returns NHWC float32.
@@ -45,6 +47,7 @@ class UNet(nn.Module):
         res_blocks: int = 3,
         image_size: int = 128,
         cond_type: str = "time",
+        dropout: float = 0.0,
     ):
         super().__init__()
         if cond_type == "time":
@@ -64,7 +67,7 @@ class UNet(nn.Module):
 
         def rb(dim, dim_out, with_attn):
             return ResnetBlockWithAttn(dim, dim_out, time_dim, norm_groups, cond_type,
-                                       with_attn=with_attn)
+                                       with_attn=with_attn, dropout=dropout)
 
         num_mults = len(channel_mults)
         now_res = image_size

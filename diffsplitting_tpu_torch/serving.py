@@ -59,6 +59,7 @@ def unet_kwargs(model_opt: Mapping) -> dict:
         res_blocks=unet["res_blocks"],
         image_size=model_opt["diffusion"]["image_size"],
         cond_type="time",
+        dropout=float(unet.get("dropout") or 0.0),
     )
 
 
@@ -145,9 +146,16 @@ class SplittingModel:
         """Reverse process on an NHWC batch in `num_timesteps` steps (default:
         the config's serving N, `beta_schedule.val.n_timestep`); returns an
         NHWC tensor on the model's device (2 channels for joint_indi), or
-        with `continuous` the trajectory (n_frames, B, H, W, C)."""
+        with `continuous` the trajectory (n_frames, B, H, W, C). The nets
+        serve in eval mode (no dropout), as JAX's deterministic forward, and
+        get their mode back after."""
         x = torch.as_tensor(x_nhwc, dtype=torch.float32).to(self.device)
         t0 = self.t_float_start if t_float_start is None else t_float_start
         n = self.process.val_num_timesteps if num_timesteps is None else num_timesteps
-        return self.process.inference(*self.denoise_fns(fused), x, n, t0,
-                                      generator=self.generator, continuous=continuous)
+        was_training = self.nets.training
+        self.nets.eval()
+        try:
+            return self.process.inference(*self.denoise_fns(fused), x, n, t0,
+                                          generator=self.generator, continuous=continuous)
+        finally:
+            self.nets.train(was_training)

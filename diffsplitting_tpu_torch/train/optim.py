@@ -1,7 +1,8 @@
 """Learning-rate schedules (and the accumulation the trainer does).
 
 Counterpart: diffsplitting_tpu/train/optim.py (`make_lr`,
-`maybe_accumulate`), which builds optax schedules and `optax.MultiSteps`.
+`maybe_accumulate`), which builds optax schedules and `optax.MultiSteps`;
+`optax_adam` is the optimizer both train CLIs use.
 
 ``train.optimizer.schedule``, iteration-indexed::
 
@@ -22,7 +23,15 @@ one update; params do not change between updates.
 from __future__ import annotations
 
 import math
-from typing import Callable, Mapping, Optional
+from typing import Callable, Iterable, Mapping, Optional
+
+import torch
+
+
+def optax_adam(params: Iterable[torch.nn.Parameter], lr: float) -> torch.optim.Adam:
+    """torch's Adam with `optax.adam`'s defaults: betas 0.9 and 0.999, eps
+    1e-8 added to the root of the second moment (optax's eps_root is 0)."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:

@@ -16,7 +16,12 @@ is below `step_start_ema`, `ema_decay` after).
 
 t and the noise come from one device `torch.Generator` seeded by `seed`;
 `optimize_parameters(draws=...)` injects them instead, which the parity tests
-use to replay the JAX draws.
+use to replay the JAX draws. With `unet.dropout` > 0 the train forward drops
+out after the second GroupNorm+Swish of each ResnetBlock, as the JAX train
+forward does (`deterministic=False`), with masks drawn from the same
+generator in the order the forward reaches them; at rate 0 nothing more is
+drawn. JAX's `train.dropout_prng` (an `rbg` key for the TPU's RNG) has no
+counterpart here.
 
 Checkpoints (`save_network`, `load_network`; `train/checkpoints.py`): the
 `I{iter}_E{epoch}_gen.pth` / `_opt.pth` pair, resumed by prefix from
@@ -28,8 +33,7 @@ Serving (`test`, `inference`, `get_current_visuals`): the reverse process on
 the fed input through `SplittingModel.test`, with the trajectory when
 `continuous`; visuals are NHWC numpy, as JAX gives them.
 
-Not ported: dropout (`unet.dropout` > 0 raises; the UNet's `block.2` is an
-identity), `remat`, compute dtypes other than float32, sharding, and the
+Not ported: `remat`, compute dtypes other than float32, sharding, and the
 ddpm/sr3 families.
 """
 
@@ -45,11 +49,12 @@ import torch
 
 from ..device import resolve_device
 from ..diffusion import JointInDIProcess
+from ..models.blocks import set_dropout_generator
 from ..serving import SplittingModel, define_generator, init_weights
 from ..utils.weights import load_reference_checkpoint
 from .checkpoints import load_trainer_state, resolve_checkpoint, save_checkpoint
 from .clipping import global_norm, make_clip
-from .optim import make_lr
+from .optim import make_lr, optax_adam
 
 logger = logging.getLogger("base")
 
@@ -74,10 +79,6 @@ class DiffusionModel:
         self.which = model_opt["which_model_G"]
         if self.which not in ("indi", "joint_indi"):
             raise NotImplementedError(f"training which_model_G={self.which!r} is not ported")
-        if float(model_opt["unet"].get("dropout") or 0.0) > 0:
-            raise NotImplementedError(
-                "unet.dropout > 0 is not ported (the UNet's Block has no dropout); it comes "
-                "with the time predictor and SR3/DDPM (ROADMAP items 1c, 1d)")
         if model_opt.get("finetune_norm"):
             # the JAX package trains only the parameters whose path holds
             # 'transformer' and raises when none does; no UNet has one
@@ -99,8 +100,7 @@ class DiffusionModel:
         opt_cfg = train_opt.get("optimizer") or {}
         self.lr = make_lr(float(opt_cfg.get("lr") or 1e-4), opt_cfg.get("schedule"),
                           int(train_opt.get("n_iter") or 0))
-        self.optimizer = torch.optim.Adam(self.params, lr=self.lr(0), betas=(0.9, 0.999),
-                                          eps=1e-8)
+        self.optimizer = optax_adam(self.params, self.lr(0))
         self.clip = make_clip(opt_cfg)
         self.accum_steps = max(int(opt_cfg.get("accum_steps") or 1), 1)
         self._acc = None  # running mean of the micro-steps' gradients
@@ -118,6 +118,7 @@ class DiffusionModel:
         self.begin_epoch = 0
 
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        set_dropout_generator(self.nets, self.generator)
         self.log_dict = OrderedDict()
         self.data = None
         self.prediction = None

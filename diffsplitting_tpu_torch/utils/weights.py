@@ -14,6 +14,9 @@ The state dict is the diffusion wrapper's:
   * indi — `denoise_fn.<unet keys>`;
   * joint_indi — `indi1.denoise_fn.*`, `indi2.denoise_fn.*` and the scalars
     `alpha_param`, `offset_param`, `scale_param`.
+The time predictor's (`time_predictor_state_dict_from_jax`) is the port's
+`TimePredictor`: `unet.<unet keys>` (cond_type 'none') and
+`foreground_mask.conv.*`, named after the JAX module.
 """
 
 from __future__ import annotations
@@ -125,6 +128,20 @@ def state_dict_from_jax(which: str, params: Mapping, unet_opt: Mapping) -> Dict[
                 sd[f"{root}.denoise_fn.{k}"] = v
         return sd
     raise NotImplementedError(f"which_model_G={which!r} is not ported")
+
+
+def time_predictor_state_dict_from_jax(params: Mapping, unet_opt: Mapping
+                                       ) -> Dict[str, torch.Tensor]:
+    """The JAX TimePredictor's params (`UNet_0`, `ForegroundMask_0`) → the
+    port's `TimePredictor` state dict. `unet_opt` is the config's
+    `model.unet` section."""
+    if set(params.keys()) == {"params"}:
+        params = params["params"]
+    sd = {f"unet.{k}": v for k, v in unet_state_dict_from_jax(
+        params["UNet_0"], tuple(unet_opt["channel_multiplier"]), int(unet_opt["res_blocks"]),
+        cond_type="none").items()}
+    _conv(sd, "foreground_mask.conv", params["ForegroundMask_0"]["Conv_0"])
+    return sd
 
 
 def load_reference_checkpoint(path: str, which: str = "joint_indi") -> Dict[str, torch.Tensor]:

@@ -29,6 +29,9 @@ import diffsplitting_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import torch
+# small ops: one thread, so that a loaded machine (the suite's other
+# workers) does not oversubscribe the cores
+torch.set_num_threads(1)
 from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
 from diffsplitting_tpu_torch.predict import predict_frames
 from diffsplitting_tpu_torch.serving import SplittingModel
@@ -55,6 +58,20 @@ rng = np.random.default_rng(0)
 trainer.feed_data({"target": rng.normal(size=(2, 16, 16, 2)).astype(np.float32)})
 trainer.optimize_parameters()
 assert np.isfinite(trainer.get_current_log()["l_pix"])
+# the time predictor with dropout on, and the t-refinement estimate
+from diffsplitting_tpu_torch.models import TimePredictor, set_dropout_generator
+from diffsplitting_tpu_torch.utils.t_refinement import estimate_time_using_PSNR
+tp = TimePredictor(in_channel=1, out_channel=1, inner_channel=8, norm_groups=4,
+                   channel_mults=(1, 2), attn_res=(), res_blocks=1, dropout=0.2,
+                   image_size=16).train()
+set_dropout_generator(tp, torch.Generator().manual_seed(0))
+x = torch.randn(2, 16, 16, 1, generator=torch.Generator().manual_seed(1))
+tp(x).sum().backward()
+tp.eval()
+per_sample, consensus = estimate_time_using_PSNR(
+    x, model.process.indi1, model.process.indi2, *model.denoise_fns(),
+    lambda a: tp(a).detach(), generator=torch.Generator().manual_seed(0))
+assert per_sample.shape == (2,) and 0.0 <= consensus < 1.0
 print("OK")
 """
 

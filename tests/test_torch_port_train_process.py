@@ -116,7 +116,7 @@ def test_indi_refuses_a_conditional_bridge():
 
 
 @pytest.mark.parametrize("edit,error,match", [
-    (lambda o: o["model"]["unet"].update(dropout=0.1), NotImplementedError, "dropout"),
+    (lambda o: o["model"]["unet"].update(dropout=1.0), ValueError, "dropout"),
     (lambda o: o["model"].update(finetune_norm=True), ValueError, "finetune_norm"),
     (lambda o: o["model"].update(compute_dtype="bfloat16"), NotImplementedError,
      "compute_dtype"),
