@@ -49,6 +49,15 @@ forwards by batch and launches asserted for each t_true, the joint
 outputs from the refined start held to differ from those from 0.5, and
 each stage's host time.
 
+Then the serving accelerators on the same config with the t-refinement
+phase's trained joint weights, N = 10: DeepCache (`phase_deepcache`, depth
+1, the slice's frames) with tiles/s and peak memory beside the exact chain's
+unfused and fused, the launches of its full and shallow passes asserted, the
+kernels against the plain versions, interval 1 against the exact chain and
+PSNR(cached, exact); and the sliding window (`phase_sliding_window`, W = 8
+on one tile at batch 1) at τ = 0 against the exact chain and the plain
+versions, its sweeps, seconds a chain and PSNR at τ = 0 and 0.1.
+
 Every phase raises on failure, so the script exits non-zero with no result
 line. It prints the card's name and power limit, per-kernel times beside
 their bounds, each slice's tiles/s and peak memory, the train step's time and
@@ -695,44 +704,59 @@ def read_launches() -> dict:
             "sites_kernel": ConvSitePlan.kernel, "sites_library": ConvSitePlan.library}
 
 
-def phase_slice(model, frames, fused: bool, expected: dict, n_tiles: int, forwards: int):
-    """Joint-InDI tiled prediction at full width: a warm-up run, then one run
-    with every launch count set to 0 just before and read just after, then
-    two more for the spread of the host-clock time. Returns the output, the
-    median tiles/s and the peak device memory of the counted run."""
+def slice_inputs(dev):
+    """The seeded tile batch and the two synthetic frames of the slice."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tile_batch = torch.randn(BATCH, PATCH, PATCH, 1, device=dev, generator=gen)
+    return tile_batch, torch.randn(*FRAMES, 1, device=dev, generator=gen)
+
+
+def phase_slice(model, frames, fused: bool, expected: dict, n_tiles: int, forwards,
+                steps=None, label: str = "slice"):
+    """Joint-InDI tiled prediction at full width (`steps` reverse steps, None:
+    the config's; DeepCache or the window as the model is switched): a
+    warm-up run, then one run with every launch count set to 0 just before
+    and read just after, then two more for the spread of the host-clock time.
+    Returns the output, the launches, and the median tiles/s and the peak
+    device memory of the counted run."""
     import torch
     from diffsplitting_tpu_torch.predict import predict_frames
 
+    def run():
+        return predict_frames(model, frames, PATCH, BATCH, num_steps=steps, fused=fused)
+
     model.generator.manual_seed(0)
-    predict_frames(model, frames, PATCH, BATCH, fused=fused)  # warm-up: plans, allocator
+    run()  # warm-up: plans, allocator
     torch.cuda.synchronize()
 
     model.generator.manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    out = predict_frames(model, frames, PATCH, BATCH, fused=fused)
+    out = run()
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     if launches != expected:
-        raise AssertionError(f"fused={fused}: launches {launches}, expected {expected}")
+        raise AssertionError(f"{label} fused={fused}: launches {launches}, expected {expected}")
     if tuple(out.shape) != FRAMES + (2,) or not torch.isfinite(out).all():
-        raise AssertionError(f"fused={fused}: slice output shape {tuple(out.shape)}, "
+        raise AssertionError(f"{label} fused={fused}: output shape {tuple(out.shape)}, "
                              f"finite {bool(torch.isfinite(out).all())}")
     for _ in range(2):
         t0 = time.perf_counter()
-        predict_frames(model, frames, PATCH, BATCH, fused=fused)
+        run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     tiles_per_s = n_tiles / sorted(walls)[1]
-    log(f"slice fused={fused}: {FRAMES[0]} frames {FRAMES[1]}x{FRAMES[2]}, {n_tiles} tiles of "
-        f"{PATCH}², batch {BATCH}, {model.process.val_num_timesteps} steps, {forwards} UNet "
-        "forwards: "
+    log(f"{label} fused={fused}: {FRAMES[0]} frames {FRAMES[1]}x{FRAMES[2]}, {n_tiles} tiles of "
+        f"{PATCH}², batch {BATCH}, {steps or model.process.val_num_timesteps} steps, {forwards} "
+        "UNet forwards: "
         f"runs {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median {tiles_per_s:.2f} "
         f"tiles/s, peak memory {peak / 2**30:.2f} GiB ({peak} bytes), launches {launches}")
-    return out, launches
+    return out, launches, dict(tiles_per_s=tiles_per_s, peak=peak, walls=walls)
 
 
 def smooth_pair(rng, batch: int, patch: int) -> dict:
@@ -1626,7 +1650,191 @@ def phase_t_refinement(dev, work: str, classifier: str) -> dict:
         unet_mod.UNet.forward = forward
         DiffusionModel.test = test
     log(f"t-refinement phase: {time.perf_counter() - t_phase:.1f} s")
-    return dict(launches=dict(launches), rows=rows)
+    return dict(launches=dict(launches), rows=rows, joint=joint)
+
+
+SERVE_STEPS = 10  # N of the DeepCache and sliding-window phases
+SW_WINDOW = 8
+
+
+def serving_model(dev, weights: str):
+    """The Hagen joint config's SplittingModel with the reference-layout
+    weights at `weights`."""
+    from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
+    from diffsplitting_tpu_torch.serving import SplittingModel
+    from diffsplitting_tpu_torch.utils.weights import load_reference_checkpoint
+
+    model = SplittingModel(dict_to_nonedict(load_json(CONFIG)), device=dev, seed=0)
+    model.nets.load_state_dict(load_reference_checkpoint(weights, "joint_indi"))
+    return model
+
+
+def psnr_per_channel(want, got) -> list:
+    """PSNR(got against want) of each channel, the mean over the first axis
+    (utils/psnr.py, float64 on the host)."""
+    import numpy as np
+    from diffsplitting_tpu_torch.utils.psnr import PSNR
+
+    want, got = want.cpu().numpy(), got.cpu().numpy()
+    return [float(np.mean(PSNR(want[..., c], got[..., c]))) for c in range(want.shape[-1])]
+
+
+def check_close(what: str, got, want) -> float:
+    """max |got − want| within 1e-3·max|want| + 1e-4 (the slice's tolerance)."""
+    err = max_err(got, want)
+    tol = 1e-3 * want.abs().max().item() + 1e-4
+    if not (got.shape == want.shape and err <= tol):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}, max abs "
+                             f"err {err} > {tol}")
+    log(f"{what}: max abs err {err:.3g} (tol {tol:.3g}), bit-equal {bool(torch_equal(got, want))}")
+    return err
+
+
+def phase_deepcache(dev, weights: str) -> dict:
+    """DeepCache serving of the Hagen joint config at full width (patch 512,
+    batch 8, depth 1) on the slice's two synthetic 1024² frames (18 tiles, 3
+    tile batches), N = SERVE_STEPS = 10, with the joint weights at `weights`
+    (phase_t_refinement's: seed 0 and 30 train steps):
+      * tiles/s (median of 3) and peak memory of the exact chain unfused and
+        fused, DeepCache 'auto' (interval 4) and interval 5 (`phase_slice`),
+        with their launches asserted: a full pass 29 GN+Swish and 1
+        attention, a shallow pass (stem, encoder and decoder stage 0, head) 7
+        and none; 'auto' 3 full and 7 shallow passes a chain: 816 and 18 over
+        two nets and 3 tile batches; interval 5: 684 and 12;
+      * the 'auto' chain with the kernels against the same chain through the
+        plain versions on a tile batch (the frames' quadrants), and interval 1
+        against the exact chain from the same generator seed, at the slice's
+        tolerance (bit-equality logged);
+      * PSNR(cached, exact) a channel over the two frames at 'auto' and 5."""
+    import torch
+
+    t_phase = time.perf_counter()
+    log(f"DeepCache phase: joint weights {Path(weights).name}")
+    model = serving_model(dev, weights)
+    unet = model.unets()[0]
+    if len(unet.downs) != 8 or len(unet.ups) != 11:  # mults (1,2,4,8), one res block
+        raise AssertionError("the Hagen joint UNet changed; the launch counts below assume it")
+    _, frames = slice_inputs(dev)
+    n_tiles = 18
+    chains = 2 * math.ceil(n_tiles / BATCH)  # two nets a tile batch
+    forwards = chains * SERVE_STEPS
+    counted = {}
+
+    def counts(full: int, shallow: int) -> dict:
+        return dict(GN_ATTN_ONLY, group_norm_swish=chains * (29 * full + 7 * shallow),
+                    attention=chains * full)
+
+    model.set_deepcache(None)
+    exact, counted["exact unfused"], exact_stats = phase_slice(
+        model, frames, False, counts(SERVE_STEPS, 0), n_tiles, forwards, SERVE_STEPS,
+        "exact chain")
+    _, counted["exact fused"], fused_stats = phase_slice(
+        model, frames, True,
+        dict(GN_ATTN_ONLY, group_norm_swish=forwards, attention=forwards,
+             conv_gn=31 * forwards, sites_kernel=31 * forwards), n_tiles, forwards,
+        SERVE_STEPS, "exact chain")
+    rows = {"exact unfused": exact_stats, "exact fused": fused_stats}
+    for interval, want in (("auto", (816, 18)), (5, (684, 12))):
+        model.set_deepcache(interval, 1)
+        k = model.dc_interval(SERVE_STEPS)
+        full = len(range(0, SERVE_STEPS, k))
+        expected = counts(full, SERVE_STEPS - full)
+        if (expected["group_norm_swish"], expected["attention"]) != want:
+            raise AssertionError(f"DeepCache {interval}: expected launches {expected}, not {want}")
+        label = f"DeepCache {interval} (interval {k}, depth 1)"
+        out, counted[label], stats = phase_slice(
+            model, frames, False, expected, n_tiles, f"{chains * full} full and "
+            f"{chains * (SERVE_STEPS - full)} shallow", SERVE_STEPS, label)
+        stats["psnr_vs_exact"] = psnr_per_channel(exact, out)
+        log(f"{label}: PSNR(cached, exact) {stats['psnr_vs_exact'][0]:.2f} / "
+            f"{stats['psnr_vs_exact'][1]:.2f} dB, "
+            f"{stats['tiles_per_s'] / exact_stats['tiles_per_s']:.3f}x "
+            "the exact unfused chain's tiles/s")
+        rows[label] = stats
+        if interval == "auto":
+            # one tile batch: the frames' four quadrants
+            tiles = torch.cat([frames[:, i:i + PATCH, j:j + PATCH] for i in (0, PATCH)
+                               for j in (0, PATCH)])[:BATCH]
+            outs = []
+            for plain in (False, True):
+                model.generator.manual_seed(0)
+                plain_or_not = plain_versions() if plain else contextlib.nullcontext()
+                with torch.inference_mode(), plain_or_not:
+                    outs.append(model.test(tiles, num_timesteps=SERVE_STEPS))
+            err_plain = check_close(f"{label}, a tile batch: kernels vs plain versions", *outs)
+    model.set_deepcache(1, 1)
+    model.generator.manual_seed(0)
+    from diffsplitting_tpu_torch.predict import predict_frames
+
+    one = predict_frames(model, frames, PATCH, BATCH, num_steps=SERVE_STEPS)
+    check_close("DeepCache interval 1 vs the exact chain, same seed", one, exact)
+    launches = collections.Counter()
+    for c in counted.values():
+        launches.update({k: c[k] for k in ("group_norm_swish", "attention", "conv_gn")})
+    del model, frames, exact, one
+    torch.cuda.empty_cache()
+    log(f"DeepCache phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=dict(launches), rows=rows, err_plain=err_plain)
+
+
+def phase_sliding_window(dev, weights: str) -> dict:
+    """Sliding-window serving of the Hagen joint config (the weights at
+    `weights`) on one 512² tile at batch 1, N = SERVE_STEPS, W = 8 (a
+    windowed forward is a batch-8 forward):
+      * τ = 0 against the exact chain at batch 1 from the same generator
+        seed, and with the kernels against the plain versions, at the
+        slice's tolerance; 20 sweeps (10 a net) and 29 GN+Swish and 1
+        attention launch a sweep and net, asserted;
+      * at τ = 0 and 0.1, and for the exact chain at batch 1: sweeps,
+        seconds a chain (median of 3, host clock ended by a synchronize) and
+        PSNR against the exact chain a channel."""
+    import torch
+
+    t_phase = time.perf_counter()
+    model = serving_model(dev, weights)
+    tile = slice_inputs(dev)[1][:1, :PATCH, :PATCH]
+
+    def chain(window=None, tau=0.0, plain=False):
+        model.set_sliding_window(window, tau)
+        model.generator.manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode(), plain_versions() if plain else contextlib.nullcontext():
+            out = model.test(tile, num_timesteps=SERVE_STEPS)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    chain(), chain(SW_WINDOW)  # warm-up
+    exact, _ = chain()
+    reset_launches()
+    windowed, _ = chain(SW_WINDOW, 0.0)
+    launches = read_launches()
+    sweeps = model.last_sliding_sweeps
+    want = dict(GN_ATTN_ONLY, group_norm_swish=29 * 2 * SERVE_STEPS, attention=2 * SERVE_STEPS)
+    if sweeps != 2 * SERVE_STEPS or launches != want:
+        raise AssertionError(f"window τ=0: {sweeps} sweeps, launches {launches}; expected "
+                             f"{2 * SERVE_STEPS} and {want}")
+    plain, _ = chain(SW_WINDOW, 0.0, plain=True)
+    err = check_close("window W=8 τ=0 vs the exact chain at batch 1", windowed, exact)
+    err_plain = check_close("window W=8 τ=0: kernels vs plain versions", windowed, plain)
+    rows = {}
+    for label, window, tau in (("exact B=1", None, 0.0), ("window τ=0", SW_WINDOW, 0.0),
+                               ("window τ=0.1", SW_WINDOW, 0.1)):
+        runs = [chain(window, tau) for _ in range(3)]
+        secs = sorted(r[1] for r in runs)
+        row = dict(seconds=secs[1], runs=secs,
+                   sweeps=model.last_sliding_sweeps if window else None,
+                   psnr_vs_exact=psnr_per_channel(exact, runs[0][0]) if window else None)
+        rows[label] = row
+        log(f"sliding window phase, {label} (N={SERVE_STEPS}, one {PATCH}² tile): "
+            f"{row['seconds']:.4f} s a chain (median of {', '.join(f'{x:.4f}' for x in secs)})"
+            + (f", {row['sweeps']} sweeps, PSNR vs exact {row['psnr_vs_exact'][0]:.2f} / "
+               f"{row['psnr_vs_exact'][1]:.2f} dB" if window else ""))
+    del model
+    torch.cuda.empty_cache()
+    log(f"sliding window phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches={k: launches[k] for k in ("group_norm_swish", "attention")},
+                rows=rows, err=max(err, err_plain))
 
 
 def main() -> int:
@@ -1663,8 +1871,7 @@ def main() -> int:
     groups = int(opt["model"]["unet"]["norm_groups"])
     model = SplittingModel(opt, device=dev, seed=0)
     net = model.unets()[0]
-    gen = torch.Generator(device=dev).manual_seed(5)
-    tile_batch = torch.randn(BATCH, PATCH, PATCH, 1, device=dev, generator=gen)
+    tile_batch, frames = slice_inputs(dev)
     t_vec = torch.full((BATCH,), 0.5, device=dev)
 
     # GN+Swish at the unfused slice's shapes
@@ -1718,11 +1925,10 @@ def main() -> int:
     narrow = phase_cifar10(dev, inner=8, plan=(31, 0), groups=8)
 
     # the slice: joint-InDI tiled prediction at full width, unfused and fused
-    frames = torch.randn(*FRAMES, 1, device=dev, generator=gen)
     steps = model.process.val_num_timesteps
     n_tiles = 18  # 3×3 tiles per 1024² frame: 512² patches on a 256² grid
     forwards = 2 * steps * math.ceil(n_tiles / BATCH)
-    out, launches = phase_slice(
+    out, launches, _ = phase_slice(
         model, frames, False,
         {"group_norm_swish": 29 * forwards, "attention": forwards, "attention_wide": 0,
          "attention_any_d": 0,
@@ -1741,7 +1947,7 @@ def main() -> int:
 
     # fused: 31 conv_gn a forward (28 ResnetBlock convs, 3 upsample convs), the
     # mid block's attention, and GroupNorm+Swish once, at the head
-    out_fused, fused_launches = phase_slice(
+    out_fused, fused_launches, _ = phase_slice(
         model, frames, True,
         {"group_norm_swish": forwards, "attention": forwards, "attention_wide": 0,
          "attention_any_d": 0,
@@ -1762,6 +1968,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         tp = phase_time_predictor(dev, work)
         tref = phase_t_refinement(dev, work, tp["classifier"])
+        dcache = phase_deepcache(dev, tref["joint"])
+        window = phase_sliding_window(dev, tref["joint"])
     wide_shape = (BATCH, 16, 256)  # the mid block of the inner-32 path
     simt_shape = (BATCH, 16, 64)  # the mid block of the inner-8 path
 
@@ -1771,7 +1979,8 @@ def main() -> int:
              replaces="diffsplitting_tpu/experimental/groupnorm_pallas.py:21,58",
              launches=launches["group_norm_swish"] + train["launches"]["group_norm_swish"]
              + loop["launches"]["group_norm_swish"] + tp["launches"]["group_norm_swish"]
-             + tref["launches"]["group_norm_swish"],
+             + tref["launches"]["group_norm_swish"] + dcache["launches"]["group_norm_swish"]
+             + window["launches"]["group_norm_swish"],
              max_abs_err=gn_err, ms=gn["ms"],
              plain_ms=gn["plain_ms"], bound_ms=gn["bound_ms"], bound_by="bytes",
              library_ms=gn["library_ms"], device_ms=gn["device_ms"]),
@@ -1780,7 +1989,8 @@ def main() -> int:
              replaces="diffsplitting_tpu/ops/attention.py:33",
              launches=launches["attention"] + train["launches"]["attention"]
              + loop["launches"]["attention"] + tp["launches"]["attention"]
-             + tref["launches"]["attention"],
+             + tref["launches"]["attention"] + dcache["launches"]["attention"]
+             + window["launches"]["attention"],
              max_abs_err=max(attn_err, tp["attn_b1"]["max_abs_err"]), ms=attn["ms"],
              plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"], bound_by=attn["bound_by"],
              library_ms=attn["library_ms"],
@@ -1806,7 +2016,8 @@ def main() -> int:
         dict(name="conv_gn", route="cuda",
              source="diffsplitting_tpu_torch/csrc/conv_gn.cu",
              replaces="diffsplitting_tpu/experimental/conv_gn.py:270",
-             launches=fused_launches["conv_gn"], max_abs_err=conv_err, ms=conv["ms"],
+             launches=fused_launches["conv_gn"] + dcache["launches"]["conv_gn"],
+             max_abs_err=conv_err, ms=conv["ms"],
              plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],
              library_ms=conv["library_ms"]),
     ]
@@ -1814,14 +2025,17 @@ def main() -> int:
         "of calls (device_ms: its device time alone, by CUDA-graph replay), and its launches are "
         "the unfused slice's plus one train step's plus the two split.py train runs' plus the "
         "time predictor's start_training run's plus the t-refinement workflow's three runs "
-        f"(kernels); attention times are per call at B={BATCH}, N={ATTN_N}, D={ATTN_D}, its "
-        "launches likewise (by_shape: at B=1, the one-step inversions', device times by CUDA-graph "
+        "(kernels) plus the DeepCache phase's four counted runs (exact unfused and fused, "
+        "'auto', 5) plus the sliding window's τ=0 run; attention times are per call at "
+        f"B={BATCH}, N={ATTN_N}, D={ATTN_D}, its launches likewise (by_shape: at B=1, the "
+        "one-step inversions', device times by CUDA-graph "
         "replay); "
         "attention_wide times are per call at the inner-32 cifar10 path's mid block "
         "(its launches, unfused and fused; by_shape: device times at other shapes, with SDPA's "
         "and the SIMT kernel's), attention_any_d (SIMT) times at the inner-8 path's (its "
         "launches), device_ms by CUDA-graph replay; conv_gn times are per fused UNet forward "
-        "(31 calls at batch 8) and its launches are the fused slice's")
+        "(31 calls at batch 8) and its launches are the fused slice's and the DeepCache "
+        "phase's fused exact chain's")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

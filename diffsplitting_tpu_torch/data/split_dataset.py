@@ -16,8 +16,10 @@ the items are bit-identical to the JAX package's.
     statistics, or the weighted sum of the normalized target when
     `input_from_normalized_target` (the joint-InDI path).
 
-CIFAR-10 (`data_type="cifar10"`) is not ported: it comes with SR3/DDPM
-(ROADMAP §1 item 1d) and raises NotImplementedError here.
+  * CIFAR-10 (`data_type="cifar10"`, `data/cifar10.py`): the pickles in
+    `DataLocation(directory=...)`, classes 1 (automobile) and 7 (horse) as
+    the two channels, HWC uint8 frames normalized by the uint8 statistics
+    (max 255 a channel). configs/splitting_cifar10_indi.json trains on it.
 """
 
 from __future__ import annotations
@@ -28,11 +30,15 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .cifar10 import load_train_val_data
 from .io import load_tiff_stack
 from .normalization import compute_normalization_dict
 
 # the reference's clip for the Hagen TIFFs
 HAGEN_UPPER_CLIP_DEFAULT = 1993.0
+
+# the CIFAR-10 splitting classes: 1 = automobile, 7 = horse
+CIFAR_SPLIT_LABELS = [1, 7]
 
 
 @dataclass
@@ -71,8 +77,7 @@ def load_data(
     upper_clip_value: Optional[float] = HAGEN_UPPER_CLIP_DEFAULT,
 ) -> Dict[int, List[np.ndarray]]:
     if data_type == "cifar10":
-        raise NotImplementedError("the CIFAR-10 splitting data is not ported; it comes with "
-                                  "SR3/DDPM (ROADMAP §1 item 1d)")
+        return load_train_val_data(dataloc.directory, CIFAR_SPLIT_LABELS)
     if dataloc.fpath:
         return _load_single_fpath(dataloc.fpath)
     if len(dataloc.channelwise_fpath) > 0:

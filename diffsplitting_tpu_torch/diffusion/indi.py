@@ -123,12 +123,12 @@ class InDIProcess:
                                        generator: Optional[torch.Generator] = None,
                                        t_float=None, noise=None):
         """net(x_t, t) for x_t on the bridge from batch['target'] (x_start) to
-        batch['input'] tiled `out_channel` times (x_end). t and the noise are
+        batch['input'] tiled to its width (x_end, `tile_input`). t and the noise are
         drawn from `generator` (t first) unless injected."""
         if self.conditional:
             raise ValueError("InDI is an unconditional bridge: set diffusion.conditional false")
         x_start = batch["target"]
-        x_end = batch["input"].repeat(1, 1, 1, self.out_channel)
+        x_end = self.tile_input(batch["input"])
         b = x_start.shape[0]
         if t_float is None:
             t_float = self.sample_t(b, num_timesteps, generator, x_start.device)
@@ -155,28 +155,66 @@ class InDIProcess:
         returns (B, H, W, C·out_channel), or with `continuous` the trajectory
         (n_frames, B, H, W, C·out_channel)."""
         N = int(num_timesteps if num_timesteps is not None else self.num_timesteps)
-        if noise is not None and len(noise) != N + 1:
-            raise ValueError(f"need {N + 1} injected noise tensors, got {len(noise)}")
-        x_in = x_in.repeat(1, 1, 1, self.out_channel)
-
-        def draw(i):
-            if noise is not None:
-                return noise[i].to(device=x_in.device, dtype=x_in.dtype)
-            return torch.randn(x_in.shape, generator=generator, device=x_in.device,
-                               dtype=x_in.dtype)
-
-        x = x_in + draw(0) * float(self.get_t_times_e(np.float32(t_float_start)))
-        delta = np.float32(t_float_start / N)
-        cur_ts = np.float32(t_float_start) - delta * np.arange(N, dtype=np.float32)
+        x_in = self.tile_input(x_in)
+        draw = noise_source(x_in, N, generator, noise)
+        x, delta, cur_ts = self.start(x_in, draw(0), t_float_start, N)
         b = x_in.shape[0]
         flags, _ = capture_plan(range(N), 1 | (N // 20), include_last=True)
         frames = [x] if continuous else None
         for idx, t_cur in enumerate(cur_ts):
             t_vec = torch.full((b,), float(t_cur), device=x.device, dtype=x.dtype)
-            x0 = denoise_fn(x, t_vec)
-            coef = delta / t_cur
-            sigma = self.get_t_times_e(t_cur - delta)
-            x = x0 * float(coef) + x * float(np.float32(1) - coef) + draw(idx + 1) * float(sigma)
+            x = self.step(denoise_fn(x, t_vec), x, draw(idx + 1), t_cur, delta)
             if continuous and flags[idx]:
                 frames.append(x)
         return torch.stack(frames) if continuous else x
+
+    def tile_input(self, x):
+        """The input tiled on channels to the target's width: `out_channel`
+        times a one-channel input, as JAX tiles it; out_channel / C times a
+        C-channel one. (JAX tiles every input `out_channel` times, so the
+        3-channel CIFAR-10 input of configs/splitting_cifar10_indi.json gets 18
+        channels against its 6-channel target, and its bridge fails to
+        broadcast.)"""
+        c = x.shape[-1]
+        if self.out_channel % c:
+            raise ValueError(f"out_channel {self.out_channel} is not a multiple of the "
+                             f"input's {c} channels")
+        return x.repeat(1, 1, 1, self.out_channel // c)
+
+    def start(self, x_in, noise0, t_float_start: float, N: int):
+        """(x at t_float_start, δ, the N step times) of an N-step chain, in f32
+        as JAX computes them; `noise0` is the initial standard-normal draw."""
+        x = x_in + noise0 * float(self.get_t_times_e(np.float32(t_float_start)))
+        delta = np.float32(t_float_start / N)
+        return x, delta, np.float32(t_float_start) - delta * np.arange(N, dtype=np.float32)
+
+    def step(self, x0, x, noise, t_cur, delta):
+        """One reverse step from step time t_cur: (δ/t)·x̂0 + (1−δ/t)·x + ε·e(t−δ).
+        t_cur and δ may be f32 scalars, or (W, 1, …) f32 arrays for a window of
+        steps; the arithmetic is the same element by element."""
+        coef = delta / t_cur
+        sigma = self.get_t_times_e(t_cur - delta)
+        return x0 * _f32(coef, x) + x * _f32(np.float32(1) - coef, x) + noise * _f32(sigma, x)
+
+
+def _f32(v, like):
+    """A float for an f32 scalar, an f32 tensor on `like`'s device for an array."""
+    if np.ndim(v) == 0:
+        return float(v)
+    return torch.from_numpy(np.asarray(v, np.float32)).to(like.device)
+
+
+def noise_source(x, N: int, generator: Optional[torch.Generator] = None,
+                 noise: Optional[Sequence[torch.Tensor]] = None) -> Callable[[int], torch.Tensor]:
+    """draw(i): the i-th standard-normal draw of x's shape of an N-step chain
+    (0 the initial, i ≥ 1 step i − 1's), from `generator` in call order or
+    from the N + 1 injected tensors."""
+    if noise is not None and len(noise) != N + 1:
+        raise ValueError(f"need {N + 1} injected noise tensors, got {len(noise)}")
+
+    def draw(i):
+        if noise is not None:
+            return noise[i].to(device=x.device, dtype=x.dtype)
+        return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+
+    return draw

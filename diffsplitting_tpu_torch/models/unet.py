@@ -64,6 +64,7 @@ class UNet(nn.Module):
         else:
             raise ValueError(f"cond_type {cond_type!r} is not ported")
         self.in_channel = in_channel
+        self.image_size = image_size
 
         def rb(dim, dim_out, with_attn):
             return ResnetBlockWithAttn(dim, dim_out, time_dim, norm_groups, cond_type,

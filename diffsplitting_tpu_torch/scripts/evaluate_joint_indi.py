@@ -12,6 +12,7 @@ RangeInvariantPSNR of each channel, for each reverse-step count N of
   python -m diffsplitting_tpu_torch.scripts.evaluate_joint_indi \\
       -c configs/splitting_hagen_indi_joint.json --resume <prefix> \\
       [--num_steps 1 5 10] [--t_float_start 0.5] [--mmse 1] [--out metrics.json]
+  python -m diffsplitting_tpu_torch.scripts.evaluate_joint_indi -c <config> --check_data
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from ..config import dict_to_nonedict, load_json
 from ..data import SplitDatasetTiledPred, predict_tiled
+from ..data.check import run_check
 from ..data.split_dataset import DataLocation
 from ..train import create_model
 from ..utils.psnr import RangeInvariantPsnr
@@ -89,15 +91,24 @@ def evaluate(opt, resume: str, num_steps: Sequence[int] = (1,), t_float_start: f
 def main(argv: Optional[list] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("-c", "--config", required=True)
-    ap.add_argument("--resume", required=True,
-                    help="checkpoint prefix (.../I{it}_E{ep}) or a *_gen.pth")
+    ap.add_argument("--resume", default=None,
+                    help="checkpoint prefix (.../I{it}_E{ep}) or a *_gen.pth (required "
+                         "unless --check_data)")
     ap.add_argument("--num_steps", type=int, nargs="+", default=[1])
     ap.add_argument("--t_float_start", type=float, default=0.5)
     ap.add_argument("--mmse", type=int, default=1, help="average over this many chains")
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--out", default=None, help="write the metrics JSON here")
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--check_data", action="store_true",
+                    help="validate the config's Hagen TIFF layout, print the parity-run "
+                         "commands and exit 0 or 1")
     args = ap.parse_args(argv)
+    if args.check_data:
+        raise SystemExit(0 if run_check(args.config, dict_to_nonedict(load_json(args.config)))
+                         else 1)
+    if args.resume is None:
+        ap.error("--resume is required")
 
     # float32 throughout, as the JAX package computes
     torch.backends.cudnn.allow_tf32 = False

@@ -11,11 +11,25 @@ reference `*_gen.pth` or the JAX package's export.
 The denoisers go through `models.apply_unet`: the UNet's own forward, or the
 stat-carried fused forward when `fused` is True (None: as DSP_FUSED says,
 the switch the JAX package reads).
+
+Two opt-in serving accelerators, as the JAX `DiffusionModel` offers them
+(`set_deepcache`, `set_sliding_window`, the config keys `model.deepcache
+{interval, depth}` and `model.sliding_window {window, tau}`):
+  * DeepCache (diffusion/deepcache.py): the full UNet every `interval`-th
+    step, the shallow levels in between; 'auto' picks the interval from the
+    chain length. The cached walk runs the UNet's unfused modules whatever
+    `fused` says, as JAX's cached apply does;
+  * the sliding window (diffusion/parallel_sampling.py): W steps a sweep as
+    one (W·B)-batch forward through `denoise_fns(fused)`; τ = 0 is the exact
+    chain. `last_sliding_sweeps` holds the last call's sweeps.
+They exclude each other; a trajectory request (`continuous`) serves the exact
+chain, with one warning.
 """
 
 from __future__ import annotations
 
 import functools
+import logging
 from typing import Mapping, Optional
 
 import torch
@@ -23,7 +37,13 @@ from torch import nn
 
 from .device import resolve_device
 from .diffusion import InDIProcess, JointInDIProcess
+from .diffusion.deepcache import (cached_indi_inference, cached_joint_indi_inference,
+                                  make_cached_denoisers)
+from .diffusion.parallel_sampling import (indi_inference_sliding_window,
+                                          joint_indi_inference_sliding_window)
 from .models import UNet, apply_unet
+
+logger = logging.getLogger("base")
 
 
 class InDINet(nn.Module):
@@ -128,6 +148,49 @@ class SplittingModel:
         self.nets = nets
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.t_float_start = 0.5 if self.which == "joint_indi" else 1.0
+        dc_opt = opt["model"].get("deepcache") or {}
+        self.set_deepcache(dc_opt.get("interval"), dc_opt.get("depth") or 1)
+        sw_opt = opt["model"].get("sliding_window") or {}
+        tau = sw_opt.get("tau")
+        self.set_sliding_window(sw_opt.get("window"), 0.1 if tau is None else tau)
+        self.last_sliding_sweeps = None
+        self._warned_continuous = set()
+
+    def set_deepcache(self, interval, depth: int = 1):
+        """DeepCache serving: the full UNet every `interval`-th step ('auto':
+        from the chain length, `dc_interval`), split at `depth`; None or 0
+        restores the exact chain."""
+        if interval:
+            self.deepcache = (interval if interval == "auto" else int(interval), int(depth))
+        else:
+            self.deepcache = None
+
+    def set_sliding_window(self, window, tau: float = 0.1):
+        """Sliding-window serving: `window` steps a sweep, advancing past
+        steps that moved by at most tau·σ² (0: the exact chain); None or 0
+        restores the exact chain."""
+        self.sliding_window = (int(window), float(tau)) if window else None
+
+    def dc_interval(self, T: int) -> int:
+        """The refresh interval of a T-step chain: 'auto' is
+        clamp(round(0.4·T), 1, 5), as JAX's `_dc_interval` resolves it."""
+        iv = self.deepcache[0]
+        return max(1, min(5, round(0.4 * T))) if iv == "auto" else iv
+
+    def _accelerator(self, continuous: bool) -> Optional[str]:
+        """'deepcache', 'sliding_window' or None (the exact chain) for a call."""
+        on = [name for name in ("deepcache", "sliding_window") if getattr(self, name)]
+        if on and continuous:
+            for name in set(on) - self._warned_continuous:
+                logger.warning("%s ignores continuous=True sampling; running the exact chain "
+                               "for trajectory requests", name)
+                self._warned_continuous.add(name)
+            return None
+        if len(on) > 1:
+            raise ValueError("model.sliding_window is mutually exclusive with model.deepcache "
+                             "(different chain semantics): unset one (set_deepcache(None) / "
+                             "set_sliding_window(None))")
+        return on[0] if on else None
 
     def unets(self):
         if self.which == "joint_indi":
@@ -148,13 +211,32 @@ class SplittingModel:
         NHWC tensor on the model's device (2 channels for joint_indi), or
         with `continuous` the trajectory (n_frames, B, H, W, C). The nets
         serve in eval mode (no dropout), as JAX's deterministic forward, and
-        get their mode back after."""
+        get their mode back after. With DeepCache on, `fused` is not read.
+        Raises ValueError when DeepCache and the sliding window are both on."""
         x = torch.as_tensor(x_nhwc, dtype=torch.float32).to(self.device)
         t0 = self.t_float_start if t_float_start is None else t_float_start
         n = self.process.val_num_timesteps if num_timesteps is None else num_timesteps
+        accelerator = self._accelerator(continuous)
+        joint = self.which == "joint_indi"
         was_training = self.nets.training
         self.nets.eval()
         try:
+            if accelerator == "deepcache":
+                appliers = [make_cached_denoisers(net, self.deepcache[1])
+                            for net in self.unets()]
+                kw = dict(interval=self.dc_interval(n), num_timesteps=n, t_float_start=t0,
+                          generator=self.generator)
+                if joint:
+                    return cached_joint_indi_inference(self.process, x, *appliers, **kw)
+                return cached_indi_inference(self.process, x, *appliers[0], **kw)
+            if accelerator == "sliding_window":
+                window, tau = self.sliding_window
+                sampler = (joint_indi_inference_sliding_window if joint
+                           else indi_inference_sliding_window)
+                out, self.last_sliding_sweeps = sampler(
+                    self.process, *self.denoise_fns(fused), x, n, t0, window, tau,
+                    generator=self.generator)
+                return out
             return self.process.inference(*self.denoise_fns(fused), x, n, t0,
                                           generator=self.generator, continuous=continuous)
         finally:

@@ -4,7 +4,7 @@ Counterpart: the repository's top-level split.py (`get_datasets`,
 `unnormalize_for_psnr`, `run_validation`, `main`):
 
   python -m diffsplitting_tpu_torch.split -c configs/splitting_hagen_indi_joint.json \\
-      [-p train|val] [-debug] [-rootdir DIR] [-enable_wandb] [--device cpu]
+      [-p train|val] [-debug] [-rootdir DIR] [-enable_wandb] [--device cpu] [--check_data]
 
 Train: iterate to `train.n_iter`; log every `print_freq` (the only place the
 host reads the step's logs back from the device); every `val_freq` switch to
@@ -18,6 +18,8 @@ Val: PSNR and SSIM over the whole val set, with PNG dumps.
 
 The device is the card unless `--device` says otherwise; without CUDA the
 CLI raises unless `--device cpu` is given. `-gpu` is accepted and ignored.
+`--check_data` only validates the data layout (`data/check.py`) and exits 0
+or 1, as JAX's split.py does.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 
 from . import config as Logger
 from .data import SplitDataset, SplitDatasetTiledPred, create_dataloader
+from .data.check import run_check
 from .data.device_pool import DevicePatchPool
 from .data.split_dataset import DataLocation
 from .device import resolve_device
@@ -301,8 +304,14 @@ def main(argv: Optional[list] = None) -> dict:
     parser.add_argument("-log_eval", action="store_true")
     parser.add_argument("-rootdir", type=str, default=None)
     parser.add_argument("--device", default=None, help="default: cuda")
+    parser.add_argument("--check_data", action="store_true",
+                        help="validate the config's Hagen TIFF layout, print the parity-run "
+                             "commands and exit 0 or 1 (no training, no experiment dir)")
     args = parser.parse_args(argv)
 
+    if args.check_data:
+        raise SystemExit(0 if run_check(args.config, Logger.dict_to_nonedict(
+            Logger.load_json(args.config))) else 1)
     device = resolve_device(args.device)
     # the splitting configs compute in float32, as the JAX package does;
     # cuDNN would otherwise run the convolutions in TF32

@@ -31,7 +31,10 @@ weights are read.
 
 Serving (`test`, `inference`, `get_current_visuals`): the reverse process on
 the fed input through `SplittingModel.test`, with the trajectory when
-`continuous`; visuals are NHWC numpy, as JAX gives them.
+`continuous`; visuals are NHWC numpy, as JAX gives them. DeepCache and the
+sliding window switch as in JAX: the config keys `model.deepcache` and
+`model.sliding_window`, or `set_deepcache` / `set_sliding_window`; the EMA
+nets, when on, serve through them too.
 
 Not ported: `remat`, compute dtypes other than float32, sharding, and the
 ddpm/sr3 families.
@@ -206,6 +209,19 @@ class DiffusionModel:
 
     def _inference_nets(self):
         return self.ema_nets if self.use_ema else self.nets
+
+    def set_deepcache(self, interval, depth: int = 1):
+        """DeepCache serving for `test` (`SplittingModel.set_deepcache`)."""
+        self._server.set_deepcache(interval, depth)
+
+    def set_sliding_window(self, window, tau: float = 0.1):
+        """Sliding-window serving for `test` (`SplittingModel.set_sliding_window`)."""
+        self._server.set_sliding_window(window, tau)
+
+    @property
+    def last_sliding_sweeps(self) -> Optional[int]:
+        """The sweeps of the last sliding-window `test`."""
+        return self._server.last_sliding_sweeps
 
     def test(self, continuous: bool = False, t_float_start: Optional[float] = None,
              fused: Optional[bool] = None):

@@ -168,9 +168,19 @@ def test_augment_equal_jax():
     assert all(np.array_equal(a, b) for a, b in zip(augment(imgs), imgs))
 
 
-def test_cifar10_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_data("cifar10", DataLocation(directory="unused"))
+def test_cifar10_is_not_ported(tmp_path):
+    """Named for the refusal it held before CIFAR-10 was ported; it now holds
+    `load_data("cifar10", ...)` to JAX's channel dict on synthetic pickles
+    (tests/test_torch_port_cifar10_check.py holds the rest)."""
+    from diffsplitting_tpu.data.split_dataset import load_data as jax_load_data
+    from tests.test_torch_port_cifar10_check import write_cifar
+
+    d = write_cifar(tmp_path / "cifar", n_batches=1)
+    got = load_data("cifar10", DataLocation(directory=d))
+    want = jax_load_data("cifar10", JaxLoc(directory=d))
+    assert sorted(got) == sorted(want) == [0, 1]
+    for c in want:
+        np.testing.assert_array_equal(got[c], want[c])
 
 
 def pool_of(tiffs, batch, **kw):

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports and runs (the fused forward and a train
-step included) with jax and the JAX package blocked, its sources import neither, and its entry points refuse to run
-without CUDA unless the caller asks for the CPU."""
+"""The port stands alone: it imports and runs (the fused forward, a train
+step and the DeepCache and sliding-window chains included) with jax and the
+JAX package blocked, its sources import neither, and its entry points refuse
+to run without CUDA unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -72,6 +73,15 @@ per_sample, consensus = estimate_time_using_PSNR(
     x, model.process.indi1, model.process.indi2, *model.denoise_fns(),
     lambda a: tp(a).detach(), generator=torch.Generator().manual_seed(0))
 assert per_sample.shape == (2,) and 0.0 <= consensus < 1.0
+# the serving accelerators: one cached chain and one windowed chain
+model.set_deepcache(2)
+cached = model.test(x)
+model.set_deepcache(None)
+model.set_sliding_window(2, 0.0)
+windowed = model.test(x)
+assert cached.shape == windowed.shape == (2, 16, 16, 2)
+assert torch.isfinite(cached).all() and torch.isfinite(windowed).all()
+assert model.last_sliding_sweeps == 2 * model.process.val_num_timesteps
 print("OK")
 """
 

@@ -353,7 +353,8 @@ def test_diffusion_train_step_with_dropout_runs(which, kw):
 
 
 @pytest.mark.parametrize("entry", ["time_prediction_training", "evaluate_time_predictor",
-                                   "t_refinement_workflow", "quality_seed_sweep"])
+                                   "t_refinement_workflow", "quality_seed_sweep",
+                                   "eval_joint_deepcache_fidelity", "predict"])
 def test_new_entry_points_need_cuda_unless_cpu_is_asked_for(entry, monkeypatch, tmp_path):
     """Each new CLI resolves its device first: `cuda` by default, which
     raises where CUDA is absent; `--device cpu` is the explicit way out (the
@@ -361,13 +362,16 @@ def test_new_entry_points_need_cuda_unless_cpu_is_asked_for(entry, monkeypatch, 
     import importlib
 
     mod = importlib.import_module("diffsplitting_tpu_torch." + (
-        entry if entry == "time_prediction_training" else "scripts." + entry))
+        entry if entry in ("time_prediction_training", "predict") else "scripts." + entry))
     cfg = "configs/splitting_hagen_time_predictor.json"
+    joint = "configs/splitting_hagen_indi_joint.json"
     argv = {"time_prediction_training": ["--config", cfg],
             "evaluate_time_predictor": ["-c", cfg, "--resume", "missing"],
-            "t_refinement_workflow": ["-c", "configs/splitting_hagen_indi_joint.json",
-                                      "--resume", "missing"],
-            "quality_seed_sweep": ["--workdir", str(tmp_path / "sweep")]}[entry]
+            "t_refinement_workflow": ["-c", joint, "--resume", "missing"],
+            "quality_seed_sweep": ["--workdir", str(tmp_path / "sweep")],
+            "eval_joint_deepcache_fidelity": ["--workdir", str(tmp_path / "missing")],
+            "predict": ["-c", joint, "--weights", "missing", "--input", "missing", "--out",
+                        str(tmp_path / "out"), "--deepcache", "auto"]}[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main(argv)
