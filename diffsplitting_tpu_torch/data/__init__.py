@@ -26,6 +26,23 @@ def create_dataloader(dataset, dataset_opt, phase):
     raise NotImplementedError(f"Dataloader [{phase}] is not found.")
 
 
+def create_dataset(dataset_opt, phase):
+    """The SR dataset of a config's `datasets.<phase>` section (mode 'LRHR'
+    also returns the LR image). Counterpart:
+    diffsplitting_tpu/data/__init__.py `create_dataset`."""
+    from .lrhr_dataset import LRHRDataset
+
+    return LRHRDataset(
+        dataroot=dataset_opt["dataroot"],
+        datatype=dataset_opt["datatype"],
+        l_resolution=dataset_opt["l_resolution"],
+        r_resolution=dataset_opt["r_resolution"],
+        split=phase,
+        data_len=dataset_opt["data_len"],
+        need_LR=(dataset_opt["mode"] == "LRHR"),
+    )
+
+
 __all__ = [
     "DataLocation",
     "NumpyLoader",
@@ -36,6 +53,7 @@ __all__ = [
     "TimePredictorDataset",
     "compute_input_normalization_dict",
     "create_dataloader",
+    "create_dataset",
     "extract_tiles",
     "load_data",
     "predict_tiled",

@@ -31,7 +31,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .common import capture_plan, make_loss_fn
+from .common import capture_plan, make_loss_fn, noise_source
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -202,19 +202,3 @@ def _f32(v, like):
     if np.ndim(v) == 0:
         return float(v)
     return torch.from_numpy(np.asarray(v, np.float32)).to(like.device)
-
-
-def noise_source(x, N: int, generator: Optional[torch.Generator] = None,
-                 noise: Optional[Sequence[torch.Tensor]] = None) -> Callable[[int], torch.Tensor]:
-    """draw(i): the i-th standard-normal draw of x's shape of an N-step chain
-    (0 the initial, i ≥ 1 step i − 1's), from `generator` in call order or
-    from the N + 1 injected tensors."""
-    if noise is not None and len(noise) != N + 1:
-        raise ValueError(f"need {N + 1} injected noise tensors, got {len(noise)}")
-
-    def draw(i):
-        if noise is not None:
-            return noise[i].to(device=x.device, dtype=x.dtype)
-        return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
-
-    return draw

@@ -1,8 +1,9 @@
 """UNet building blocks.
 
-Counterpart: diffsplitting_tpu/models/blocks.py (TimeEmbedding, Block,
-ResnetBlock for cond_type 'time' and 'none', SelfAttention,
-ResnetBlockWithAttn, Downsample, Upsample). Submodule names follow the
+Counterpart: diffsplitting_tpu/models/blocks.py (TimeEmbedding,
+PositionalEncoding, FeatureWiseAffine, Block, ResnetBlock for cond_type
+'time', 'noise_level' and 'none', SelfAttention, ResnetBlockWithAttn,
+Downsample, Upsample). Submodule names follow the
 reference torch naming that utils/torch_export.py emits, so reference
 `*_gen.pth` files and exported JAX weights load with strict=True.
 
@@ -51,6 +52,42 @@ class TimeEmbedding(nn.Module):
     def forward(self, t):
         args = t.reshape(-1, 1).float() * self.inv_freq[None, :]
         return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+class PositionalEncoding(nn.Module):
+    """SR3's encoding of a (B,) continuous noise level -> (B, dim): sin and
+    cos of level·10000^(−k/(dim/2)), k < dim/2. No buffer, as in the
+    reference (`noise_level_mlp.0`)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, noise_level):
+        count = self.dim // 2
+        step = torch.arange(count, dtype=torch.float32, device=noise_level.device) / count
+        args = noise_level.reshape(-1, 1).float() * torch.exp(-math.log(1e4) * step[None, :])
+        return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+class FeatureWiseAffine(nn.Module):
+    """SR3's FiLM of a noise embedding: a channel bias Linear(e), or with
+    `use_affine_level` the scale 1 + γ and the bias β of (γ, β) = Linear(e)
+    split in halves. The linear is `noise_func.0`, as in the reference."""
+
+    def __init__(self, in_channels: int, out_channels: int, use_affine_level: bool = False):
+        super().__init__()
+        self.use_affine_level = use_affine_level
+        self.noise_func = nn.Sequential(
+            nn.Linear(in_channels, out_channels * (2 if use_affine_level else 1)))
+
+    def forward(self, noise_embed):
+        """(scale or None, bias), each (B, C): features' = features·scale + bias."""
+        h = self.noise_func(noise_embed)
+        if self.use_affine_level:
+            gamma, beta = h.chunk(2, dim=-1)
+            return 1 + gamma, beta
+        return None, h
 
 
 class GroupNormSwish(nn.Module):
@@ -120,25 +157,41 @@ class Block(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """Two Blocks, the dropout in the second; cond_type 'time' adds
-    Linear(swish(t)) as a channel bias after block1; a 1×1 `res_conv` when the
-    widths differ."""
+    """Two Blocks, the dropout in the second, the conditioning after block1:
+    cond_type 'time' adds Linear(swish(t)) as a channel bias (`mlp.1`),
+    'noise_level' applies `FeatureWiseAffine` to t, with no swish
+    (`noise_func`); a 1×1 `res_conv` when the widths differ."""
 
     def __init__(self, dim: int, dim_out: int, time_dim, norm_groups: int,
-                 cond_type: str = "time", dropout: float = 0.0):
+                 cond_type: str = "time", dropout: float = 0.0,
+                 use_affine_level: bool = False):
         super().__init__()
-        if cond_type not in ("time", "none"):
-            raise ValueError(f"cond_type {cond_type!r} is not ported")
+        if cond_type not in ("time", "noise_level", "none"):
+            raise ValueError(f"cond_type {cond_type!r}")
         self.mlp = (nn.Sequential(Swish(), nn.Linear(time_dim, dim_out))
                     if cond_type == "time" else None)
+        self.noise_func = (FeatureWiseAffine(time_dim, dim_out, use_affine_level)
+                           if cond_type == "noise_level" else None)
         self.block1 = Block(dim, dim_out, norm_groups)
         self.block2 = Block(dim_out, dim_out, norm_groups, dropout)
         self.res_conv = nn.Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
+    def film(self, time_emb):
+        """(scale or None, bias or None), each (B, C): the conditioning as an
+        affine of block1's output, h' = h·scale + bias."""
+        if self.mlp is not None:
+            return None, self.mlp(time_emb)
+        if self.noise_func is not None:
+            return self.noise_func(time_emb)
+        return None, None
+
     def forward(self, x, time_emb=None):
         h = self.block1(x)
-        if self.mlp is not None:
-            h = h + self.mlp(time_emb)[:, :, None, None]
+        scale, bias = self.film(time_emb)
+        if scale is not None:
+            h = scale[:, :, None, None] * h
+        if bias is not None:
+            h = h + bias[:, :, None, None]
         h = self.block2(h)
         return h + self.res_conv(x)
 
@@ -170,9 +223,11 @@ class SelfAttention(nn.Module):
 
 class ResnetBlockWithAttn(nn.Module):
     def __init__(self, dim: int, dim_out: int, time_dim, norm_groups: int,
-                 cond_type: str = "time", with_attn: bool = False, dropout: float = 0.0):
+                 cond_type: str = "time", with_attn: bool = False, dropout: float = 0.0,
+                 use_affine_level: bool = False):
         super().__init__()
-        self.res_block = ResnetBlock(dim, dim_out, time_dim, norm_groups, cond_type, dropout)
+        self.res_block = ResnetBlock(dim, dim_out, time_dim, norm_groups, cond_type, dropout,
+                                     use_affine_level)
         self.attn = SelfAttention(dim_out, norm_groups) if with_attn else None
 
     def forward(self, x, time_emb=None):

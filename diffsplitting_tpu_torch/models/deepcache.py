@@ -77,7 +77,7 @@ class CachedUNet:
         if x.shape[-1] != net.in_channel:
             raise ValueError(f"expected {net.in_channel} input channels, got {x.shape[-1]}")
         h = x.float().permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        t = net.time_mlp(time) if net.time_mlp is not None else None
+        t = net.embed(time)
 
         def run(layers, h, skips, push):
             for layer in layers:

@@ -6,8 +6,11 @@ place from the module, as a chain of fused conv+GroupNorm convolutions
 (ops/conv_gn.py): every ResnetBlock is two conv sites. No
 normalized tensor is written; each conv's epilogue emits the per-(B, C) sums
 and sums of squares that the next GroupNorm folds into its prologue
-(`fold_gn_affine`); the time bias of a ResnetBlock is absorbed into the
-carried statistics and the next conv's prologue (`st_add_channel_affine`);
+(`fold_gn_affine`); the conditioning of a ResnetBlock (the time bias, or
+SR3's noise-level FiLM: a bias from `FeatureWiseAffine`'s linear with no
+swish, or the scale 1 + γ and bias β with `use_affine_level`) is absorbed
+into the carried statistics and the next conv's prologue
+(`st_add_channel_affine`);
 the residual is added in the conv's epilogue.
 
 Stem and downsampling convs run through `F.conv2d` with `channel_stats`, as
@@ -183,8 +186,9 @@ def resnet_block(st: ST, layer: ResnetBlockWithAttn, t) -> ST:
     groups = b1[0].num_groups
     h = gn_conv(st, b1[0].weight, b1[0].bias, groups, _hwio(b1[3]), b1[3].bias,
                 residual=None)
-    if rb.mlp is not None:
-        h = st_add_channel_affine(h, bias=rb.mlp(t).float())
+    if t is not None:
+        scale, bias = rb.film(t)
+        h = st_add_channel_affine(h, bias=bias, scale=scale)
     bias2, w_skip = b2[3].bias, None
     if isinstance(rb.res_conv, nn.Conv2d):
         w_skip = rb.res_conv.weight[:, :, 0, 0].t()  # (Cin, Cout) view
@@ -218,11 +222,11 @@ def rb_with_attn(st: ST, layer: ResnetBlockWithAttn, t) -> ST:
 @torch.no_grad()
 def fused_unet_forward(unet, x, time=None):
     """Inference forward of `models.unet.UNet` through fused conv+GroupNorm
-    chaining. x: (B, H, W, in_channel); time: (B,) for cond_type 'time'.
+    chaining. x: (B, H, W, in_channel); time: (B,) step or noise level.
     Returns (B, H, W, out_channel) f32, as `unet(x, time)` does."""
     if x.shape[-1] != unet.in_channel:
         raise ValueError(f"expected {unet.in_channel} input channels, got {x.shape[-1]}")
-    t = unet.time_mlp(time) if unet.time_mlp is not None else None
+    t = unet.embed(time)
 
     h = st_from(_conv_nhwc(unet.downs[0], x.float().contiguous()))
     feats = [h]

@@ -1,4 +1,5 @@
-"""The diffusion UNet, cond_type 'time' and 'none'.
+"""The diffusion UNet, cond_type 'time' (DDPM, InDI), 'noise_level' (SR3) and
+'none' (the time predictor's backbone).
 
 Counterpart: diffsplitting_tpu/models/unet.py. The topology is the same:
 
@@ -10,6 +11,13 @@ Counterpart: diffsplitting_tpu/models/unet.py. The topology is the same:
   * decoder: per reversed stage `res_blocks + 1` ResnetBlocks, each taking
     one skip by channel concat, then Upsample except for the outermost stage;
   * head: Block to out_channel.
+
+Conditioning: 'time' embeds t sinusoidally (`time_mlp.0`), 'noise_level'
+embeds the continuous √ᾱ with `PositionalEncoding` (`noise_level_mlp.0`);
+both then run Linear(4×) → Swish → Linear (`.1`, `.3`), and each ResnetBlock
+injects the result after its first Block: a channel bias of Linear(swish(t))
+('time'), or `FeatureWiseAffine` ('noise_level'; a bias, or a scale and a
+bias with `use_affine_level`).
 
 `dropout` goes to the second Block of every ResnetBlock (the head Block has
 none), as in JAX; it acts in `train()` mode only (`blocks.Dropout`).
@@ -28,6 +36,7 @@ from torch import nn
 from .blocks import (
     Block,
     Downsample,
+    PositionalEncoding,
     ResnetBlockWithAttn,
     Swish,
     TimeEmbedding,
@@ -48,27 +57,28 @@ class UNet(nn.Module):
         image_size: int = 128,
         cond_type: str = "time",
         dropout: float = 0.0,
+        use_affine_level: bool = False,
     ):
         super().__init__()
-        if cond_type == "time":
-            time_dim = inner_channel
-            self.time_mlp = nn.Sequential(
-                TimeEmbedding(inner_channel),
-                nn.Linear(inner_channel, inner_channel * 4),
-                Swish(),
-                nn.Linear(inner_channel * 4, inner_channel),
-            )
-        elif cond_type == "none":
-            time_dim = None
-            self.time_mlp = None
-        else:
-            raise ValueError(f"cond_type {cond_type!r} is not ported")
+        if cond_type not in ("time", "noise_level", "none"):
+            raise ValueError(f"cond_type {cond_type!r}")
+
+        def mlp(embedding):
+            return nn.Sequential(embedding, nn.Linear(inner_channel, inner_channel * 4), Swish(),
+                                 nn.Linear(inner_channel * 4, inner_channel))
+
+        self.time_mlp = mlp(TimeEmbedding(inner_channel)) if cond_type == "time" else None
+        self.noise_level_mlp = (mlp(PositionalEncoding(inner_channel))
+                                if cond_type == "noise_level" else None)
+        time_dim = None if cond_type == "none" else inner_channel
+        self.cond_type = cond_type
         self.in_channel = in_channel
         self.image_size = image_size
 
         def rb(dim, dim_out, with_attn):
             return ResnetBlockWithAttn(dim, dim_out, time_dim, norm_groups, cond_type,
-                                       with_attn=with_attn, dropout=dropout)
+                                       with_attn=with_attn, dropout=dropout,
+                                       use_affine_level=use_affine_level)
 
         num_mults = len(channel_mults)
         now_res = image_size
@@ -106,12 +116,19 @@ class UNet(nn.Module):
 
         self.final_conv = Block(pre, out_channel, norm_groups)
 
+    def embed(self, time):
+        """The (B, inner_channel) conditioning of a (B,) step or noise level,
+        or None for cond_type 'none'."""
+        mlp = self.time_mlp if self.time_mlp is not None else self.noise_level_mlp
+        return mlp(time) if mlp is not None else None
+
     def forward(self, x, time=None):
-        """x: (B, H, W, in_channel); time: (B,) -> (B, H, W, out_channel) f32."""
+        """x: (B, H, W, in_channel); time: (B,) step or noise level ->
+        (B, H, W, out_channel) f32."""
         if x.shape[-1] != self.in_channel:
             raise ValueError(f"expected {self.in_channel} input channels, got {x.shape[-1]}")
         h = x.float().permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        t = self.time_mlp(time) if self.time_mlp is not None else None
+        t = self.embed(time)
 
         feats = []
         for layer in self.downs:

@@ -1,7 +1,9 @@
-"""Serving surface for the splitting models (indi, joint_indi).
+"""Serving surface for the splitting models (indi, joint_indi), and the
+config -> process and nets factory of every family.
 
 Counterparts: diffsplitting_tpu/train/factory.py `define_generator` (config ->
-process and nets) and the serving part of
+process and nets, ddpm and sr3 included; their serving is the trainer's
+`test` / `sample`, train/trainer.py) and the serving part of
 diffsplitting_tpu/train/trainer.py `DiffusionModel` (`test`). The nets are
 held in the reference's diffusion-wrapper layout (`denoise_fn.*`, or
 `indi1.denoise_fn.*` / `indi2.denoise_fn.*` plus three scalars), so one
@@ -36,7 +38,7 @@ import torch
 from torch import nn
 
 from .device import resolve_device
-from .diffusion import InDIProcess, JointInDIProcess
+from .diffusion import DDPMProcess, InDIProcess, JointInDIProcess, SR3Process
 from .diffusion.deepcache import (cached_indi_inference, cached_joint_indi_inference,
                                   make_cached_denoisers)
 from .diffusion.parallel_sampling import (indi_inference_sliding_window,
@@ -47,7 +49,8 @@ logger = logging.getLogger("base")
 
 
 class InDINet(nn.Module):
-    """The reference InDI wrapper's parameters: `denoise_fn.*`."""
+    """The reference one-UNet wrapper's parameters: `denoise_fn.*` (indi,
+    ddpm, sr3; the ddpm / sr3 schedule buffers are not held)."""
 
     def __init__(self, unet: UNet):
         super().__init__()
@@ -67,7 +70,11 @@ class JointInDINets(nn.Module):
         self.scale_param = nn.Parameter(torch.ones(()))
 
 
-def unet_kwargs(model_opt: Mapping) -> dict:
+def unet_kwargs(model_opt: Mapping, cond_type: str = "time",
+                use_affine_level: bool = False) -> dict:
+    """The UNet of a config's `model` section, conditioned by `cond_type`
+    ('time' for ddpm / indi / joint_indi, 'noise_level' for sr3). The JAX
+    factory leaves `use_affine_level` at the module's default, False."""
     unet = model_opt["unet"]
     return dict(
         in_channel=unet["in_channel"],
@@ -78,20 +85,39 @@ def unet_kwargs(model_opt: Mapping) -> dict:
         attn_res=tuple(unet.get("attn_res") or ()),
         res_blocks=unet["res_blocks"],
         image_size=model_opt["diffusion"]["image_size"],
-        cond_type="time",
+        cond_type=cond_type,
         dropout=float(unet.get("dropout") or 0.0),
+        use_affine_level=use_affine_level,
     )
 
 
-def define_generator(opt: Mapping):
-    """Config -> (process, nets module) for indi and joint_indi: the
-    process carries the train T (`num_timesteps`) and the serving N
-    (`val_num_timesteps`), the loss and the t-sampling strategy."""
-    model_opt = opt["model"]
-    which = model_opt["which_model_G"]
+def check_compute_dtype(model_opt: Mapping) -> None:
+    """Raise on a `compute_dtype` other than float32: the port computes in
+    float32 (bfloat16 is ROADMAP item 1e, part 2)."""
     if model_opt.get("compute_dtype") not in (None, "float32"):
         raise NotImplementedError(f"compute_dtype={model_opt['compute_dtype']!r} is not ported; "
                                   "the port computes in float32")
+
+
+def define_generator(opt: Mapping):
+    """Config -> (process, nets module). ddpm (cond_type 'time') and sr3
+    ('noise_level'): the process carries the image size, channels, loss
+    (`loss_type`, default 'l1') and conditioning; its schedule is the
+    trainer's. indi and joint_indi: the process carries the train T
+    (`num_timesteps`) and the serving N (`val_num_timesteps`), the loss and
+    the t-sampling strategy."""
+    model_opt = opt["model"]
+    which = model_opt["which_model_G"]
+    check_compute_dtype(model_opt)
+    if which in ("ddpm", "sr3"):
+        diffusion_opt = model_opt["diffusion"]
+        cls, cond_type = (DDPMProcess, "time") if which == "ddpm" else (SR3Process, "noise_level")
+        process = cls(image_size=int(diffusion_opt["image_size"]),
+                      channels=int(diffusion_opt["channels"]),
+                      loss_type=model_opt.get("loss_type") or "l1",
+                      lr_reduction=model_opt.get("lr_reduction"),
+                      conditional=bool(diffusion_opt["conditional"]))
+        return process, InDINet(UNet(**unet_kwargs(model_opt, cond_type)))
     indi_opt = model_opt.get("indi") or {}
     sched = model_opt["beta_schedule"]
     kw = dict(

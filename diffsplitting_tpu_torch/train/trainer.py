@@ -1,8 +1,8 @@
-"""The train step of the splitting models (indi, joint_indi).
+"""The train step and serving of every family (indi, joint_indi, ddpm, sr3).
 
-Counterpart: the training half of diffsplitting_tpu/train/trainer.py
-`DiffusionModel` (construction, `set_new_noise_schedule`, `feed_data`,
-`optimize_parameters`, `get_current_log`, `test`) for indi and joint_indi.
+Counterpart: diffsplitting_tpu/train/trainer.py `DiffusionModel`
+(construction, `set_new_noise_schedule`, `feed_data`, `optimize_parameters`,
+`get_current_log`, `test`, `sample`, `get_current_visuals`).
 
 One step: the process's `p_losses` through the UNet's own forward
 (`net(x, t)`, whatever DSP_FUSED says: the JAX package trains through
@@ -14,9 +14,12 @@ then, on an update: clipping, Adam with optax's defaults (betas 0.9 and
 the EMA of every parameter on every micro-step (exact tracking while the step
 is below `step_start_ema`, `ema_decay` after).
 
-t and the noise come from one device `torch.Generator` seeded by `seed`;
-`optimize_parameters(draws=...)` injects them instead, which the parity tests
-use to replay the JAX draws. With `unet.dropout` > 0 the train forward drops
+t and the noise (and sr3's γ) come from one device `torch.Generator` seeded
+by `seed`; `optimize_parameters(draws=...)` injects them instead, which the
+parity tests use to replay the JAX draws. ddpm and sr3 train through their
+process's `p_losses` on the schedule of the current phase
+(`set_new_noise_schedule` builds it, as JAX rebuilds its schedule pytree).
+With `unet.dropout` > 0 the train forward drops
 out after the second GroupNorm+Swish of each ResnetBlock, as the JAX train
 forward does (`deterministic=False`), with masks drawn from the same
 generator in the order the forward reaches them; at rate 0 nothing more is
@@ -30,19 +33,27 @@ without `_opt.pth`, loads the weights only; outside the train phase only the
 weights are read.
 
 Serving (`test`, `inference`, `get_current_visuals`): the reverse process on
-the fed input through `SplittingModel.test`, with the trajectory when
-`continuous`; visuals are NHWC numpy, as JAX gives them. DeepCache and the
-sliding window switch as in JAX: the config keys `model.deepcache` and
-`model.sliding_window`, or `set_deepcache` / `set_sliding_window`; the EMA
-nets, when on, serve through them too.
+the fed input, with the trajectory when `continuous`; visuals are NHWC
+numpy, as JAX gives them. indi and joint_indi serve through
+`SplittingModel.test`; DeepCache and the sliding window switch as in JAX:
+the config keys `model.deepcache` and `model.sliding_window`, or
+`set_deepcache` / `set_sliding_window`; the EMA nets, when on, serve
+through them too. Conditional ddpm and sr3 serve `test` through their
+process's `p_sample_loop` over the current phase's schedule, unconditional
+ones `sample`; the nets serve in eval mode (no dropout), through
+`models.apply_unet` (DSP_FUSED=1 or `fused=True`: the fused walk), with
+noise from a generator of their own seeded by `seed`.
 
-Not ported: `remat`, compute dtypes other than float32, sharding, and the
-ddpm/sr3 families.
+Not ported: `remat`, compute dtypes other than float32, sharding, and for
+ddpm / sr3 the accelerated samplers (DDIM, DeepCache, the sliding window,
+W8A8: ROADMAP item 1f), which raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import logging
 from collections import OrderedDict
 from typing import Mapping, Optional
@@ -51,7 +62,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..diffusion import JointInDIProcess
+from ..diffusion import JointInDIProcess, build_ddpm_schedule
+from ..models import apply_unet
 from ..models.blocks import set_dropout_generator
 from ..serving import SplittingModel, define_generator, init_weights
 from ..utils.weights import load_reference_checkpoint
@@ -60,6 +72,17 @@ from .clipping import global_norm, make_clip
 from .optim import make_lr, optax_adam
 
 logger = logging.getLogger("base")
+
+SR_FAMILIES = ("ddpm", "sr3")
+# the config key of each serving accelerator JAX offers ddpm / sr3 -> the
+# field that switches it on
+ACCELERATOR_KEYS = {"deepcache": "interval", "sliding_window": "window", "ddim": "steps",
+                    "quant": "bits"}
+
+
+def not_ported_1f(what: str, which: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} serving of {which} is not ported (ROADMAP item 1f); "
+                               "the port serves the exact chain")
 
 
 def create_model(opt: Mapping, **kwargs) -> "DiffusionModel":
@@ -80,8 +103,12 @@ class DiffusionModel:
         self.phase = opt.get("phase") or "train"
         model_opt = opt["model"]
         self.which = model_opt["which_model_G"]
-        if self.which not in ("indi", "joint_indi"):
-            raise NotImplementedError(f"training which_model_G={self.which!r} is not ported")
+        if self.which not in ("indi", "joint_indi") + SR_FAMILIES:
+            raise NotImplementedError(f"which_model_G={self.which!r} is not recognized")
+        if self.which in SR_FAMILIES:
+            for key, field in ACCELERATOR_KEYS.items():
+                if (model_opt.get(key) or {}).get(field):
+                    raise not_ported_1f(f"model.{key}", self.which)
         if model_opt.get("finetune_norm"):
             # the JAX package trains only the parameters whose path holds
             # 'transformer' and raises when none does; no UNet has one
@@ -127,16 +154,24 @@ class DiffusionModel:
         self.prediction = None
         self.schedule_phase = None
         self.current_T = None
+        self.current_sched = None
         self.set_new_noise_schedule(model_opt["beta_schedule"]["train"], "train")
-        self._server = SplittingModel(opt, self.device, seed, nets=self.nets)
+        if self.which in SR_FAMILIES:
+            self._server = None
+            self.sample_generator = torch.Generator(device=self.device).manual_seed(seed)
+        else:
+            self._server = SplittingModel(opt, self.device, seed, nets=self.nets)
         self.load_network()
 
     def set_new_noise_schedule(self, schedule_opt: Mapping, schedule_phase: str = "train"):
-        """InDI and joint-InDI only track the step count T of the phase."""
+        """Switch to the phase's schedule: ddpm and sr3 build it on the
+        device; InDI and joint-InDI only track its step count T."""
         if self.schedule_phase == schedule_phase:
             return
         self.schedule_phase = schedule_phase
         self.current_T = int(schedule_opt["n_timestep"])
+        if self.which in SR_FAMILIES:
+            self.current_sched = build_ddpm_schedule(schedule_opt).to(self.device)
 
     def feed_data(self, data: Mapping):
         """NHWC numpy arrays or tensors -> float32 tensors on the device (a
@@ -151,6 +186,14 @@ class DiffusionModel:
 
     def _loss(self, draws):
         fns = self.unets()
+        if self.which == "ddpm":
+            t, noise = draws[0] if draws is not None else (None, None)
+            return self.process.p_losses(fns[0], self.current_sched, self.data, self.generator,
+                                         t, noise), {}
+        if self.which == "sr3":
+            t, gamma, noise = draws[0] if draws is not None else (None, None, None)
+            return self.process.p_losses(fns[0], self.current_sched, self.data, self.generator,
+                                         t, gamma, noise), {}
         if self.which == "joint_indi":
             loss, logs = self.process.p_losses(*fns, self.data, self.current_T, self.generator,
                                                draws)
@@ -161,8 +204,8 @@ class DiffusionModel:
 
     def optimize_parameters(self, draws=None):
         """One train step on the fed batch. `draws`, when given, injects each
-        net's (t, noise): [(t, noise)] for indi, [(t1, n1), (t2, n2)] for
-        joint_indi."""
+        net's draws: [(t, noise)] for indi and ddpm, [(t1, n1), (t2, n2)] for
+        joint_indi, [(t, gamma, noise)] for sr3."""
         self.global_step += 1
         for p in self.params:
             p.grad = None
@@ -212,23 +255,52 @@ class DiffusionModel:
 
     def set_deepcache(self, interval, depth: int = 1):
         """DeepCache serving for `test` (`SplittingModel.set_deepcache`)."""
+        if self._server is None:
+            raise not_ported_1f("DeepCache", self.which)
         self._server.set_deepcache(interval, depth)
 
     def set_sliding_window(self, window, tau: float = 0.1):
         """Sliding-window serving for `test` (`SplittingModel.set_sliding_window`)."""
+        if self._server is None:
+            raise not_ported_1f("Sliding-window", self.which)
         self._server.set_sliding_window(window, tau)
+
+    @contextlib.contextmanager
+    def _serving_fn(self, fused: Optional[bool] = None):
+        """The (x, t) denoiser of a ddpm / sr3 chain: the inference nets in
+        eval mode, under inference_mode, their mode restored after."""
+        nets = self._inference_nets()
+        was_training = nets.training
+        nets.eval()
+        try:
+            with torch.inference_mode():
+                yield functools.partial(apply_unet, nets.denoise_fn, fused=fused)
+        finally:
+            nets.train(was_training)
 
     @property
     def last_sliding_sweeps(self) -> Optional[int]:
         """The sweeps of the last sliding-window `test`."""
-        return self._server.last_sliding_sweeps
+        return None if self._server is None else self._server.last_sliding_sweeps
 
     def test(self, continuous: bool = False, t_float_start: Optional[float] = None,
              fused: Optional[bool] = None):
         """The reverse process on the fed batch's 'input', in the current
-        phase's T steps, through `SplittingModel.test`, from the EMA weights
-        when the EMA is on; with `continuous` the trajectory
-        (n_frames, B, H, W, C)."""
+        phase's T steps, from the EMA weights when the EMA is on; with
+        `continuous` the trajectory (n_frames, B, H, W, C). indi / joint_indi
+        through `SplittingModel.test`; conditional ddpm / sr3 through
+        `p_sample_loop`, over the phase's whole schedule."""
+        if self.which in SR_FAMILIES:
+            if t_float_start is not None:
+                raise ValueError(f"{self.which} has no t_float_start: its chain runs the "
+                                 "phase's whole schedule")
+            if not self.process.conditional:
+                raise ValueError(f"an unconditional {self.which} model serves through sample()")
+            with self._serving_fn(fused) as fn:
+                self.prediction = self.process.p_sample_loop(
+                    fn, self.current_sched, self.data["input"], continuous=continuous,
+                    generator=self.sample_generator)
+            return self.prediction
         self._server.nets = self._inference_nets()
         self.prediction = self._server.test(self.data["input"], t_float_start,
                                             self.current_T, fused, continuous)
@@ -237,7 +309,11 @@ class DiffusionModel:
     def inference(self, x_in, continuous: bool = False, num_timesteps: Optional[int] = None,
                   t_float_start: Optional[float] = None):
         """`test` on an explicit NHWC input batch, in `num_timesteps` steps
-        when given (else the current phase's T)."""
+        when given (else the current phase's T). A ddpm / sr3 chain runs the
+        phase's schedule: set another through `set_new_noise_schedule`."""
+        if num_timesteps is not None and self.which in SR_FAMILIES:
+            raise ValueError(f"{self.which} takes its steps from the noise schedule, "
+                             "not num_timesteps: use set_new_noise_schedule")
         self.feed_data({"input": x_in})
         if num_timesteps is None:
             return self.test(continuous, t_float_start)
@@ -247,8 +323,23 @@ class DiffusionModel:
         finally:
             self.current_T = old_T
 
-    def get_current_visuals(self) -> OrderedDict:
-        """The last prediction and the fed batch, NHWC numpy."""
+    def sample(self, batch_size: int = 1, continuous: bool = False,
+               fused: Optional[bool] = None):
+        """An unconditional ddpm / sr3 sample of `batch_size` images over the
+        current phase's schedule; with `continuous` the trajectory."""
+        if self.which not in SR_FAMILIES or self.process.conditional:
+            raise ValueError("sample() generates with an unconditional ddpm / sr3 model")
+        with self._serving_fn(fused) as fn:
+            self.prediction = self.process.sample(fn, self.current_sched, batch_size, continuous,
+                                                  generator=self.sample_generator,
+                                                  device=self.device)
+        return self.prediction
+
+    def get_current_visuals(self, sample: bool = False) -> OrderedDict:
+        """The last prediction and the fed batch, NHWC numpy; with `sample`,
+        the last `sample()` alone, as 'SAM'."""
+        if sample:
+            return OrderedDict(SAM=self.prediction.detach().cpu().numpy())
         out = OrderedDict(prediction=self.prediction.detach().cpu().numpy(),
                           input=self.data["input"].cpu().numpy())
         if "target" in self.data:

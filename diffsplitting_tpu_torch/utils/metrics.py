@@ -2,6 +2,8 @@
 
 Counterpart: diffsplitting_tpu/utils/metrics.py, copied (OpenCV writes the
 PNGs and filters for SSIM, as there):
+  * tensor2img: [-1, 1] -> uint8; a 4-D batch becomes a grid of √N images a
+    row with 2-pixel borders (torchvision's make_grid geometry).
   * save_img: multi-channel (2/6-channel) outputs are tiled side by side by
     channel group before writing.
   * calculate_psnr on [0,255]; calculate_ssim with the 11x11 sigma=1.5
@@ -19,6 +21,34 @@ import numpy as np
 
 def _to_numpy(t):
     return np.asarray(t)
+
+
+def _make_grid(batch_hwc: np.ndarray) -> np.ndarray:
+    """(N, H, W, C) -> one image of √N tiles a row on zeros, each inset by
+    p = 2 pixels: ((H + p)·rows + p, (W + p)·cols + p, C)."""
+    padding = 2
+    n, h, w, c = batch_hwc.shape
+    ncols = min(int(math.sqrt(n)) or 1, n)
+    nrows = int(math.ceil(n / ncols))
+    hp, wp = h + padding, w + padding
+    grid = np.zeros((hp * nrows + padding, wp * ncols + padding, c), dtype=batch_hwc.dtype)
+    for i in range(n):
+        r, cc = divmod(i, ncols)
+        y, x = r * hp + padding, cc * wp + padding
+        grid[y: y + h, x: x + w] = batch_hwc[i]
+    return grid
+
+
+def tensor2img(tensor):
+    """NHWC / HWC / HW array in [-1, 1] -> HWC (or HW) image in [0, 255]
+    uint8."""
+    img = np.squeeze(_to_numpy(tensor).astype(np.float32))
+    img = (np.clip(img, -1, 1) + 1) / 2
+    if img.ndim == 4:
+        img = _make_grid(img)
+    elif img.ndim not in (2, 3):
+        raise TypeError(f"Only 4D/3D/2D supported, got ndim={img.ndim}")
+    return (img * 255.0).round().astype(np.uint8)
 
 
 def save_img(img, img_path, mode="RGB"):

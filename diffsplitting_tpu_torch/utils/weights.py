@@ -11,7 +11,11 @@ Layouts: flax Conv HWIO → torch OIHW; flax Dense (in, out) → torch
 (out, in); Block gn_scale/gn_bias → `block.0.weight/bias`.
 
 The state dict is the diffusion wrapper's:
-  * indi — `denoise_fn.<unet keys>`;
+  * indi, ddpm, sr3 — `denoise_fn.<unet keys>` (ddpm's UNet conditions on
+    the step, `time_mlp.*` and `mlp.1`; sr3's on the noise level,
+    `noise_level_mlp.*` and `noise_func.noise_func.0`). The reference's
+    ddpm / sr3 files also hold the 12 schedule buffers; they are recomputed
+    from the config and dropped on load (`SCHEDULE_BUFFERS`);
   * joint_indi — `indi1.denoise_fn.*`, `indi2.denoise_fn.*` and the scalars
     `alpha_param`, `offset_param`, `scale_param`.
 The time predictor's (`time_predictor_state_dict_from_jax`) is the port's
@@ -27,6 +31,14 @@ import numpy as np
 import torch
 
 JOINT_EXTRAS = ("alpha_param", "offset_param", "scale_param")
+# the buffers a reference ddpm / sr3 wrapper registers (set_new_noise_schedule)
+SCHEDULE_BUFFERS = frozenset({
+    "betas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod",
+    "sqrt_one_minus_alphas_cumprod", "log_one_minus_alphas_cumprod",
+    "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod", "posterior_variance",
+    "posterior_log_variance_clipped", "posterior_mean_coef1", "posterior_mean_coef2"})
+# which_model_G -> the cond_type of its UNet
+COND_TYPE = {"indi": "time", "ddpm": "time", "sr3": "noise_level"}
 
 
 def _t(x) -> torch.Tensor:
@@ -56,6 +68,9 @@ def _rbwa(out: Dict, name: str, p: Mapping, cond_type: str) -> None:
     _block(out, f"{name}.res_block.block2", rp["Block_1"])
     if cond_type == "time":
         _dense(out, f"{name}.res_block.mlp.1", rp["Dense_0"])
+    elif cond_type == "noise_level":
+        _dense(out, f"{name}.res_block.noise_func.noise_func.0",
+               rp["FeatureWiseAffine_0"]["Dense_0"])
     if "Conv_0" in rp:  # dim_in != dim_out
         _conv(out, f"{name}.res_block.res_conv", rp["Conv_0"])
     if "SelfAttention_0" in p:
@@ -72,6 +87,9 @@ def unet_state_dict_from_jax(params: Mapping, channel_mults, res_blocks: int,
     if set(params.keys()) == {"params"}:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
+    if cond_type == "noise_level":
+        _dense(out, "noise_level_mlp.1", params["Dense_0"])
+        _dense(out, "noise_level_mlp.3", params["Dense_1"])
     if cond_type == "time":
         _dense(out, "time_mlp.1", params["Dense_0"])
         _dense(out, "time_mlp.3", params["Dense_1"])
@@ -118,9 +136,9 @@ def state_dict_from_jax(which: str, params: Mapping, unet_opt: Mapping) -> Dict[
     `model.unet` section."""
     mults = tuple(unet_opt["channel_multiplier"])
     res_blocks = int(unet_opt["res_blocks"])
-    if which == "indi":
-        return {f"denoise_fn.{k}": v for k, v in
-                unet_state_dict_from_jax(params["net"], mults, res_blocks).items()}
+    if which in COND_TYPE:
+        return {f"denoise_fn.{k}": v for k, v in unet_state_dict_from_jax(
+            params["net"], mults, res_blocks, COND_TYPE[which]).items()}
     if which == "joint_indi":
         sd = {k: _t(params["extra"][k]) for k in JOINT_EXTRAS}
         for role, root in (("net_ch1", "indi1"), ("net_ch2", "indi2")):
@@ -144,14 +162,30 @@ def time_predictor_state_dict_from_jax(params: Mapping, unet_opt: Mapping
     return sd
 
 
+def strip_root(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """A ddpm / sr3 / indi state dict in the port's `denoise_fn.*` layout:
+    DataParallel's `module.` prefix stripped; of a wrapper's keys only the
+    `denoise_fn.*` ones (the schedule buffers dropped); a raw UNet state dict
+    rooted at `denoise_fn.`. JAX's `_strip_root` normalizes the same three
+    layouts (utils/torch_import.py)."""
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    if any(k.startswith("denoise_fn.") for k in sd):
+        return {k: v for k, v in sd.items() if k.startswith("denoise_fn.")}
+    return {f"denoise_fn.{k}": v for k, v in sd.items() if k not in SCHEDULE_BUFFERS}
+
+
 def load_reference_checkpoint(path: str, which: str = "joint_indi") -> Dict[str, torch.Tensor]:
     """Read a `*_gen.pth` in the reference layout (or the JAX package's
-    export) as a CPU state dict: joint_indi by default, or indi."""
+    export) as a CPU state dict: joint_indi by default, or indi, ddpm, sr3
+    (through `strip_root`)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if which == "joint_indi":
         missing = [k for k in JOINT_EXTRAS if k not in sd]
         roots = ("indi1.denoise_fn.", "indi2.denoise_fn.")
     elif which == "indi":
+        missing, roots = [], ("denoise_fn.",)
+    elif which in ("ddpm", "sr3"):
+        sd = strip_root(sd)
         missing, roots = [], ("denoise_fn.",)
     else:
         raise NotImplementedError(f"which_model_G={which!r} is not ported")

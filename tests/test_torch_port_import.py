@@ -1,6 +1,6 @@
 """The port stands alone: it imports and runs (the fused forward, a train
-step and the DeepCache and sliding-window chains included) with jax and the
-JAX package blocked, its sources import neither, and its entry points refuse
+step, the DeepCache and sliding-window chains, and an SR3 forward and chain
+included) with jax and the JAX package blocked, its sources import neither, and its entry points refuse
 to run without CUDA unless the caller asks for the CPU."""
 
 import ast
@@ -82,6 +82,19 @@ windowed = model.test(x)
 assert cached.shape == windowed.shape == (2, 16, 16, 2)
 assert torch.isfinite(cached).all() and torch.isfinite(windowed).all()
 assert model.last_sliding_sweeps == 2 * model.process.val_num_timesteps
+# SR3: the noise-level UNet, one forward and a 2-step chain
+from diffsplitting_tpu_torch.diffusion import SR3Process, build_ddpm_schedule
+from diffsplitting_tpu_torch.models import UNet
+sr3 = UNet(in_channel=6, out_channel=3, inner_channel=8, norm_groups=4, channel_mults=(1, 2),
+           attn_res=(8,), res_blocks=1, image_size=16, cond_type="noise_level").eval()
+cond = torch.randn(1, 16, 16, 3, generator=torch.Generator().manual_seed(2))
+with torch.no_grad():
+    assert sr3(torch.cat([cond, cond], -1), torch.full((1,), 0.5)).shape == (1, 16, 16, 3)
+sched = build_ddpm_schedule({"schedule": "linear", "n_timestep": 2, "linear_start": 1e-6,
+                             "linear_end": 1e-2})
+chain = SR3Process(16).p_sample_loop(sr3, sched, cond, continuous=True,
+                                     generator=torch.Generator().manual_seed(0))
+assert chain.shape == (3, 1, 16, 16, 3) and torch.isfinite(chain).all()
 print("OK")
 """
 

@@ -39,8 +39,11 @@ def cuda():
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
+# the last two: sr_sr3_16_128's 128² maps at C = 64 with 32 groups (2 channels
+# a group) and its widest GroupNorm, C = 1024 (the kernel's limit), at batch 1
 @pytest.mark.parametrize("B,H,C,G", [(2, 64, 16, 16), (2, 32, 48, 16), (1, 16, 96, 16),
-                                     (2, 8, 256, 16), (1, 7, 12, 4)])
+                                     (2, 8, 256, 16), (1, 7, 12, 4), (1, 128, 64, 32),
+                                     (1, 16, 1024, 32)])
 def test_group_norm_swish_kernel(cuda, B, H, C, G):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(B, H, H, C, device=cuda, generator=g) * 2 + 0.5
@@ -162,11 +165,12 @@ def test_attention_kernel_at_any_head_dim(cuda, B, N, heads, D, big):
 # key tile of one or two keys, at 16- and 32-key tiles), 100 and 1023
 # (a key slot of the last tile empty), with 640 and 896 at two N; 1-2 heads
 # as strided views of one qkv tensor, and scores x8 so that the running max
-# moves across key tiles
+# moves across key tiles; sr_sr3_16_128's two sites at its serving batch 1
+# (the 16² maps, N = 256, and the 8² mid block, N = 64, at D = 512)
 WIDE_CASES = ([(2, n, 1 + i % 2, d, bool(i % 2)) for d in (256, 384, 512, 768, 1024)
                for i, n in enumerate((1, 17, 100, 1023))]
               + [(2, 100, 1, 640, True), (1, 1023, 2, 640, False), (1, 17, 2, 896, False),
-                 (2, 1023, 1, 896, True)])
+                 (2, 1023, 1, 896, True), (1, 256, 1, 512, False), (1, 64, 1, 512, False)])
 
 
 @pytest.mark.parametrize("B,N,heads,D,big", WIDE_CASES)
@@ -353,4 +357,30 @@ def test_fused_unet_forward_matches_unfused(cuda):
         want = net(x, t)
     assert FusedConvGN.launches == before + 31  # 14 ResnetBlocks x 2 + 3 upsamples
     assert got.shape == want.shape == (2, 64, 64, 1)
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item() + 1e-4
+
+
+@pytest.mark.parametrize("affine", [False, True], ids=["additive", "affine"])
+def test_noise_level_fused_forward_matches_unfused(cuda, affine):
+    """SR3's noise-level FiLM in the fused walk (a bias, or 1 + γ and β) on
+    the card, at inner 64 (the conv_gn kernel takes the 64- and 128-channel
+    sites) with 32 groups, against the unfused forward."""
+    net = UNet(in_channel=6, out_channel=3, inner_channel=64, norm_groups=32,
+               channel_mults=(1, 2, 4), attn_res=(16,), res_blocks=1, image_size=64,
+               cond_type="noise_level", use_affine_level=affine)
+    init_weights(net, torch.Generator().manual_seed(0))
+    with torch.no_grad():  # non-zero biases, the FiLM's and res_conv's included
+        for p in net.parameters():
+            if p.ndim == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+    net = net.to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(2, 64, 64, 6, device=cuda, generator=g)
+    level = torch.rand(2, device=cuda, generator=g)
+    before = FusedConvGN.launches
+    with torch.no_grad():
+        got = fused_unet_forward(net, x, level)
+        want = net(x, level)
+    assert FusedConvGN.launches > before
+    assert got.shape == want.shape == (2, 64, 64, 3)
     assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item() + 1e-4

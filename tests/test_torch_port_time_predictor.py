@@ -354,7 +354,8 @@ def test_diffusion_train_step_with_dropout_runs(which, kw):
 
 @pytest.mark.parametrize("entry", ["time_prediction_training", "evaluate_time_predictor",
                                    "t_refinement_workflow", "quality_seed_sweep",
-                                   "eval_joint_deepcache_fidelity", "predict"])
+                                   "eval_joint_deepcache_fidelity", "predict", "infer",
+                                   "sample"])
 def test_new_entry_points_need_cuda_unless_cpu_is_asked_for(entry, monkeypatch, tmp_path):
     """Each new CLI resolves its device first: `cuda` by default, which
     raises where CUDA is absent; `--device cpu` is the explicit way out (the
@@ -362,7 +363,8 @@ def test_new_entry_points_need_cuda_unless_cpu_is_asked_for(entry, monkeypatch, 
     import importlib
 
     mod = importlib.import_module("diffsplitting_tpu_torch." + (
-        entry if entry in ("time_prediction_training", "predict") else "scripts." + entry))
+        entry if entry in ("time_prediction_training", "predict", "infer", "sample")
+        else "scripts." + entry))
     cfg = "configs/splitting_hagen_time_predictor.json"
     joint = "configs/splitting_hagen_indi_joint.json"
     argv = {"time_prediction_training": ["--config", cfg],
@@ -371,12 +373,17 @@ def test_new_entry_points_need_cuda_unless_cpu_is_asked_for(entry, monkeypatch, 
             "quality_seed_sweep": ["--workdir", str(tmp_path / "sweep")],
             "eval_joint_deepcache_fidelity": ["--workdir", str(tmp_path / "missing")],
             "predict": ["-c", joint, "--weights", "missing", "--input", "missing", "--out",
-                        str(tmp_path / "out"), "--deepcache", "auto"]}[entry]
+                        str(tmp_path / "out"), "--deepcache", "auto"],
+            "infer": ["-c", "configs/sr_sr3_16_128.json", "-rootdir", str(tmp_path / "sr")],
+            "sample": ["-c", "configs/sample_sr3_128.json", "-rootdir", str(tmp_path / "sr")]
+            }[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main(argv)
     if entry == "quality_seed_sweep":
         assert not (tmp_path / "sweep").exists()  # raised before any run started
+    if entry in ("infer", "sample"):
+        assert not (tmp_path / "sr").exists()  # raised before any directory was made
 
 
 def test_quality_time_predictor_holds_the_jax_protocol(tmp_path):
@@ -414,3 +421,80 @@ def test_seed_sweep_counts_a_collapse(val_psnrs, collapsed):
     from diffsplitting_tpu_torch.scripts.quality_seed_sweep import collapsed as rule
 
     assert rule(val_psnrs) is collapsed
+
+
+def test_classifiers_trained_alike_read_the_workflow_mixtures_alike(tmp_path, tp_tiffs,
+                                                                     monkeypatch, jax_tp):
+    """ROADMAP §3 fault 5 on the CPU. The JAX CLI's training loop (its
+    datasets, loader, loss, `optax.inject_hyperparams(optax.adam)` step and
+    per-epoch `ReduceLROnPlateau`, time_prediction_training.py:93-216, jitted
+    here without its eager sharding and checkpoints) and the port's
+    `start_training`, from one initial draw (JAX's `init`, `jax_tp`, crossed
+    by `time_predictor_state_dict_from_jax`), for the same 3 epochs of 3 steps
+    on the same synthetic frames and batches (the datasets and the loaders'
+    shuffle agree bit for bit), at dropout 0 (the two packages' dropout
+    streams cannot be replayed on each other), give the same t̂ on the
+    t-refinement workflow's mixtures t·ch0 + (1 − t)·ch1 of normalized
+    channels at t = 0.30 ... 0.65: max abs 1e-4 (f32 on both sides, nine
+    Adam steps apart in their sums' order)."""
+    import time_prediction_training as jax_tpt
+
+    from diffsplitting_tpu.config import dict_to_nonedict as jax_nonedict
+    from diffsplitting_tpu.data.loader import NumpyLoader as JaxLoader
+
+    opt = tp_opt(tmp_path, tp_tiffs, tp_tiffs)
+    opt["model"]["unet"]["dropout"] = 0.0
+    epochs, steps, lr = 3, 3, float(opt["train"]["optimizer"]["lr"])
+    jnet, init = jax_tp  # its widths, at any patch (no attention but the mid block's)
+
+    jax_train, _ = jax_tpt.get_datasets(jax_nonedict(json_roundtrip(opt)))
+    tx = optax.inject_hyperparams(optax.adam)(learning_rate=lr)
+
+    @jax.jit
+    def step(p, s, x, y):
+        loss, grads = jax.value_and_grad(
+            lambda q: jnp.mean((jnet.apply({"params": q}, x, deterministic=False) - y) ** 2))(p)
+        updates, s = tx.update(grads, s, p)
+        return optax.apply_updates(p, updates), s, loss
+
+    params, state = init, tx.init(init)
+    plateau = jax_tpt.ReduceLROnPlateau(lr, int(opt["train"]["lr_scheduler_patience"] or 15))
+    loader = JaxLoader(jax_train, batch_size=4, shuffle=True, drop_last=True)
+    for _ in range(epochs):
+        losses = []
+        for bi, (x, y) in enumerate(loader):
+            if bi >= steps:
+                break
+            params, state, loss = step(params, state, jnp.asarray(x), jnp.asarray(y))
+            losses.append(float(loss))
+        state.hyperparams["learning_rate"] = jnp.asarray(plateau.step(float(np.mean(losses))))
+
+    def from_jax_init(opt, seed=0):
+        net = TimePredictor(dropout=0.0, image_size=16, **KW)
+        net.load_state_dict(time_predictor_state_dict_from_jax(
+            jax.tree_util.tree_map(np.asarray, init), UNET_OPT), strict=True)
+        return net
+
+    monkeypatch.setattr(tpt, "build_time_predictor", from_jax_init)
+    net, _ = tpt.start_training(opt, max_epochs=epochs, steps_per_epoch=steps, device="cpu")
+
+    _, val_set = tpt.get_datasets(opt)
+    targets = np.stack([val_set.normalize_target(np.stack(
+        [np.asarray(val_set._data_dict[c][f])[:16, :16] for c in (0, 1)], axis=-1)
+        .astype(np.float32)) for f in range(3)])
+    ts = (0.30, 0.35, 0.40, 0.50, 0.65)
+    mixes = np.concatenate([t * targets[..., :1] + (1 - t) * targets[..., 1:]
+                            for t in ts]).astype(np.float32)
+    want = np.asarray(jax.jit(jnet.apply)({"params": params}, jnp.asarray(mixes)))
+    net.eval()
+    with torch.no_grad():
+        got = net(torch.from_numpy(mixes)).numpy()
+    assert got.shape == want.shape == (15,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    assert np.ptp(want) > 0  # the readings depend on the mixture
+
+
+def json_roundtrip(opt):
+    import json
+
+    return json.loads(json.dumps(opt))
