@@ -18,10 +18,12 @@ configs/splitting_cifar10_indi.json at its own width and patch (32², so
 attention at N = 16 tokens), again with inner_channel 32 (attention at
 D = 256 through the wide tensor-core kernel; the fused walk plans its wide
 conv sites to library ops), and with inner_channel 8 and 8 groups (D = 64,
-the SIMT any-D kernel), unfused and fused, against the port on the CPU. The
-attention kernels at other head dims are also held against their plain
-version and timed beside it and SDPA, each on its route, at D = 16 ... 1024
-and at the SR3 / DDPM configs' own shapes.
+the narrow tensor-core kernel), unfused and fused, against the port on the
+CPU. The attention kernels at other head dims are also held against their
+plain version and timed beside it and SDPA, each on its route, at D = 16 ...
+1024 (D = 192 on the wide kernel's padded slices; N = 4096 at D = 64 and 192,
+the Hagen mid block at inner 8 and 24) and at the SR3 / DDPM configs' own
+shapes.
 
 Then it trains: the joint-InDI train step at full width (patch 512, batch 4,
 the config's) with the kernels against the same step through the plain
@@ -264,51 +266,37 @@ def phase_attention(dev, batches):
 
 # (B, N, D) of attention at head dims other than 128: D = 16, 64 and 256 at
 # N = 16, 100 and 1024; D = 512 at the SR3 attention site at 16² (B = 8, N =
-# 256); D = 1024 at the mid block of sr_sr3_64_512 (B = 2, N = 1024)
+# 256); D = 1024 at the mid block of sr_sr3_64_512 (B = 2, N = 1024); the
+# Hagen patch's mid block (N = 4096) at inner 8 (D = 64) and at inner 24
+# (D = 192, the wide kernel's padded slices, also at N = 1024)
 ANY_D_SHAPES = ([(BATCH, n, d) for d in (16, 64, 256) for n in (16, 100, 1024)]
-                + [(BATCH, 256, 512), (2, 1024, 1024)])
+                + [(BATCH, 256, 512), (2, 1024, 1024), (BATCH, 4096, 64), (BATCH, 1024, 192),
+                   (BATCH, 4096, 192)])
 # the SR3 / DDPM configs' own: sr_sr3_16_128 and sr_ddpm_16_128 at their train
 # batch 4 and their serving batch 1 (the 16² sites and the 8² mid block,
 # D = 512), sample_ddpm_128's 4² mid block at batch 12 (D = 256)
 SR3_SHAPES = [(4, 256, 512), (4, 64, 512), (1, 256, 512), (1, 64, 512), (12, 16, 256)]
 # route of ops.attention.head_dim_route -> its launch count in read_launches()
-ROUTE_COUNTER = {"d128": "attention", "wide": "attention_wide", "simt": "attention_any_d"}
-
-
-def simt_attention(q, k, v, scale):
-    """The SIMT kernel called through its C entry point, at any D it takes
-    (the wrapper routes D = 256 ... 1024 to the wide kernel): to time the two
-    side by side. Not counted as a launch."""
-    import torch
-    from diffsplitting_tpu_torch.kernels.build import check, library
-
-    B, N, H, D = q.shape
-    out = torch.empty((B, N, H, D), device=q.device)
-    check(library().attention_f32_any_d(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                        B, N, H, D, *q.stride()[:3], scale,
-                                        torch.cuda.current_stream().cuda_stream),
-          "attention_f32_any_d")
-    return out
+ROUTE_COUNTER = {"d128": "attention", "wide": "attention_wide", "narrow": "attention_narrow"}
 
 
 def phase_attention_any_d(dev):
     """Attention at head dims other than 128, at ANY_D_SHAPES and SR3_SHAPES,
-    each on its route (the wide tensor-core kernel at D = 256 ... 1024 in
-    steps of 128, the SIMT kernel at other D): against the plain version
-    (two launches must give the same bits), the error of both against f64,
-    and the times of the kernel, the plain version and SDPA through a host
-    loop of calls, with the kernel's and SDPA's device time alone by
-    CUDA-graph replay (the wrapper's host time exceeds a small call's device
-    time); at a wide shape also the SIMT kernel's, at the same D. Returns
-    {(B, N, D): results} and the worst error against the plain version, by
-    route."""
+    each on its route (the wide tensor-core kernel above 128, with a padded
+    last slice where D is not a multiple of 128; the narrow one below):
+    against the plain version (two launches must give the same bits), the
+    error of both against f64, and the times of the kernel, the plain version
+    and SDPA through a host loop of calls, with the kernel's and SDPA's device
+    time alone by CUDA-graph replay (the wrapper's host time exceeds a small
+    call's device time). Returns {(B, N, D): results} and the worst error
+    against the plain version, by route."""
     import torch
     import torch.nn.functional as F
     from diffsplitting_tpu_torch.kernels.variants import device_ms
     from diffsplitting_tpu_torch.ops import attention_reference, fused_attention, head_dim_route
 
     g = torch.Generator(device=dev).manual_seed(10)
-    res, worst = {}, {"wide": 0.0, "simt": 0.0}
+    res, worst = {}, {"wide": 0.0, "narrow": 0.0}
     for B, N, D in ANY_D_SHAPES + SR3_SHAPES:
         route = head_dim_route(D)
         qkv = torch.randn(B, N, 1, 3, D, device=dev, generator=g)
@@ -323,8 +311,8 @@ def phase_attention_any_d(dev):
         torch.cuda.synchronize()
         err = max_err(got, want)
         err64, plain64 = max_err(got, exact), max_err(want, exact)
-        # f32 accuracy on both sides (3xTF32 or f32 FMA); sums over D and N
-        # in another order
+        # f32 accuracy on both sides (3xTF32); sums over D and N in another
+        # order
         tol = 1e-4 * (1 + want.abs().max().item())
         if launched[ROUTE_COUNTER[route]] != 2 or sum(launched[c] for c in
                                                       ROUTE_COUNTER.values()) != 2:
@@ -340,34 +328,23 @@ def phase_attention_any_d(dev):
         qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
         lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 20)
         lib_dev = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
-        simt = ""
-        if route == "wide":
-            simt_err = max_err(simt_attention(q, k, v, scale), want)
-            if not simt_err <= tol:
-                raise AssertionError(f"SIMT attention B={B} N={N} D={D}: max abs err {simt_err}")
-            simt_dev = device_ms(lambda: simt_attention(q, k, v, scale))
-            simt = f"; the SIMT kernel at this D: device time {simt_dev:.4f} ms"
         flops = 4 * B * N * N * D
-        # the wide kernel does each f32 product as three TF32 tensor-core
-        # products (3xTF32); the SIMT kernel runs on the f32 FMA units
-        ops_ms = (3 * flops / TF32_FLOPS_PER_S if route == "wide"
-                  else flops / F32_FLOPS_PER_S) * 1e3
+        # both kernels do each f32 product as three TF32 tensor-core products
+        # (3xTF32); counted at the true D, not the padded one
+        ops_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
         bytes_ms = 4 * B * N * D * 4 / HBM_BYTES_PER_S * 1e3
         bound = max(ops_ms, bytes_ms)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
-        rate = "3xTF32 tensor-core" if route == "wide" else "f32 FMA"
         log(f"attention {route} B={B} N={N} D={D} heads=1: err {err:.3g} (tol {tol:.3g}; against "
             f"f64 {err64:.3g}, the plain version's {plain64:.3g}), two launches bit-identical; "
             f"kernel {ms:.4f} ms (device time {dev_ms:.4f}) plain {plain:.4f} ms SDPA {lib:.4f} "
             f"ms (device time {lib_dev:.4f}; {lib_dev / dev_ms:.2f}x the kernel's) bound "
-            f"{bound:.4f} ms ({by}; {rate} {ops_ms:.4f}, bytes {bytes_ms:.4f}; "
+            f"{bound:.4f} ms ({by}; 3xTF32 tensor-core {ops_ms:.4f}, bytes {bytes_ms:.4f}; "
             f"{bound / dev_ms:.1%} of it by device time, {flops / dev_ms / 1e9:.2f} f32 "
-            f"TFLOP/s){simt}")
+            f"TFLOP/s)")
         res[(B, N, D)] = dict(route=route, ms=ms, device_ms=dev_ms, plain_ms=plain,
                               library_ms=lib, library_device_ms=lib_dev, bound_ms=bound,
                               bound_by=by, max_abs_err=err, err_f64=err64)
-        if route == "wide":
-            res[(B, N, D)]["simt_device_ms"] = simt_dev
         del qkv, q, k, v, got, again, want, exact
         torch.cuda.empty_cache()
     return res, worst
@@ -498,7 +475,7 @@ def phase_cifar10(dev, inner=None, plan=(31, 0), groups=None):
     `inner_channel` set to `inner` and `norm_groups` to `groups` in memory
     (inner 32: D = 256, the wide attention kernel; Cout 256 and Cin up to
     512, sites the conv_gn kernel does not take; inner 8 and 8 groups: D =
-    64, the SIMT attention kernel). `plan` is the (kernel, library) count of
+    64, the narrow attention kernel). `plan` is the (kernel, library) count of
     the fused walk's conv sites a forward, asserted. The launches are checked against the
     config's depth; each kernel is held against its plain version at every
     shape this path gives it, at the serving batch and at the last batch's
@@ -579,7 +556,7 @@ def phase_cifar10(dev, inner=None, plan=(31, 0), groups=None):
     outs = {}
     for fused in (False, True):
         expected = {"group_norm_swish": (1 if fused else gn_per_forward) * forwards,
-                    "attention": 0, "attention_wide": 0, "attention_any_d": 0,
+                    "attention": 0, "attention_wide": 0, "attention_narrow": 0,
                     "conv_gn": plan[0] * forwards if fused else 0,
                     "sites_kernel": plan[0] * forwards if fused else 0,
                     "sites_library": plan[1] * forwards if fused else 0}
@@ -703,7 +680,7 @@ def reset_launches() -> None:
 
     for k in (FusedGroupNormSwish, FusedAttention, FusedConvGN):
         k.launches = 0
-    FusedAttention.launches_wide = FusedAttention.launches_any_d = 0
+    FusedAttention.launches_wide = FusedAttention.launches_narrow = 0
     ConvSitePlan.kernel = ConvSitePlan.library = 0
 
 
@@ -713,7 +690,7 @@ def read_launches() -> dict:
 
     return {"group_norm_swish": FusedGroupNormSwish.launches,
             "attention": FusedAttention.launches, "attention_wide": FusedAttention.launches_wide,
-            "attention_any_d": FusedAttention.launches_any_d, "conv_gn": FusedConvGN.launches,
+            "attention_narrow": FusedAttention.launches_narrow, "conv_gn": FusedConvGN.launches,
             "sites_kernel": ConvSitePlan.kernel, "sites_library": ConvSitePlan.library}
 
 
@@ -967,7 +944,7 @@ def phase_train(dev):
     kern.optimize_parameters(draws)
     torch.cuda.synchronize()
     launches = read_launches()
-    expected = {"group_norm_swish": 58, "attention": 2, "attention_wide": 0, "attention_any_d": 0,
+    expected = {"group_norm_swish": 58, "attention": 2, "attention_wide": 0, "attention_narrow": 0,
                 "conv_gn": 0, "sites_kernel": 0, "sites_library": 0}
     if launches != expected:
         raise AssertionError(f"train step: launches {launches}, expected {expected}")
@@ -1203,7 +1180,7 @@ def phase_train_loop(dev, step_ms: float) -> dict:
             psnrs = run["val_psnrs"]
             if len(psnrs) != 1 or not np.isfinite(psnrs).all():
                 raise AssertionError(f"split run to {iters}: validation PSNRs {psnrs}")
-            want = dict(per_run, attention_wide=0, attention_any_d=0, conv_gn=0,
+            want = dict(per_run, attention_wide=0, attention_narrow=0, conv_gn=0,
                         sites_kernel=0, sites_library=0)
             if got != want:
                 raise AssertionError(f"split run to {iters}: launches {got}, expected {want}")
@@ -1292,7 +1269,7 @@ TP_CONFIG = "configs/splitting_hagen_time_predictor.json"
 TP_WARMUP, TP_TIMED = 3, 10
 TREF_T_TRUE = (0.35, 0.5, 0.65)
 TREF_STEPS, TREF_TRAIN_STEPS = 10, 30
-GN_ATTN_ONLY = {"attention_wide": 0, "attention_any_d": 0, "conv_gn": 0, "sites_kernel": 0,
+GN_ATTN_ONLY = {"attention_wide": 0, "attention_narrow": 0, "conv_gn": 0, "sites_kernel": 0,
                 "sites_library": 0}
 
 
@@ -2308,7 +2285,7 @@ def main() -> int:
     # attention at the mid block's shape, at B=2, the train batch and the
     # serving batch (timed at the last)
     attn, attn_err = phase_attention(dev, (2, TRAIN_BATCH, BATCH))
-    # the wide and SIMT kernels, at head dims of other configs
+    # the wide and narrow kernels, at head dims of other configs
     any_d, any_d_err = phase_attention_any_d(dev)
 
     # conv_gn at every site of one fused forward
@@ -2342,7 +2319,7 @@ def main() -> int:
     # inner 32: attention at D = 256 (the wide kernel), wide conv sites
     # planned to library ops in the fused walk
     wide = phase_cifar10(dev, inner=32, plan=(18, 13))
-    # inner 8, 8 groups: attention at D = 64 (the SIMT kernel)
+    # inner 8, 8 groups: attention at D = 64 (the narrow kernel)
     narrow = phase_cifar10(dev, inner=8, plan=(31, 0), groups=8)
 
     # the slice: joint-InDI tiled prediction at full width, unfused and fused
@@ -2352,7 +2329,7 @@ def main() -> int:
     out, launches, _ = phase_slice(
         model, frames, False,
         {"group_norm_swish": 29 * forwards, "attention": forwards, "attention_wide": 0,
-         "attention_any_d": 0,
+         "attention_narrow": 0,
          "conv_gn": 0, "sites_kernel": 0, "sites_library": 0},
         n_tiles, forwards)
     model.generator.manual_seed(0)
@@ -2371,7 +2348,7 @@ def main() -> int:
     out_fused, fused_launches, _ = phase_slice(
         model, frames, True,
         {"group_norm_swish": forwards, "attention": forwards, "attention_wide": 0,
-         "attention_any_d": 0,
+         "attention_narrow": 0,
          "conv_gn": 31 * forwards, "sites_kernel": 31 * forwards, "sites_library": 0},
         n_tiles, forwards)
     err = max_err(out_fused, out)
@@ -2393,7 +2370,7 @@ def main() -> int:
         window = phase_sliding_window(dev, tref["joint"])
         sr3 = phase_sr3(dev, work)
     wide_shape = (BATCH, 16, 256)  # the mid block of the inner-32 path
-    simt_shape = (BATCH, 16, 64)  # the mid block of the inner-8 path
+    narrow_shape = (BATCH, 16, 64)  # the mid block of the inner-8 path
 
     kernels = [
         dict(name="group_norm_swish", route="cuda",
@@ -2429,15 +2406,19 @@ def main() -> int:
              **{k: any_d[wide_shape][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                   "library_ms", "device_ms")},
              by_shape={"B=%d N=%d D=%d" % key: {k: r[k] for k in (
-                 "device_ms", "library_device_ms", "simt_device_ms", "bound_ms")}
+                 "device_ms", "library_device_ms", "bound_ms")}
                  for key, r in any_d.items() if r["route"] == "wide"}),
-        dict(name="attention_any_d", route="cuda",
+        dict(name="attention_narrow", route="cuda",
              source="diffsplitting_tpu_torch/csrc/attention.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
-             launches=narrow[0]["attention_any_d"] + narrow[1]["attention_any_d"],
-             max_abs_err=any_d_err["simt"], at="B=%d N=%d D=%d" % simt_shape,
-             **{k: any_d[simt_shape][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                  "library_ms", "device_ms")}),
+             launches=narrow[0]["attention_narrow"] + narrow[1]["attention_narrow"],
+             max_abs_err=any_d_err["narrow"], at="B=%d N=%d D=%d" % narrow_shape,
+             **{k: any_d[narrow_shape][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "library_ms", "device_ms")},
+             by_shape={"B=%d N=%d D=%d" % key: {k: r[k] for k in (
+                 "route", "device_ms", "plain_ms", "library_device_ms", "bound_ms",
+                 "max_abs_err", "err_f64")}
+                 for key, r in any_d.items() if r["route"] == "narrow" or key[2] % 128}),
         dict(name="conv_gn", route="cuda",
              source="diffsplitting_tpu_torch/csrc/conv_gn.cu",
              replaces="diffsplitting_tpu/experimental/conv_gn.py:270",
@@ -2457,9 +2438,10 @@ def main() -> int:
         "one-step inversions', device times by CUDA-graph "
         "replay); "
         "attention_wide times are per call at the inner-32 cifar10 path's mid block "
-        "(its launches, unfused and fused; by_shape: device times at other shapes, with SDPA's "
-        "and the SIMT kernel's), attention_any_d (SIMT) times at the inner-8 path's (its "
-        "launches), device_ms by CUDA-graph replay; conv_gn times are per fused UNet forward "
+        "(its launches, unfused and fused; by_shape: device times at other shapes, with SDPA's), "
+        "attention_narrow times at the inner-8 path's (its launches; by_shape: device times at "
+        "every narrow shape and every padded wide one, D = 192), device_ms by CUDA-graph "
+        "replay; conv_gn times are per fused UNet forward "
         "(31 calls at batch 8) and its launches are the fused slice's and the DeepCache "
         "phase's fused exact chain's; each kernel's launches also count the SR3 phase's "
         "(infer.py's 2000-step chains unfused and fused, DDPM's chain, sample.py's, one train "

@@ -1,10 +1,10 @@
-// Spatial self-attention softmax(q k^T * scale) v, float32, for sm_90a, in
-// three kernels picked by the head dim D alone: at D = 128 on the tensor cores
-// at float32 accuracy (attention_tf32x3_d128_kernel); at D = 256, 384, ...,
-// 1024 on the tensor cores in 128-wide head-dim slices
-// (attention_tf32x3_wide_kernel, after it); at any other D that is a multiple
-// of 4 up to 1024 on the f32 FMA units (attention_f32_simt_kernel, at the end
-// of this file).
+// Spatial self-attention softmax(q k^T * scale) v, float32, for sm_90a, on the
+// tensor cores at float32 accuracy (3xTF32, below), in three kernels picked by
+// the head dim D alone: at D = 128 (attention_tf32x3_d128_kernel); at any
+// other D above 128 in 128-wide head-dim slices, the last one zero-filled past
+// D where D is not a multiple of 128 (attention_tf32x3_wide_kernel, after
+// it); below 128 at a head dim padded to a multiple of 16
+// (attention_tf32x3_narrow_kernel, at the end of this file).
 //
 // Replaces: diffsplitting_tpu/ops/attention.py:33, `_kernel` (launched by
 //   `_pallas_forward`), which held the whole N x N f32 score matrix of one
@@ -316,12 +316,14 @@ attention_tf32x3_d128_kernel(const float* __restrict__ q, const float* __restric
 
 
 // ---------------------------------------------------------------------------
-// Wide head dims: attention_tf32x3_wide_kernel<DS>, D = 128 * DS for DS = 2 ... 8.
+// Wide head dims: attention_tf32x3_wide_kernel<DS, kRagged>, D in (128 (DS - 1),
+// 128 DS] for DS = 2 ... 8, D a multiple of 4.
 //
 // Replaces the same Pallas `_kernel` (diffsplitting_tpu/ops/attention.py:33)
 //   at D = 256, 384, ..., 1024: the mid block of a UNet whose last width is
 //   256 (inner 32 x 8; sample_ddpm_128), 512 (sr_sr3_16_128, sr_ddpm_16_128,
-//   also their 16² attention sites) or 1024 (sr_sr3_64_512).
+//   also their 16² attention sites) or 1024 (sr_sr3_64_512); and at any other
+//   D above 128 (192 at inner 24 x 8, 320 at inner 40 x 8, ...).
 //
 // Bound: operations, 3 * 4 * N^2 * D TF32 flops a (batch, head) at 495
 //   TFLOP/s (3xTF32, as the D = 128 kernel), against 16 * N * D bytes of q,
@@ -371,6 +373,12 @@ attention_tf32x3_d128_kernel(const float* __restrict__ q, const float* __restric
 //   * Any N >= 1: K and V rows past N are zero-filled, their scores set to
 //     -inf after the partials are added; query rows past N are zero-filled
 //     and not stored, and a row group all past N only helps stage.
+//   * D not a multiple of 128 (kRagged): the kernel runs at DS = ceil(D / 128)
+//     slices, with Q, K and V zero-filled in shared memory past D (cp.async
+//     with a source size of 0) and nothing stored past D. The zeros add
+//     nothing to S, and O's columns past D are dropped. At D = 192 that is the
+//     work of D = 256 (25 % of it on zeros). kRagged = false compiles the
+//     predicates away: D = 256 ... 1024 run the code they ran before it.
 
 template <int DS>
 struct WideTile {
@@ -403,12 +411,12 @@ __device__ __forceinline__ int wide_v_at(int key, int chunk) {
     return key * LD + ((chunk ^ ((key >> 1) & 3)) << 2);
 }
 
-template <int DS>
+template <int DS, bool kRagged>
 __global__ void __launch_bounds__(WideTile<DS>::kThreads, 1)
 attention_tf32x3_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, float* __restrict__ out,
-                             int n_tokens, int heads, long long sb, long long sn, long long sh,
-                             float scale) {
+                             int n_tokens, int heads, int d, long long sb, long long sn,
+                             long long sh, float scale) {
     using T = WideTile<DS>;
     constexpr int D = T::kD, TK = T::kTileK, NT = T::kNT, SLOTS = T::kSlots;
     extern __shared__ float4 smem4[];
@@ -431,15 +439,19 @@ attention_tf32x3_wide_kernel(const float* __restrict__ q, const float* __restric
     const int c0 = 32 * ds;  // the slice's first 16-byte chunk
     const bool active = q0 + r0 < n_tokens;  // warp-uniform, and uniform over a row group
     const long long base = (long long)b * sb + (long long)h * sh;
+    const int d4 = kRagged ? d / 4 : T::kChunks;  // 16-byte chunks a row that hold data
 
-    // stage Q; rows past N are zeros (a source size of 0 reads nothing)
+    // stage Q; rows past N, and columns past D, are zeros (a source size of 0
+    // reads nothing)
     for (int c = tid; c < T::kRows * T::kChunks; c += T::kThreads) {
         const int row = c / T::kChunks, chunk = c % T::kChunks;
-        const bool ok = q0 + row < n_tokens;
-        const long long src = base + (long long)(ok ? q0 + row : 0) * sn + chunk * 4;
+        const bool ok = q0 + row < n_tokens && (!kRagged || chunk < d4);
+        const long long src =
+            base + (long long)(ok ? q0 + row : 0) * sn + (kRagged && !ok ? 0 : chunk * 4);
         cp_async16_zfill(Qs + wide_qk_at<D>(row, chunk), q + src, ok);
     }
-    // ring item 2i is K tile i, 2i + 1 is V tile i; keys past N are zeros
+    // ring item 2i is K tile i, 2i + 1 is V tile i; keys past N are zeros, and
+    // columns past D
     const int n_tiles = (n_tokens + TK - 1) / TK;
     const int n_items = 2 * n_tiles;
     auto stage = [&](int item) {
@@ -450,8 +462,9 @@ attention_tf32x3_wide_kernel(const float* __restrict__ q, const float* __restric
         for (int c = tid; c < TK * T::kChunks; c += T::kThreads) {
             const int key = c / T::kChunks, chunk = c % T::kChunks;
             const int kg = tile * TK + key;
-            const bool ok = kg < n_tokens;
-            const float* src = src0 + (long long)(ok ? kg : 0) * sn + chunk * 4;
+            const bool ok = kg < n_tokens && (!kRagged || chunk < d4);
+            const float* src =
+                src0 + (long long)(ok ? kg : 0) * sn + (kRagged && !ok ? 0 : chunk * 4);
             cp_async16_zfill(dst + (is_v ? wide_v_at<D>(key, chunk) : wide_qk_at<D>(key, chunk)),
                              src, ok);
         }
@@ -644,7 +657,8 @@ attention_tf32x3_wide_kernel(const float* __restrict__ q, const float* __restric
 
     if (!active) return;
     // out is (B, N, heads, D) contiguous; o[n] holds d = 128 ds + 32t + n
-    // (0, 2) and 128 ds + 32t + 16 + n (1, 3) of rows g (0, 1) and g + 8 (2, 3)
+    // (0, 2) and 128 ds + 32t + 16 + n (1, 3) of rows g (0, 1) and g + 8 (2, 3);
+    // nothing past D is stored
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         float l = l_run[r];
@@ -654,241 +668,363 @@ attention_tf32x3_wide_kernel(const float* __restrict__ q, const float* __restric
         const int row = q0 + r0 + g + 8 * r;
         if (row >= n_tokens) continue;
         float4* dst = reinterpret_cast<float4*>(
-            out + (((long long)b * n_tokens + row) * heads + h) * D + 128 * ds + 32 * t);
+            out + (((long long)b * n_tokens + row) * heads + h) * (kRagged ? d : D) + 128 * ds +
+            32 * t);
 #pragma unroll
         for (int half = 0; half < 2; ++half)
 #pragma unroll
             for (int c = 0; c < 4; ++c)
-                dst[4 * half + c] = make_float4(
-                    o[4 * c][2 * r + half] * inv, o[4 * c + 1][2 * r + half] * inv,
-                    o[4 * c + 2][2 * r + half] * inv, o[4 * c + 3][2 * r + half] * inv);
+                if (!kRagged || 128 * ds + 32 * t + 16 * half + 4 * c < d)
+                    dst[4 * half + c] = make_float4(
+                        o[4 * c][2 * r + half] * inv, o[4 * c + 1][2 * r + half] * inv,
+                        o[4 * c + 2][2 * r + half] * inv, o[4 * c + 3][2 * r + half] * inv);
     }
 }
 
-template <int DS>
+template <int DS, bool kRagged>
 int launch_wide(const float* q, const float* k, const float* v, float* out, int B, int n_tokens,
-                int heads, long long sb, long long sn, long long sh, float scale,
+                int heads, int d, long long sb, long long sn, long long sh, float scale,
                 cudaStream_t stream) {
     using T = WideTile<DS>;
-    cudaError_t err = cudaFuncSetAttribute(attention_tf32x3_wide_kernel<DS>,
+    cudaError_t err = cudaFuncSetAttribute(attention_tf32x3_wide_kernel<DS, kRagged>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)T::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((n_tokens + T::kRows - 1) / T::kRows, B * heads);
-    attention_tf32x3_wide_kernel<DS><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
-        q, k, v, out, n_tokens, heads, sb, sn, sh, scale);
+    attention_tf32x3_wide_kernel<DS, kRagged><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+        q, k, v, out, n_tokens, heads, d, sb, sn, sh, scale);
     return (int)cudaGetLastError();
+}
+
+template <int DS>
+int launch_wide_at(const float* q, const float* k, const float* v, float* out, int B,
+                   int n_tokens, int heads, int d, long long sb, long long sn, long long sh,
+                   float scale, cudaStream_t stream) {
+    return d == 128 * DS
+               ? launch_wide<DS, false>(q, k, v, out, B, n_tokens, heads, d, sb, sn, sh, scale,
+                                        stream)
+               : launch_wide<DS, true>(q, k, v, out, B, n_tokens, heads, d, sb, sn, sh, scale,
+                                       stream);
 }
 
 
 // ---------------------------------------------------------------------------
-// Any head dim: attention_f32_simt_kernel.
+// Narrow head dims: attention_tf32x3_narrow_kernel<DP>, D < 128 padded to DP.
 //
 // Replaces the same Pallas `_kernel` (diffsplitting_tpu/ops/attention.py:33)
-//   at the head dims the tensor-core kernel does not take: D a multiple of 4
-//   up to 1024 (the mid block of a UNet attends at D = inner_channel x the
-//   last channel multiplier: 16 in the parity tests, 256 at inner 32, 512 and
-//   1024 in the SR3 configs).
+//   at D < 128, D a multiple of 4: the mid block of a UNet whose last width is
+//   below 128 (the splitting UNet at inner 8 attends at D = 64, at inner 12 at
+//   D = 96; D = 16 in the parity tests).
 //
-// Bound: operations, 4 * N^2 * D flops a (batch, head) at the f32 FMA rate
-//   (67 TFLOP/s), against 16 * N * D bytes of q, k, v and out.
+// Bound: operations, 3 * 4 * N^2 * D TF32 flops a (batch, head) at 495
+//   TFLOP/s (3xTF32, as the D = 128 kernel), counted at the true D: 0.0130 ms
+//   at B = 8, N = 1024, D = 64, 0.208 ms at N = 4096. The tensor cores work on
+//   DP, so the padding adds DP / D - 1 to that work (below).
 //
-// Design: correct first, a plain f32 flash loop.
-//   * One block of 256 threads per (b * head, 16R-query tile); 16R-key K and V
-//     tiles staged in shared memory with rows padded to D + 4 floats, so that
-//     at D a multiple of 32 the float4 loads of 8 rows at one column fall in
-//     8 distinct bank groups.
-//     R = 4 for D <= 256, 2 for D <= 512, 1 for D <= 1024, the most rows
-//     whose Q, K and V tiles fit: 3 * 16 * 1028 * 4 B = 197 KB of the 227 KB
-//     at D = 1024, 200 KB at D = 256 (R = 4), plus the score tile.
-//   * Thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty + 16i and keys
-//     tx + 16j (i, j < R) of the score tile, and of O the same rows and the
-//     16-byte column chunks tx + 16c: every O element it updates belongs to a
-//     row whose running max and sum it holds, so O stays in registers (at most
-//     64 floats) and the 16 threads of a row reduce its max and sum with
-//     shuffles.
-//   * Online softmax with expf, running max, sum and O in f32, one division
-//     at the end; fixed order, no atomics, so two launches give the same bits.
-//   * Any N >= 1: K and V rows past N are zero-filled and their scores set to
-//     -inf before the row max (every tile holds a real key, so a row max is
-//     finite); query rows past N compute on zeros and are not stored.
+// Design: the D = 128 kernel's arithmetic at a head dim DP, the smallest of
+//   16, 32, 48, 64, 80, 96 that is >= D, and 128 for D in (96, 128).
+//   * Padding: Q, K and V columns D ... DP - 1 are zero-filled in shared
+//     memory (cp.async with a source size of 0: nothing is read) and never
+//     stored; zeros add nothing to S, and O's columns past D are dropped. The
+//     share (DP - D) / DP of the tensor-core work spent on zeros is none at
+//     D = 16, 32, ..., 96; at the worst D of each DP, D = 4, 20, 36, 52, 68,
+//     84, it is 75, 37.5, 25, 18.75, 15 and 12.5 %; at D = 100 ... 124 (DP =
+//     128) 21.9 ... 3.1 %.
+//   * One block of kWarps = 4 warps per (b * head, 64-query tile); each warp
+//     owns 16 query rows. At B = 8, N = 1024 that is 128 blocks on the 132
+//     SMs; 128-query blocks give 64, half the card, and took 49 % longer
+//     there (H100 at 700 W, kernels/attention_variants.py --narrow; PERF.md).
+//   * A ring of kStages stages of kTileK-key K and V tiles, filled by
+//     cp.async.cg kStages - 1 tiles ahead; one barrier a tile. kTileK = 64 up
+//     to DP = 64: a warp's S, its O and its tile's P V sum are then at most
+//     32 floats each (they spilled at D = 128 with 64-key tiles); 32 above.
+//     32-key tiles at DP = 64 took 29 % longer at N = 1024. kStages is 3
+//     where two blocks of it fit on an SM, else 2: at DP = 64 the Q tile and
+//     two stages take 83,968 B a block (three stages, one block an SM, took
+//     1.40x as long at N = 4096); at DP = 128, 99,328 B.
+//   * The D = 128 kernel's sums: 3xTF32 mma.sync.m16n8k8 through tf32x3.cuh,
+//     S over all of DP in the MMA accumulator, and, since the accumulator
+//     rounds toward zero, each key tile's P V summed from 0 and added to O in
+//     f32. Summing S a 16-wide head-dim step at a time from 0, as the wide
+//     kernel does, erred less (5.1e-7 against f64 at B = 8, N = 1024, D = 64,
+//     against 8.6e-7) but took 0.0719-0.0722 ms against 0.0524-0.0529 (the
+//     `s_per_step` variant).
+//   * P kept in registers by the key permutation (S's C fragment is P's A
+//     fragment: logical k t <-> key 8j + 2t, t + 4 <-> 8j + 2t + 1); online
+//     softmax in exp2; keys past N zero-filled and their scores set to -inf;
+//     query rows past N zero-filled and not stored. Fixed order, no atomics:
+//     two launches give the same bits.
+//   * Shared-memory loads free of bank conflicts. Q and K: rows of DP floats
+//     read as the D = 128 kernel reads them (a float4 of d = 16s + 4t ... +3
+//     feeds two k-steps); where a row is a multiple of 128 bytes (DP a
+//     multiple of 32) odd rows swap the two halves of each 8-chunk block, else
+//     rows r and r + 1 already fall 64 bytes apart. V: rows padded to DP + 4
+//     floats, so that the keys 8j + 2t of t = 0 ... 3 fall 32 bytes apart, and
+//     read as float2: n-tile u of P V's output, column c is d = 2 (8 (u / 2) +
+//     c) + u % 2, so that a thread's two columns 2t, 2t + 1 of n-tiles 2i, 2i +
+//     1 are the float4 at d = 16i + 4t of its output row.
+//   * Registers and spills (-Xptxas -v, nvcc 12.8 for sm_90a, printed by
+//     kernels/variants.py and chip_smoke.py): DP = 16: 127, 32: 162, 48: 136,
+//     64: 173, 80: 130, 96: 168, 128: 213; 0 spills at every DP. Two blocks
+//     of 128 threads fit an SM's registers at each.
 
-template <int R>
-struct SimtTile {
-    static constexpr int kRows = 16 * R;         // queries a block, keys a tile
-    static constexpr int kChunks = 16 / R;        // 16-byte O chunks a thread, a row
-    static constexpr int kMaxD = 4 * 16 * kChunks;
+constexpr size_t narrow_smem_bytes(int dp, int rows, int tile_k, int stages) {
+    // the Q tile, then each stage's K tile (rows of dp) and V tile (rows of dp + 4)
+    return ((size_t)rows * dp + (size_t)stages * tile_k * (2 * dp + 4)) * sizeof(float);
+}
+
+template <int DP>
+struct NarrowTile {
+    static_assert(DP % 16 == 0 && DP >= 16 && DP <= 128, "the narrow kernel takes DP = 16 ... 128");
+    static constexpr int kWarps = 4;                   // 16 query rows a warp
+    static constexpr int kTileK = DP <= 64 ? 64 : 32;  // keys a stage
+    static constexpr int kRows = 16 * kWarps;          // queries a block
+    static constexpr int kStages =
+        2 * (narrow_smem_bytes(DP, kRows, kTileK, 3) + 1024) <= 233472 ? 3 : 2;
+    static constexpr int kThreads = 32 * kWarps;
+    static constexpr int kNT = kTileK / 8;   // 8-key n-tiles of S a tile
+    static constexpr int kNO = DP / 8;       // 8-wide n-tiles of O
+    static constexpr int kChunks = DP / 4;   // 16-byte chunks a Q or K row
+    static constexpr int kLdV = DP + 4;      // floats a V row
+    static constexpr int kStageFloats = kTileK * (DP + kLdV);
+    static constexpr size_t kSmemBytes = narrow_smem_bytes(DP, kRows, kTileK, kStages);
+    static_assert(kSmemBytes <= 232448, "227 KB of shared memory a block");
 };
 
-template <int R>
-__global__ void __launch_bounds__(256)
-attention_f32_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ out, int n_tokens,
-                          int heads, int d, long long sb, long long sn, long long sh,
-                          float scale) {
-    constexpr int kRows = SimtTile<R>::kRows;
-    constexpr int kNC = SimtTile<R>::kChunks;
+// 16-byte chunk offsets (in floats) of Q and K rows of DP floats
+template <int DP>
+__device__ __forceinline__ int narrow_qk_at(int row, int chunk) {
+    if constexpr (DP % 32 == 0)
+        return row * DP + ((chunk ^ ((row & 1) << 2)) << 2);
+    else
+        return row * DP + (chunk << 2);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NarrowTile<DP>::kThreads)
+attention_tf32x3_narrow_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, float* __restrict__ out,
+                               int n_tokens, int heads, int d, long long sb, long long sn,
+                               long long sh, float scale) {
+    using T = NarrowTile<DP>;
+    constexpr int TK = T::kTileK, NT = T::kNT, NO = T::kNO, LDV = T::kLdV, STAGES = T::kStages;
     extern __shared__ float4 smem4[];
-    const int ld = d + 4;  // padded row, a multiple of 4 floats
-    float* Qs = reinterpret_cast<float*>(smem4);  // [kRows][ld]
-    float* Ks = Qs + kRows * ld;                   // [kRows][ld]
-    float* Vs = Ks + kRows * ld;                   // [kRows][ld]
-    float* Ps = Vs + kRows * ld;                   // [kRows][kRows + 1]
+    float* Qs = reinterpret_cast<float*>(smem4);  // [kRows][DP], swizzled
+    float* Ring = Qs + T::kRows * DP;             // [STAGES][K: TK x DP, V: TK x LDV]
 
     const int bh = blockIdx.y;
     const int b = bh / heads;
     const int h = bh % heads;
-    const int q0 = blockIdx.x * kRows;
+    const int q0 = blockIdx.x * T::kRows;
     const int tid = threadIdx.x;
-    const int ty = tid / 16, tx = tid % 16;
-    const int d4 = d / 4;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;  // mma group: rows g and g + 8
+    const int t = lane % 4;  // thread in group
+    const int r0 = warp * 16;
+    const bool active = q0 + r0 < n_tokens;  // warp-uniform
     const long long base = (long long)b * sb + (long long)h * sh;
+    const int d4 = d / 4;  // 16-byte chunks a row that hold data; the rest are zeros
 
-    for (int c = tid; c < kRows * d4; c += 256) {
-        const int row = c / d4, chunk = c % d4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q0 + row < n_tokens)
-            val = *reinterpret_cast<const float4*>(q + base + (long long)(q0 + row) * sn +
-                                                   4 * chunk);
-        *reinterpret_cast<float4*>(Qs + row * ld + 4 * chunk) = val;
+    // stage Q; rows past N and columns past D are zeros (a source size of 0
+    // reads nothing)
+    for (int c = tid; c < T::kRows * T::kChunks; c += T::kThreads) {
+        const int row = c / T::kChunks, chunk = c % T::kChunks;
+        const bool ok = q0 + row < n_tokens && chunk < d4;
+        const long long src = base + (ok ? (long long)(q0 + row) * sn + chunk * 4 : 0);
+        cp_async16_zfill(Qs + narrow_qk_at<DP>(row, chunk), q + src, ok);
+    }
+    // keys past N, and columns past D, are zeros in K and V
+    auto stage_kv = [&](int tile, int stage) {
+        float* kd = Ring + stage * T::kStageFloats;
+        float* vd = kd + TK * DP;
+        for (int c = tid; c < TK * T::kChunks; c += T::kThreads) {
+            const int key = c / T::kChunks, chunk = c % T::kChunks;
+            const int kg = tile * TK + key;
+            const bool ok = kg < n_tokens && chunk < d4;
+            const long long src = base + (ok ? (long long)kg * sn + chunk * 4 : 0);
+            cp_async16_zfill(kd + narrow_qk_at<DP>(key, chunk), k + src, ok);
+            cp_async16_zfill(vd + key * LDV + chunk * 4, v + src, ok);
+        }
+    };
+    // the ring runs STAGES - 1 tiles ahead; a group is committed for every
+    // tile slot, empty past the last tile, so the wait count holds throughout
+    const int n_tiles = (n_tokens + TK - 1) / TK;
+    for (int p = 0; p < STAGES - 1; ++p) {
+        if (p < n_tiles) stage_kv(p, p);
+        cp_async_commit();
     }
 
-    float m[R], l[R];
-    float4 o[R][kNC];
+    const float c2 = scale * 1.4426950408889634f;  // scores in the exp2 domain
+    float o[NO][4];
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-        m[i] = -INFINITY;
-        l[i] = 0.f;
+    for (int n = 0; n < NO; ++n)
 #pragma unroll
-        for (int c = 0; c < kNC; ++c) o[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+        for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-    for (int k0 = 0; k0 < n_tokens; k0 += kRows) {
-        __syncthreads();  // the last tile's K, V and P are read; Q is staged
-        for (int c = tid; c < kRows * d4; c += 256) {
-            const int row = c / d4, chunk = c % d4;
-            float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-            if (k0 + row < n_tokens) {
-                const long long src = base + (long long)(k0 + row) * sn + 4 * chunk;
-                kv = *reinterpret_cast<const float4*>(k + src);
-                vv = *reinterpret_cast<const float4*>(v + src);
-            }
-            *reinterpret_cast<float4*>(Ks + row * ld + 4 * chunk) = kv;
-            *reinterpret_cast<float4*>(Vs + row * ld + 4 * chunk) = vv;
-        }
-        __syncthreads();
+    for (int it = 0; it < n_tiles; ++it) {
+        cp_async_wait<STAGES - 2>();  // tile it (and Q) have landed for this thread
+        __syncthreads();  // ... and for every thread, and no warp still reads tile it - 1
+        const int ahead = it + STAGES - 1;
+        if (ahead < n_tiles) stage_kv(ahead, ahead % STAGES);  // into tile it - 1's stage
+        cp_async_commit();
 
-        float s[R][R];
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-            for (int j = 0; j < R; ++j) s[i][j] = 0.f;
-        for (int c = 0; c < d4; ++c) {
-            float4 a[R], bk[R];
-#pragma unroll
-            for (int i = 0; i < R; ++i)
-                a[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * ld + 4 * c);
-#pragma unroll
-            for (int j = 0; j < R; ++j)
-                bk[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * ld + 4 * c);
-#pragma unroll
-            for (int i = 0; i < R; ++i)
-#pragma unroll
-                for (int j = 0; j < R; ++j) {
-                    s[i][j] = fmaf(a[i].x, bk[j].x, s[i][j]);
-                    s[i][j] = fmaf(a[i].y, bk[j].y, s[i][j]);
-                    s[i][j] = fmaf(a[i].z, bk[j].z, s[i][j]);
-                    s[i][j] = fmaf(a[i].w, bk[j].w, s[i][j]);
-                }
-        }
+        if (active) {
+            const float* Kt = Ring + (it % STAGES) * T::kStageFloats;
+            const float* Vt = Kt + TK * DP;
 
+            // S = Q K^T for rows r0+g, r0+g+8 and the tile's keys, summed over
+            // all of DP in the MMA accumulator; k-step pair s takes
+            // d = 16s + 4t + {0, 1} and 16s + 4t + {2, 3}
+            float s[NT][4];
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-            float mx = -INFINITY;
+            for (int n = 0; n < NT; ++n)
 #pragma unroll
-            for (int j = 0; j < R; ++j) {
-                s[i][j] = k0 + tx + 16 * j < n_tokens ? s[i][j] * scale : -INFINITY;
-                mx = fmaxf(mx, s[i][j]);
-            }
+                for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
 #pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_new = fmaxf(m[i], mx);
-            const float corr = expf(m[i] - m_new);  // 0 on the first tile
-            float rs = 0.f;
+            for (int sp = 0; sp < DP / 16; ++sp) {
+                const float4 qa =
+                    *reinterpret_cast<const float4*>(Qs + narrow_qk_at<DP>(r0 + g, 4 * sp + t));
+                const float4 qb = *reinterpret_cast<const float4*>(
+                    Qs + narrow_qk_at<DP>(r0 + g + 8, 4 * sp + t));
+                uint32_t a0b[4], a0s[4], a1b[4], a1s[4];
+                split(qa.x, a0b[0], a0s[0]);
+                split(qb.x, a0b[1], a0s[1]);
+                split(qa.y, a0b[2], a0s[2]);
+                split(qb.y, a0b[3], a0s[3]);
+                split(qa.z, a1b[0], a1s[0]);
+                split(qb.z, a1b[1], a1s[1]);
+                split(qa.w, a1b[2], a1s[2]);
+                split(qb.w, a1b[3], a1s[3]);
 #pragma unroll
-            for (int j = 0; j < R; ++j) {
-                const float pj = expf(s[i][j] - m_new);
-                rs += pj;
-                Ps[(ty + 16 * i) * (kRows + 1) + tx + 16 * j] = pj;
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                rs += __shfl_xor_sync(0xffffffffu, rs, off);
-            l[i] = l[i] * corr + rs;
-            m[i] = m_new;
-#pragma unroll
-            for (int c = 0; c < kNC; ++c) {
-                o[i][c].x *= corr;
-                o[i][c].y *= corr;
-                o[i][c].z *= corr;
-                o[i][c].w *= corr;
-            }
-        }
-        __syncthreads();  // P complete
-
-        for (int kk = 0; kk < kRows; ++kk) {
-            float p[R];
-#pragma unroll
-            for (int i = 0; i < R; ++i) p[i] = Ps[(ty + 16 * i) * (kRows + 1) + kk];
-#pragma unroll
-            for (int c = 0; c < kNC; ++c) {
-                const int chunk = tx + 16 * c;
-                if (chunk < d4) {
-                    const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * ld + 4 * chunk);
-#pragma unroll
-                    for (int i = 0; i < R; ++i) {
-                        o[i][c].x = fmaf(p[i], vv.x, o[i][c].x);
-                        o[i][c].y = fmaf(p[i], vv.y, o[i][c].y);
-                        o[i][c].z = fmaf(p[i], vv.z, o[i][c].z);
-                        o[i][c].w = fmaf(p[i], vv.w, o[i][c].w);
-                    }
+                for (int n = 0; n < NT; ++n) {
+                    const float4 kv =
+                        *reinterpret_cast<const float4*>(Kt + narrow_qk_at<DP>(8 * n + g, 4 * sp + t));
+                    uint32_t xb, xs, yb, ys, zb, zs, wb, ws;
+                    split(kv.x, xb, xs);
+                    split(kv.y, yb, ys);
+                    split(kv.z, zb, zs);
+                    split(kv.w, wb, ws);
+                    mma_3xtf32(s[n], a0b, a0s, xb, yb, xs, ys);
+                    mma_3xtf32(s[n], a1b, a1s, zb, wb, zs, ws);
                 }
             }
+
+            // s[n] holds rows g (0, 1) and g+8 (2, 3), keys 8n + 2t and
+            // 8n + 2t + 1; keys past N take no weight
+            const int keys_left = n_tokens - it * TK;
+            if (keys_left < TK) {
+#pragma unroll
+                for (int n = 0; n < NT; ++n) {
+                    if (8 * n + 2 * t >= keys_left) s[n][0] = s[n][2] = -INFINITY;
+                    if (8 * n + 2 * t + 1 >= keys_left) s[n][1] = s[n][3] = -INFINITY;
+                }
+            }
+
+            // online softmax
+            float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) s[n][i] *= c2;
+                mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+                mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+            }
+            float corr[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+                const float m_new = fmaxf(m_run[r], mx[r]);
+                corr[r] = exp2f(m_run[r] - m_new);
+                m_run[r] = m_new;
+                l_run[r] *= corr[r];
+            }
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+                s[n][0] = exp2f(s[n][0] - m_run[0]);
+                s[n][1] = exp2f(s[n][1] - m_run[0]);
+                s[n][2] = exp2f(s[n][2] - m_run[1]);
+                s[n][3] = exp2f(s[n][3] - m_run[1]);
+                l_run[0] += s[n][0] + s[n][1];
+                l_run[1] += s[n][2] + s[n][3];
+            }
+#pragma unroll
+            for (int n = 0; n < NO; ++n) {
+                o[n][0] *= corr[0];
+                o[n][1] *= corr[0];
+                o[n][2] *= corr[1];
+                o[n][3] *= corr[1];
+            }
+
+            // O += P V over k-steps of 8 keys; n-tile 2i + e, column g is
+            // d = 16i + 2g + e: a float2 of V a key for two n-tiles. The
+            // tile's P V is summed from 0, then added to O in f32.
+            float acc[NO][4] = {};  // this tile's P V, from 0
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+                uint32_t pb[4], ps[4];
+                split(s[j][0], pb[0], ps[0]);
+                split(s[j][2], pb[1], ps[1]);
+                split(s[j][1], pb[2], ps[2]);
+                split(s[j][3], pb[3], ps[3]);
+                const float* v0row = Vt + (8 * j + 2 * t) * LDV + 2 * g;
+#pragma unroll
+                for (int i = 0; i < NO / 2; ++i) {
+                    const float2 v0 = *reinterpret_cast<const float2*>(v0row + 16 * i);
+                    const float2 v1 = *reinterpret_cast<const float2*>(v0row + LDV + 16 * i);
+                    uint32_t b0b, b0s, b1b, b1s;
+                    split(v0.x, b0b, b0s);
+                    split(v1.x, b1b, b1s);
+                    mma_3xtf32(acc[2 * i], pb, ps, b0b, b1b, b0s, b1s);
+                    split(v0.y, b0b, b0s);
+                    split(v1.y, b1b, b1s);
+                    mma_3xtf32(acc[2 * i + 1], pb, ps, b0b, b1b, b0s, b1s);
+                }
+            }
+#pragma unroll
+            for (int n = 0; n < NO; ++n)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) o[n][i] += acc[n][i];
         }
     }
 
-    // out is (B, N, heads, D) contiguous
+    if (!active) return;
+    // out is (B, N, heads, D) contiguous; o[2i + e] holds d = 16i + 4t + e
+    // (0, 2) and 16i + 4t + 2 + e (1, 3) of rows g (0, 1) and g + 8 (2, 3):
+    // the float4 at d = 16i + 4t, stored where it lies below D
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-        const int row = q0 + ty + 16 * i;
+    for (int r = 0; r < 2; ++r) {
+        float l = l_run[r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const float inv = 1.0f / l;
+        const int row = q0 + r0 + g + 8 * r;
         if (row >= n_tokens) continue;
-        const float inv = 1.0f / l[i];
-        float* dst = out + (((long long)b * n_tokens + row) * heads + h) * d;
+        float* dst = out + (((long long)b * n_tokens + row) * heads + h) * d + 4 * t;
 #pragma unroll
-        for (int c = 0; c < kNC; ++c) {
-            const int chunk = tx + 16 * c;
-            if (chunk < d4)
-                *reinterpret_cast<float4*>(dst + 4 * chunk) = make_float4(
-                    o[i][c].x * inv, o[i][c].y * inv, o[i][c].z * inv, o[i][c].w * inv);
-        }
+        for (int i = 0; i < NO / 2; ++i)
+            if (16 * i + 4 * t < d)
+                *reinterpret_cast<float4*>(dst + 16 * i) = make_float4(
+                    o[2 * i][2 * r] * inv, o[2 * i + 1][2 * r] * inv, o[2 * i][2 * r + 1] * inv,
+                    o[2 * i + 1][2 * r + 1] * inv);
     }
 }
 
-template <int R>
-int launch_simt(const float* q, const float* k, const float* v, float* out, int B,
-                int n_tokens, int heads, int d, long long sb, long long sn, long long sh,
-                float scale, cudaStream_t stream) {
-    constexpr int kRows = SimtTile<R>::kRows;
-    const size_t smem = ((size_t)3 * kRows * (d + 4) + (size_t)kRows * (kRows + 1)) *
-                        sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(attention_f32_simt_kernel<R>,
+template <int DP>
+int launch_narrow(const float* q, const float* k, const float* v, float* out, int B,
+                  int n_tokens, int heads, int d, long long sb, long long sn, long long sh,
+                  float scale, cudaStream_t stream) {
+    using T = NarrowTile<DP>;
+    cudaError_t err = cudaFuncSetAttribute(attention_tf32x3_narrow_kernel<DP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+                                           (int)T::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((n_tokens + kRows - 1) / kRows, B * heads);
-    attention_f32_simt_kernel<R><<<grid, 256, smem, stream>>>(q, k, v, out, n_tokens, heads, d,
-                                                             sb, sn, sh, scale);
+    const dim3 grid((n_tokens + T::kRows - 1) / T::kRows, B * heads);
+    attention_tf32x3_narrow_kernel<DP><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+        q, k, v, out, n_tokens, heads, d, sb, sn, sh, scale);
     return (int)cudaGetLastError();
 }
 
@@ -913,29 +1049,31 @@ extern "C" int attention_f32_d128(const void* q, const void* k, const void* v, v
 
 // q, k, v: (B, N, heads, D) f32 views sharing the element strides (sb, sn, sh)
 // with unit stride on the last dim and 16-byte aligned rows; out: (B, N,
-// heads, D) contiguous. D a multiple of 4 up to 1024, any N >= 1. Returns
+// heads, D) contiguous. D a multiple of 4 below 128, any N >= 1. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a D it does not take.
-extern "C" int attention_f32_any_d(const void* q, const void* k, const void* v, void* out,
-                                   int B, int n_tokens, int heads, int d, long long sb,
-                                   long long sn, long long sh, float scale, void* stream) {
+extern "C" int attention_f32_narrow(const void* q, const void* k, const void* v, void* out,
+                                    int B, int n_tokens, int heads, int d, long long sb,
+                                    long long sn, long long sh, float scale, void* stream) {
     const float* qf = static_cast<const float*>(q);
     const float* kf = static_cast<const float*>(k);
     const float* vf = static_cast<const float*>(v);
     float* of = static_cast<float*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (d <= 0 || d % 4) return (int)cudaErrorInvalidValue;
-    if (d <= SimtTile<4>::kMaxD)
-        return launch_simt<4>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
-    if (d <= SimtTile<2>::kMaxD)
-        return launch_simt<2>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
-    if (d <= SimtTile<1>::kMaxD)
-        return launch_simt<1>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
-    return (int)cudaErrorInvalidValue;
+    if (d <= 0 || d >= 128 || d % 4) return (int)cudaErrorInvalidValue;
+    switch (d > 96 ? 8 : (d + 15) / 16) {
+        case 1: return launch_narrow<16>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+        case 2: return launch_narrow<32>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+        case 3: return launch_narrow<48>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+        case 4: return launch_narrow<64>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+        case 5: return launch_narrow<80>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+        case 6: return launch_narrow<96>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+        default: return launch_narrow<128>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+    }
 }
 
 // q, k, v: (B, N, heads, D) f32 views sharing the element strides (sb, sn, sh)
 // with unit stride on the last dim and 16-byte aligned rows; out: (B, N,
-// heads, D) contiguous. D = 256, 384, ..., 1024, any N >= 1. Returns
+// heads, D) contiguous. D a multiple of 4 in (128, 1024], any N >= 1. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a D it does not take.
 extern "C" int attention_f32_wide(const void* q, const void* k, const void* v, void* out, int B,
                                   int n_tokens, int heads, int d, long long sb, long long sn,
@@ -945,14 +1083,14 @@ extern "C" int attention_f32_wide(const void* q, const void* k, const void* v, v
     const float* vf = static_cast<const float*>(v);
     float* of = static_cast<float*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (d) {
-        case 256: return launch_wide<2>(qf, kf, vf, of, B, n_tokens, heads, sb, sn, sh, scale, st);
-        case 384: return launch_wide<3>(qf, kf, vf, of, B, n_tokens, heads, sb, sn, sh, scale, st);
-        case 512: return launch_wide<4>(qf, kf, vf, of, B, n_tokens, heads, sb, sn, sh, scale, st);
-        case 640: return launch_wide<5>(qf, kf, vf, of, B, n_tokens, heads, sb, sn, sh, scale, st);
-        case 768: return launch_wide<6>(qf, kf, vf, of, B, n_tokens, heads, sb, sn, sh, scale, st);
-        case 896: return launch_wide<7>(qf, kf, vf, of, B, n_tokens, heads, sb, sn, sh, scale, st);
-        case 1024: return launch_wide<8>(qf, kf, vf, of, B, n_tokens, heads, sb, sn, sh, scale, st);
-        default: return (int)cudaErrorInvalidValue;
+    if (d <= 128 || d > 1024 || d % 4) return (int)cudaErrorInvalidValue;
+    switch ((d + 127) / 128) {
+        case 2: return launch_wide_at<2>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+        case 3: return launch_wide_at<3>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+        case 4: return launch_wide_at<4>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+        case 5: return launch_wide_at<5>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+        case 6: return launch_wide_at<6>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+        case 7: return launch_wide_at<7>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
+        default: return launch_wide_at<8>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
     }
 }

@@ -1,7 +1,8 @@
 """Time csrc/attention.cu beside variants of itself on one card.
 
     python -m diffsplitting_tpu_torch.kernels.attention_variants [--baseline FILE]
-    python -m diffsplitting_tpu_torch.kernels.attention_variants --wide
+    python -m diffsplitting_tpu_torch.kernels.attention_variants --wide [--baseline FILE]
+    python -m diffsplitting_tpu_torch.kernels.attention_variants --narrow [--baseline FILE]
 
 Each variant is the shipped source (and csrc/tf32x3.cuh) with text
 substitutions, built by its own `nvcc` into its own library (all started
@@ -10,12 +11,18 @@ together). By default the variants are of the D = 128 kernel, called through
 k, v views of one qkv tensor) at B = 8 and B = 2; `--baseline` adds any other
 source with the same entry point (an earlier version of the kernel, say).
 With `--wide` they are of the wide kernel (`attention_f32_wide`: key-tile
-size, row groups a block, ring depth), at WIDE_SHAPES, timed beside the SIMT
-kernel (`attention_f32_any_d` of the shipped source) at the same D. The
+size, row groups a block, ring depth), at WIDE_SHAPES, and the baseline's
+`attention_f32_wide` is timed beside them. With `--narrow` they are of the
+narrow kernel (`attention_f32_narrow`: block rows, key tile, ring depth, the
+order of S's sum) at NARROW_SHAPES, and the padded wide kernel at
+PADDED_SHAPES; the baseline is then called through `attention_f32_any_d` (the
+SIMT kernel of the sources before the narrow kernel, e.g. `git show
+694b722:diffsplitting_tpu_torch/csrc/attention.cu`) at every shape. The
 variants are timed in turns (forward, then in reverse order, SDPA among
 them) and each is held against the plain version. Prints the card, each
 variant's registers and spills, its time and its max abs error, and SDPA's
-time. Nothing here is used by the port.
+time; with `--narrow` and `--wide`, device time by CUDA-graph replay. Nothing
+here is used by the port.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import tempfile
 from pathlib import Path
 
 from .build import SIGNATURES
-from .variants import build_all, card, time_ms, variant_sources
+from .variants import build_all, card, device_ms, time_ms, variant_sources
 
 SOURCE = "attention.cu"
 HEADER = "tf32x3.cuh"
@@ -115,51 +122,120 @@ WIDE_VARIANTS = {
 # sr_sr3_16_128 at batch 8 and at its batch 4, and D = 256 at N = 1024
 WIDE_SHAPES = [(2, 1024, 1024), (8, 256, 512), (4, 256, 512), (8, 1024, 256)]
 
+# the narrow kernel's tiling, by padded head dim DP
+NARROW_WARPS = "static constexpr int kWarps = 4;                   // 16 query rows a warp"
+NARROW_TILE_K = "static constexpr int kTileK = DP <= 64 ? 64 : 32;  // keys a stage"
+NARROW_STAGES = "2 * (narrow_smem_bytes(DP, kRows, kTileK, 3) + 1024) <= 233472 ? 3 : 2;"
+# the narrow kernel's S loop, which sums S over all of DP in the MMA accumulator
+S_IN_MMA = ("                    mma_3xtf32(s[n], a0b, a0s, xb, yb, xs, ys);\n"
+            "                    mma_3xtf32(s[n], a1b, a1s, zb, wb, zs, ws);\n")
+NARROW_S_IN_MMA = ("                    split(kv.w, wb, ws);\n" + S_IN_MMA +
+                   "                }\n"
+                   "            }\n"
+                   "\n"
+                   "            // s[n] holds rows g (0, 1) and g+8 (2, 3), keys 8n + 2t and\n"
+                   "            // 8n + 2t + 1; keys past N take no weight\n"
+                   "            const int keys_left = n_tokens - it * TK;")
+NARROW_VARIANTS = {
+    "shipped": [],
+    "1xtf32": [ONE_TF32],
+    # S summed a 16-wide head-dim step at a time from 0, as the wide kernel does
+    "s_per_step": [(SOURCE, NARROW_S_IN_MMA, NARROW_S_IN_MMA.replace(S_IN_MMA, WIDE_S_STEP))],
+    # 128-query blocks (8 warps; 64 blocks at B = 8, N = 1024) or 32 (2 warps)
+    "rows128": [(SOURCE, NARROW_WARPS, NARROW_WARPS.replace("= 4;", "= 8;"))],
+    "rows32": [(SOURCE, NARROW_WARPS, NARROW_WARPS.replace("= 4;", "= 2;"))],
+    # 32-key tiles at every DP
+    "tk32": [(SOURCE, NARROW_TILE_K, "static constexpr int kTileK = 32;")],
+    # a ring of 2 stages at every DP, and of 3 (one block an SM at DP = 64)
+    "stages2": [(SOURCE, NARROW_STAGES, "2;")],
+    "stages3": [(SOURCE, NARROW_STAGES, "3;")],
+}
+# (B, N, D): the narrow shapes of chip_smoke.py's ANY_D_SHAPES (D = 16 and 64
+# at N = 16, 100 and 1024; the Hagen mid block at inner 8, N = 4096), and its
+# padded wide ones (D = 192, the Hagen mid block at inner 24)
+NARROW_SHAPES = [(8, n, d) for d in (16, 64) for n in (16, 100, 1024)] + [(8, 4096, 64)]
+PADDED_SHAPES = [(8, 1024, 192), (8, 4096, 192)]
 
-def run_wide() -> None:
-    """The wide kernel's variants, the SIMT kernel and SDPA in turns at
-    WIDE_SHAPES."""
+
+def _in_turns(shapes, entries: dict, baseline) -> None:
+    """At each (B, N, D): every library's entry (name -> (lib, entry)), the
+    baseline's SIMT kernel and SDPA timed in turns by CUDA-graph replay, each
+    held against the plain version and f64."""
     import torch
     import torch.nn.functional as F
 
     from ..ops import attention_reference
 
+    for B, N, D in shapes:
+        g = torch.Generator(device="cuda").manual_seed(2)
+        qkv = torch.randn(B, N, 1, 3, D, device="cuda", generator=g)
+        q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+        scale = 1 / math.sqrt(D)
+        want = attention_reference(q, k, v, scale)
+        exact = attention_reference(q.double(), k.double(), v.double(), scale).float()
+        out = torch.empty_like(want)
+        st = q.stride()
+        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+
+        def launch(fn):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, 1, D,
+                     st[0], st[1], st[2], scale, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"CUDA error {err} at launch")
+
+        runs = {name: functools.partial(launch, getattr(lib, entry))
+                for name, (lib, entry) in entries.items()}
+        if baseline is not None:
+            runs["simt"] = functools.partial(launch, baseline.attention_f32_any_d)
+        runs["sdpa"] = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        bound = 3 * 4 * B * N * N * D / 495e12 * 1e3  # 3xTF32 at the true D
+        order = list(runs)
+        for name in order + order[::-1]:
+            runs[name]()
+            torch.cuda.synchronize()
+            line = f"B={B} N={N} D={D} {name}: {device_ms(runs[name]):.4f} ms device time"
+            if name != "sdpa":
+                line += (f", max abs err {(out - want).abs().max().item():.3g} "
+                         f"(against f64: {(out - exact).abs().max().item():.3g})")
+            print(line + f"; bound {bound:.4f} ms", flush=True)
+        del qkv, q, k, v, want, exact, out, qh, kh, vh
+        torch.cuda.empty_cache()
+
+
+def _build(variants: dict, baseline: Path, work: Path):
+    """The variants' libraries and the baseline's (or None), entry points typed."""
+    sources = variant_sources(SOURCE, variants)
+    if baseline:
+        sources["baseline"] = {SOURCE: baseline.read_text()}
+    libs = build_all(sources, SOURCE, work)
+    # the three entries take the same arguments (the baseline's any-D SIMT one too)
+    for lib in libs.values():
+        for entry in ("attention_f32_wide", "attention_f32_narrow", "attention_f32_any_d"):
+            if hasattr(lib, entry):
+                getattr(lib, entry).argtypes = SIGNATURES["attention_f32_wide"]
+    return libs, libs.pop("baseline", None)
+
+
+def run_wide(baseline: Path = None) -> None:
+    """The wide kernel's variants, the baseline's wide kernel and SDPA in
+    turns at WIDE_SHAPES."""
     with tempfile.TemporaryDirectory() as work:
-        libs = build_all(variant_sources(SOURCE, WIDE_VARIANTS), SOURCE, Path(work))
-        for lib in libs.values():
-            for entry in ("attention_f32_wide", "attention_f32_any_d"):
-                getattr(lib, entry).argtypes = SIGNATURES[entry]
-        for B, N, D in WIDE_SHAPES:
-            g = torch.Generator(device="cuda").manual_seed(2)
-            qkv = torch.randn(B, N, 1, 3, D, device="cuda", generator=g)
-            q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
-            scale = 1 / math.sqrt(D)
-            want = attention_reference(q, k, v, scale)
-            exact = attention_reference(q.double(), k.double(), v.double(), scale).float()
-            out = torch.empty_like(want)
-            st = q.stride()
-            qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        libs, base = _build(WIDE_VARIANTS, baseline, Path(work))
+        entries = {name: (lib, "attention_f32_wide") for name, lib in libs.items()}
+        if base is not None:
+            entries["baseline"] = (base, "attention_f32_wide")
+        _in_turns(WIDE_SHAPES, entries, None)
 
-            def launch(fn):
-                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, 1, D,
-                         st[0], st[1], st[2], scale, torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"CUDA error {err} at launch")
 
-            runs = {name: functools.partial(launch, lib.attention_f32_wide)
-                    for name, lib in libs.items()}
-            runs["simt"] = functools.partial(launch, libs["shipped"].attention_f32_any_d)
-            runs["sdpa"] = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
-            order = list(runs)
-            for name in order + order[::-1]:
-                ms = time_ms(runs[name])
-                line = f"B={B} N={N} D={D} {name}: {ms:.4f} ms"
-                if name != "sdpa":
-                    line += (f", max abs err {(out - want).abs().max().item():.3g} "
-                             f"(against f64: {(out - exact).abs().max().item():.3g})")
-                print(line)
-            del qkv, q, k, v, want, exact, out, qh, kh, vh
-            torch.cuda.empty_cache()
+def run_narrow(baseline: Path = None) -> None:
+    """The narrow kernel's variants at NARROW_SHAPES and the shipped wide
+    kernel at PADDED_SHAPES, each beside the baseline's SIMT kernel and SDPA,
+    in turns."""
+    with tempfile.TemporaryDirectory() as work:
+        libs, base = _build(NARROW_VARIANTS, baseline, Path(work))
+        _in_turns(NARROW_SHAPES, {name: (lib, "attention_f32_narrow")
+                                  for name, lib in libs.items()}, base)
+        _in_turns(PADDED_SHAPES, {"wide": (libs["shipped"], "attention_f32_wide")}, base)
 
 
 def main() -> None:
@@ -170,15 +246,16 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, help="another source with the same entry point")
-    ap.add_argument("--wide", action="store_true",
-                    help="variants of the wide kernel, beside the SIMT kernel")
+    ap.add_argument("--wide", action="store_true", help="variants of the wide kernel")
+    ap.add_argument("--narrow", action="store_true",
+                    help="variants of the narrow kernel, and the padded wide kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("attention_variants: CUDA is not available")
     print(card())
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.wide:
-        run_wide()
+    if args.wide or args.narrow:
+        (run_wide if args.wide else run_narrow)(args.baseline)
         return
     sources = variant_sources(SOURCE, VARIANTS)
     if args.baseline:

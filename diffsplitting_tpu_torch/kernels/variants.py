@@ -76,7 +76,7 @@ def _kernel_name(mangled: str) -> str:
         pos += d.end() + n
     rest = mangled[pos:]
     if rest.startswith("I"):
-        name += "<" + ",".join(re.findall(r"Li(\d+)E", rest.split("EE")[0] + "E")) + ">"
+        name += "<" + ",".join(re.findall(r"L[ib](\d+)E", rest.split("EE")[0] + "E")) + ">"
     return name
 
 

@@ -4,12 +4,13 @@ Counterpart: diffsplitting_tpu/ops/attention.py (`attention_reference`,
 `fused_attention` with its custom VJP; the Pallas `_kernel`).
 
 `fused_attention` launches a CUDA kernel of csrc/attention.cu for CUDA
-tensors, picked by the head dim D alone (`head_dim_route`): the tensor-core
-kernel at D = 128; the wide tensor-core kernel, in 128-wide head-dim slices,
-at D = 256, 384, ..., 1024; the f32 SIMT kernel at any other D that is a
-multiple of 4 up to 1024. It raises on any other D. CPU tensors run the plain
-version. Backward runs autograd through the plain version, as the JAX custom
-VJP does.
+tensors, picked by the head dim D alone (`head_dim_route`), all three on the
+tensor cores at f32 accuracy: the D = 128 kernel; the wide kernel, in 128-wide
+head-dim slices (the last one zero-filled past D), at any other multiple of 4
+above 128 up to 1024; the narrow kernel, at D padded to a multiple of 16, at
+any multiple of 4 below 128. It raises on any other D. CPU tensors run the
+plain version. Backward runs autograd through the plain version, as the JAX
+custom VJP does.
 """
 
 from __future__ import annotations
@@ -18,9 +19,8 @@ import torch
 
 from ..kernels.build import check, library
 
-TENSOR_CORE_HEAD_DIM = 128  # attention_tf32x3_d128_kernel
-WIDE_HEAD_DIMS = range(256, 1025, 128)  # attention_tf32x3_wide_kernel
-MAX_HEAD_DIM = 1024  # attention_f32_simt_kernel: any other multiple of 4 up to this
+D128_HEAD_DIM = 128  # attention_tf32x3_d128_kernel; the narrow kernel below it
+MAX_HEAD_DIM = 1024  # attention_tf32x3_wide_kernel: from 132 up to this
 
 
 def attention_reference(q, k, v, scale: float):
@@ -32,14 +32,14 @@ def attention_reference(q, k, v, scale: float):
 
 
 def head_dim_route(D: int) -> str:
-    """The kernel that takes head dim D: "d128", "wide" or "simt"; raises on a
-    D that none takes."""
+    """The kernel that takes head dim D: "d128", "wide" or "narrow"; raises on
+    a D that none takes."""
     if D % 4 or not 0 < D <= MAX_HEAD_DIM:
         raise ValueError(f"attention kernels take a head dim that is a multiple of 4 up to "
                          f"{MAX_HEAD_DIM}, got {D}")
-    if D == TENSOR_CORE_HEAD_DIM:
+    if D == D128_HEAD_DIM:
         return "d128"
-    return "wide" if D in WIDE_HEAD_DIMS else "simt"
+    return "wide" if D > D128_HEAD_DIM else "narrow"
 
 
 def _launch(q, k, v, scale: float):
@@ -68,10 +68,10 @@ def _launch(q, k, v, scale: float):
         check(err, "attention_f32_wide")
         FusedAttention.launches_wide += 1
     else:
-        err = library().attention_f32_any_d(*ptrs, B, N, H, D, *strides[:3], float(scale),
-                                            stream)
-        check(err, "attention_f32_any_d")
-        FusedAttention.launches_any_d += 1
+        err = library().attention_f32_narrow(*ptrs, B, N, H, D, *strides[:3], float(scale),
+                                             stream)
+        check(err, "attention_f32_narrow")
+        FusedAttention.launches_narrow += 1
     return out
 
 
@@ -79,9 +79,9 @@ class FusedAttention(torch.autograd.Function):
     """Forward: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors. Backward: autograd through the plain version."""
 
-    launches = 0  # tensor-core kernel launches (D = 128), counted by _launch
-    launches_wide = 0  # wide tensor-core kernel launches (D = 256 ... 1024), by _launch
-    launches_any_d = 0  # SIMT kernel launches (any other D), counted by _launch
+    launches = 0  # D = 128 kernel launches, counted by _launch
+    launches_wide = 0  # wide kernel launches (D above 128), counted by _launch
+    launches_narrow = 0  # narrow kernel launches (D below 128), counted by _launch
 
     @staticmethod
     def forward(ctx, q, k, v, scale):

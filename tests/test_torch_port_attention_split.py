@@ -13,10 +13,14 @@ and the port's within the chip check's tolerance 1e-4 * (1 + max|ref|). A
 1xTF32 emulation (big*big only) is printed beside it to record what the split
 buys.
 
-The wide kernel (D = 256 ... 1024 in steps of 128) is emulated in its own
-order of sums, with the accumulator rounding toward zero after every MMA:
-each 128-wide slice's partial S in 16-wide head-dim steps from 0, added in
-f32; the partials added in f32 in slice order; each key tile's P V from 0.
+The wide kernel (D above 128) is emulated in its own order of sums, with the
+accumulator rounding toward zero after every MMA: each 128-wide slice's
+partial S in 16-wide head-dim steps from 0, added in f32; the partials added
+in f32 in slice order; each key tile's P V from 0. Where D is not a multiple
+of 128 its last slice is zero-filled past D. The narrow kernel (D below 128)
+is emulated at its padded head dim DP and key tile, with the same model of
+the accumulator and the D = 128 kernel's sums: S over all of DP in it, each
+key tile's P V from 0.
 """
 
 import jax.numpy as jnp
@@ -216,10 +220,14 @@ def test_truncating_accumulator_error_comes_from_the_sum_over_keys():
     assert err[True, True] > 2 * err[True, False]
 
 
-# The wide kernel (attention_tf32x3_wide_kernel, D = 128·DS): keys a tile by
-# D, as WideTile's kTileK in csrc/attention.cu
-WIDE_TILE = {256: 32, 384: 32, 512: 32, 640: 16, 768: 16, 896: 16, 1024: 16}
-SLICE = 128  # head dims a warp owns
+# The wide kernel (attention_tf32x3_wide_kernel, D in (128·(DS − 1), 128·DS]):
+# head dims a warp owns, and keys a tile by DS, as WideTile's kTileK in
+# csrc/attention.cu
+SLICE = 128
+
+
+def wide_tile(D: int) -> int:
+    return 32 if -(-D // SLICE) <= 4 else 16
 
 
 def _mma3(a, b, acc):
@@ -240,13 +248,14 @@ def emulate_wide(q, k, v, scale: float, tile: int, s_step: int = STEP):
     each from 0 in the accumulator, the steps added in f32; the partials are
     added in f32 in slice order; each tile's P V is summed from 0 in the
     accumulator and added to O in f32. Keys past N are zeros, their scores
-    -inf."""
+    -inf; columns past D up to a whole slice are zeros, and dropped from O."""
     f32 = lambda x: x.float().double()  # noqa: E731
-    n, d = q.shape
+    n, width = q.shape
+    d = width + -width % SLICE
     pad = -n % tile
-    q = q.double()
-    k = torch.cat([k.double(), torch.zeros(pad, d, dtype=torch.float64)])
-    v = torch.cat([v.double(), torch.zeros(pad, d, dtype=torch.float64)])
+    q = torch.nn.functional.pad(q.double(), (0, d - width))
+    k = torch.nn.functional.pad(k.double(), (0, d - width, 0, pad))
+    v = torch.nn.functional.pad(v.double(), (0, d - width, 0, pad))
     c2 = scale * LOG2E
     o = torch.zeros(n, d, dtype=torch.float64)
     m = torch.full((n, 1), -torch.inf, dtype=torch.float64)
@@ -268,11 +277,13 @@ def emulate_wide(q, k, v, scale: float, tile: int, s_step: int = STEP):
         l = f32(l * corr + p.sum(dim=1, keepdim=True))
         o = f32(f32(o * corr) + _mma3(p, vt, torch.zeros_like(o)))
         m = m_new
-    return (o / l).float()
+    return (o / l)[:, :width].float()
 
 
-# N = 40: a full tile and a masked one (8 of 32 keys, or 8 of 16 at D = 1024)
-@pytest.mark.parametrize("D,score_gain", [(256, 1), (256, 8), (512, 8), (1024, 1)])
+# N = 40: a full tile and a masked one (8 of 32 keys, or 8 of 16 at D = 1024);
+# D = 192 and 1020 with the last slice zero-filled past D
+@pytest.mark.parametrize("D,score_gain", [(256, 1), (256, 8), (512, 8), (1024, 1), (192, 1),
+                                          (192, 8), (1020, 1)])
 def test_wide_kernel_emulation_matches_references(D, score_gain):
     N = 40
     rng = np.random.default_rng(5)
@@ -282,7 +293,7 @@ def test_wide_kernel_emulation_matches_references(D, score_gain):
     want = attention_reference(*map(torch.from_numpy, (q, k, v)), scale).numpy()
     tq, tk, tv = (torch.from_numpy(a[0, :, 0]) for a in (q, k, v))
     exact = (torch.softmax(tq.double() @ tk.double().T * scale, dim=1) @ tv.double()).numpy()
-    got = emulate_wide(tq, tk, tv, scale, WIDE_TILE[D]).numpy()
+    got = emulate_wide(tq, tk, tv, scale, wide_tile(D)).numpy()
     tol = 1e-4 * (1 + np.abs(want).max())
     err_jax = np.abs(got - want_jax[0, :, 0]).max()
     err_exact = np.abs(got - exact).max()
@@ -304,8 +315,78 @@ def test_wide_kernel_sums_s_per_step():
     q, k, v = (torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)) for _ in range(3))
     scale = 1 / np.sqrt(D)
     exact = torch.softmax((q.double() @ k.double().T) * scale, dim=1) @ v.double()
-    err = {step: (emulate_wide(q, k, v, scale, WIDE_TILE[D], s_step=step).double() - exact)
+    err = {step: (emulate_wide(q, k, v, scale, wide_tile(D), s_step=step).double() - exact)
            .abs().max().item() for step in (STEP, SLICE)}
     print(f"N={N} D={D}: max abs err, S in 16-wide steps {err[STEP]:.3g}, a slice in the "
           f"accumulator {err[SLICE]:.3g}")
     assert 2 * err[STEP] < err[SLICE]
+
+
+# The narrow kernel (attention_tf32x3_narrow_kernel<DP>, D below 128): the
+# padded head dim DP and the keys a tile, as NarrowTile in csrc/attention.cu
+def narrow_dp(D: int) -> int:
+    return 128 if D > 96 else 16 * -(-D // 16)
+
+
+def narrow_tile(DP: int) -> int:
+    return 64 if DP <= 64 else 32
+
+
+def emulate_narrow(q, k, v, scale: float):
+    """(N, D) q, k, v of one (batch, head): the narrow kernel's tile loop at
+    its padded head dim DP, columns D ... DP − 1 zeros. S is summed over all
+    of DP in the accumulator (rounding toward zero after every MMA); each
+    tile's P V from 0 in the accumulator, then added to O in f32; keys past N
+    are zeros, their scores -inf; O's columns past D are dropped."""
+    f32 = lambda x: x.float().double()  # noqa: E731
+    n, d = q.shape
+    dp = narrow_dp(d)
+    tile = narrow_tile(dp)
+    pad = -n % tile
+    q = torch.nn.functional.pad(q.double(), (0, dp - d))
+    k = torch.nn.functional.pad(k.double(), (0, dp - d, 0, pad))
+    v = torch.nn.functional.pad(v.double(), (0, dp - d, 0, pad))
+    c2 = scale * LOG2E
+    o = torch.zeros(n, dp, dtype=torch.float64)
+    m = torch.full((n, 1), -torch.inf, dtype=torch.float64)
+    l = torch.zeros(n, 1, dtype=torch.float64)
+    for k0 in range(0, n, tile):
+        kt, vt = k[k0:k0 + tile], v[k0:k0 + tile]
+        s = f32(_mma3(q, kt.T, torch.zeros(n, tile, dtype=torch.float64)) * c2)
+        s[:, n - k0:] = -torch.inf  # keys past N take no weight
+        m_new = torch.maximum(m, s.max(dim=1, keepdim=True).values)
+        corr = f32(torch.exp2(m - m_new))
+        p = f32(torch.exp2(s - m_new))
+        l = f32(l * corr + p.sum(dim=1, keepdim=True))
+        o = f32(f32(o * corr) + _mma3(p, vt, torch.zeros_like(o)))
+        m = m_new
+    return (o / l)[:, :d].float()
+
+
+# D = 12 and 16 at DP = 16, 64 at 64 (64-key tiles), 100 at 128 (32-key
+# tiles); N = 40 and 100 leave the last tile part empty at either tile size
+@pytest.mark.parametrize("score_gain", [1, 8])
+@pytest.mark.parametrize("N", [40, 100])
+@pytest.mark.parametrize("D", [12, 16, 64, 100])
+def test_narrow_kernel_emulation_matches_references(D, N, score_gain):
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.normal(size=(1, N, 1, D)).astype(np.float32) for _ in range(3))
+    scale = score_gain / np.sqrt(D)
+    want_jax = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale))
+    want = attention_reference(*map(torch.from_numpy, (q, k, v)), scale).numpy()
+    tq, tk, tv = (torch.from_numpy(a[0, :, 0]) for a in (q, k, v))
+    exact = (torch.softmax(tq.double() @ tk.double().T * scale, dim=1) @ tv.double()).numpy()
+    got = emulate_narrow(tq, tk, tv, scale).numpy()
+    tol = 1e-4 * (1 + np.abs(want).max())
+    err_jax = np.abs(got - want_jax[0, :, 0]).max()
+    err_port = np.abs(got - want[0, :, 0]).max()
+    err_exact = np.abs(got - exact).max()
+    print(f"D={D} (DP={narrow_dp(D)}) N={N} score gain {score_gain}: against JAX {err_jax:.3g}, "
+          f"the port's reference {err_port:.3g}, f64 {err_exact:.3g}")
+    assert got.shape == (N, D)
+    assert err_jax <= tol
+    assert err_port <= tol
+    # S's up to 48 chained MMAs (DP = 128) in an accumulator that rounds toward
+    # zero err up to about twice the wide kernel's 16-term steps; scores x8
+    # carry 8x the absolute score error into exp
+    assert err_exact <= 3e-6 * score_gain

@@ -125,21 +125,41 @@ def test_attention_kernel_leaves_no_trace_past_n(cuda):
     assert (got - want).abs().max().item() <= 1e-4
 
 
-# the SIMT kernel at every tile class (R = 4 up to D = 256, 2 up to 512, 1 up
-# to 1024) at head dims it still serves (the multiples of 128 from 256 go to
-# the wide kernel), and ragged D (12, 20, 68: part-filled O chunks), with
-# masked N (100 leaves 28 keys of a 64-key tile empty, 1023 one key of the
-# last 16-key tile), 1-2 heads, and scores x8 so that the running max moves
+@pytest.mark.parametrize("D,width", [(60, 64), (12, 16), (100, 128), (192, 256), (900, 1024)])
+def test_attention_kernel_reads_nothing_past_d(cuda, D, width):
+    """The padded routes zero-fill columns D ... DP - 1 in shared memory and
+    store none of them: q, k, v are the first D columns of rows `width` wide
+    whose other columns, and rows past N = 100, hold NaN."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    qkv = torch.randn(1, 128, 1, 3, width, device=cuda, generator=g)
+    qkv[..., D:] = float("nan")
+    qkv[:, 100:] = float("nan")
+    q, k, v = (qkv[:, :100, :, i, :D] for i in range(3))
+    got = fused_attention(q, k, v, 1 / math.sqrt(D))
+    want = attention_reference(q, k, v, 1 / math.sqrt(D))
+    assert got.shape == (1, 100, 1, D) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
+
+
+# head dims that are not multiples of 128: the narrow kernel below 128 at
+# every padded width DP (16: D = 4, 12, 16; 32: 20, 28; 48: 44; 64; 80: 68;
+# 96; 128: 100, 124), with the zero-filled columns D ... DP - 1, and the wide
+# kernel's padded last slice above 128 (132 ... 252 at two slices, 320, 500,
+# 900 and 1020); masked N (100 leaves 28 keys of a 64-key tile empty, 1023 one
+# key of the last 16-key tile, 4095 one query row and one key), 1-2 heads,
+# and scores x8 so that the running max moves
 ANY_D_CASES = [(2, 16, 1, 16, False), (2, 100, 1, 16, True), (1, 1024, 1, 16, False),
                (2, 64, 2, 64, False), (1, 100, 1, 64, True), (1, 1024, 1, 64, False),
                (2, 16, 1, 192, False), (1, 100, 2, 252, True), (1, 1024, 1, 192, False),
                (8, 256, 1, 320, False), (1, 100, 1, 500, True), (2, 1023, 1, 1020, False),
                (1, 100, 1, 900, True), (3, 37, 1, 12, False), (1, 50, 2, 20, True),
-               (1, 70, 1, 68, False)]
+               (1, 70, 1, 68, False), (2, 100, 1, 4, True), (1, 1000, 1, 28, False),
+               (2, 65, 1, 44, True), (1, 129, 2, 96, False), (1, 100, 1, 124, True),
+               (2, 33, 1, 100, False), (1, 4095, 1, 64, True), (1, 17, 1, 132, False)]
 
 
 def _counts():
-    return FusedAttention.launches, FusedAttention.launches_wide, FusedAttention.launches_any_d
+    return FusedAttention.launches, FusedAttention.launches_wide, FusedAttention.launches_narrow
 
 
 @pytest.mark.parametrize("B,N,heads,D,big", ANY_D_CASES)
@@ -148,13 +168,14 @@ def test_attention_kernel_at_any_head_dim(cuda, B, N, heads, D, big):
     qkv = torch.randn(B, N, heads, 3, D, device=cuda, generator=g)
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     scale = (8 if big else 1) / math.sqrt(D * heads)
-    before = _counts()
+    before = list(_counts())
     got = fused_attention(q, k, v, scale)
     again = fused_attention(q, k, v, scale)
     torch.cuda.synchronize()
-    assert _counts() == (before[0], before[1], before[2] + 2)
+    before[1 if D > 128 else 2] += 2
+    assert list(_counts()) == before
     want = attention_reference(q, k, v, scale)
-    # f32 FMA on both sides, sums over D and N in another order; the chip
+    # 3xTF32 keeps f32 accuracy; sums over D and N in another order; the chip
     # check's tolerance
     assert (got - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
     assert torch.equal(got, again)
@@ -192,11 +213,12 @@ def test_attention_wide_kernel(cuda, B, N, heads, D, big):
 
 
 def test_attention_routes_by_head_dim(cuda):
-    """D = 128 to the tensor-core kernel, 256 ... 1024 in steps of 128 to the
-    wide one, and any other multiple of 4 to the SIMT kernel."""
+    """D = 128 to the D = 128 kernel, any other multiple of 4 above it up to
+    1024 to the wide kernel, and below it to the narrow kernel."""
     g = torch.Generator(device=cuda).manual_seed(12)
     for D, which in [(128, 0), (256, 1), (384, 1), (512, 1), (768, 1), (1024, 1), (12, 2),
-                     (16, 2), (64, 2), (68, 2), (192, 2), (1020, 2)]:
+                     (16, 2), (64, 2), (68, 2), (192, 1), (1020, 1), (4, 2), (124, 2),
+                     (132, 1)]:
         q = torch.randn(1, 40, 1, D, device=cuda, generator=g)
         before = list(_counts())
         fused_attention(q, q, q, 0.1)

@@ -98,8 +98,9 @@ def test_fused_attention_on_cpu_runs_plain_version_and_backward():
 
 @pytest.mark.parametrize("D,route", [(128, "d128"), (256, "wide"), (384, "wide"), (512, "wide"),
                                      (640, "wide"), (768, "wide"), (896, "wide"), (1024, "wide"),
-                                     (12, "simt"), (16, "simt"), (64, "simt"), (68, "simt"),
-                                     (192, "simt"), (1020, "simt")])
+                                     (12, "narrow"), (16, "narrow"), (64, "narrow"),
+                                     (68, "narrow"), (192, "wide"), (1020, "wide"), (4, "narrow"),
+                                     (124, "narrow"), (132, "wide"), (900, "wide")])
 def test_attention_kernel_is_picked_by_head_dim(D, route):
     assert head_dim_route(D) == route
 
