@@ -73,6 +73,20 @@ chains, DDPM through infer.py and an unconditional sample through sample.py
 batch 4 against the plain versions and 10 timed steps, and eval.py on the
 written PNGs.
 
+Last, SR3 at bf16 (`phase_sr3_512`): configs/sr_sr3_64_512.json (infer.py's
+default config) at its full width (155,334,339 parameters, seeded weights),
+in its compute dtype bfloat16 with remat, on synthetic 64 -> 512 triples:
+infer.py's full 2000-step chain (35 bf16 GN+Swish and 1 bf16 attention
+launches a forward), the idle share from a profiled cut chain, that chain and
+one forward with the kernels against the plain versions and the forward
+against the f32 forward of the same weights, the bf16 GN+Swish kernel at
+each of its shapes (C = 64 ... 2048) and the f32 one at C = 1536 and 2048,
+the bf16 attention kernel at D = 1024 (B = 1, 2), 512, 128 and 64 (each
+within 2x the plain bf16 version's error against f32, bit-identical twice,
+timed beside the plain version, the library call and the bound), and the sr3
+train step at batch 2, 512², with remat on and off (launches, gradients
+against each other, ms a step, peak memory, remat's peak the lower).
+
 Every phase raises on failure, so the script exits non-zero with no result
 line. It prints the card's name and power limit, per-kernel times beside
 their bounds, each slice's tiles/s and peak memory, the train step's time and
@@ -80,7 +94,7 @@ peak memory, a device-time breakdown of one run of each slice and of one
 train step (torch.profiler), one JSON line of kernels and, last, the device
 line.
 TF32 is off throughout, so the convolutions, matmuls and kernels all compute
-in float32.
+in float32, but for the bf16 phase, which computes in bf16 where JAX does.
 """
 
 from __future__ import annotations
@@ -278,6 +292,8 @@ ANY_D_SHAPES = ([(BATCH, n, d) for d in (16, 64, 256) for n in (16, 100, 1024)]
 SR3_SHAPES = [(4, 256, 512), (4, 64, 512), (1, 256, 512), (1, 64, 512), (12, 16, 256)]
 # route of ops.attention.head_dim_route -> its launch count in read_launches()
 ROUTE_COUNTER = {"d128": "attention", "wide": "attention_wide", "narrow": "attention_narrow"}
+# the bf16 kernels' launch counts on a float32 path
+BF16_NONE = {"group_norm_swish_bf16": 0, "attention_bf16": 0}
 
 
 def phase_attention_any_d(dev):
@@ -559,7 +575,7 @@ def phase_cifar10(dev, inner=None, plan=(31, 0), groups=None):
                     "attention": 0, "attention_wide": 0, "attention_narrow": 0,
                     "conv_gn": plan[0] * forwards if fused else 0,
                     "sites_kernel": plan[0] * forwards if fused else 0,
-                    "sites_library": plan[1] * forwards if fused else 0}
+                    "sites_library": plan[1] * forwards if fused else 0, **BF16_NONE}
         expected[attn_key] = forwards
         model.generator.manual_seed(0)
         torch.cuda.synchronize()
@@ -681,6 +697,7 @@ def reset_launches() -> None:
     for k in (FusedGroupNormSwish, FusedAttention, FusedConvGN):
         k.launches = 0
     FusedAttention.launches_wide = FusedAttention.launches_narrow = 0
+    FusedGroupNormSwish.launches_bf16 = FusedAttention.launches_bf16 = 0
     ConvSitePlan.kernel = ConvSitePlan.library = 0
 
 
@@ -691,7 +708,9 @@ def read_launches() -> dict:
     return {"group_norm_swish": FusedGroupNormSwish.launches,
             "attention": FusedAttention.launches, "attention_wide": FusedAttention.launches_wide,
             "attention_narrow": FusedAttention.launches_narrow, "conv_gn": FusedConvGN.launches,
-            "sites_kernel": ConvSitePlan.kernel, "sites_library": ConvSitePlan.library}
+            "sites_kernel": ConvSitePlan.kernel, "sites_library": ConvSitePlan.library,
+            "group_norm_swish_bf16": FusedGroupNormSwish.launches_bf16,
+            "attention_bf16": FusedAttention.launches_bf16}
 
 
 def slice_inputs(dev):
@@ -945,7 +964,7 @@ def phase_train(dev):
     torch.cuda.synchronize()
     launches = read_launches()
     expected = {"group_norm_swish": 58, "attention": 2, "attention_wide": 0, "attention_narrow": 0,
-                "conv_gn": 0, "sites_kernel": 0, "sites_library": 0}
+                "conv_gn": 0, "sites_kernel": 0, "sites_library": 0, **BF16_NONE}
     if launches != expected:
         raise AssertionError(f"train step: launches {launches}, expected {expected}")
     log(f"train step B={TRAIN_BATCH} {PATCH}²: launches {launches} (forward, backward and "
@@ -1181,7 +1200,7 @@ def phase_train_loop(dev, step_ms: float) -> dict:
             if len(psnrs) != 1 or not np.isfinite(psnrs).all():
                 raise AssertionError(f"split run to {iters}: validation PSNRs {psnrs}")
             want = dict(per_run, attention_wide=0, attention_narrow=0, conv_gn=0,
-                        sites_kernel=0, sites_library=0)
+                        sites_kernel=0, sites_library=0, **BF16_NONE)
             if got != want:
                 raise AssertionError(f"split run to {iters}: launches {got}, expected {want}")
             launches.update({k: got[k] for k in per_run})
@@ -1270,7 +1289,7 @@ TP_WARMUP, TP_TIMED = 3, 10
 TREF_T_TRUE = (0.35, 0.5, 0.65)
 TREF_STEPS, TREF_TRAIN_STEPS = 10, 30
 GN_ATTN_ONLY = {"attention_wide": 0, "attention_narrow": 0, "conv_gn": 0, "sites_kernel": 0,
-                "sites_library": 0}
+                "sites_library": 0, **BF16_NONE}
 
 
 def tp_mixtures(rng, batch: int, patch: int):
@@ -1867,7 +1886,7 @@ def write_lrhr_root(work: str, n: int, size: int, seed: int) -> str:
     from diffsplitting_tpu_torch.data.prepare_data import prepare
 
     rng = np.random.default_rng(seed)
-    src = Path(work) / "sr_src"
+    src = Path(work) / f"sr_src_{size}"
     src.mkdir(parents=True, exist_ok=True)
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
     for i in range(n):
@@ -2235,6 +2254,365 @@ def phase_sr3(dev, work: str) -> dict:
                            peak=peak))
 
 
+
+SR512_CONFIG = "configs/sr_sr3_64_512.json"
+# sr_sr3_64_512's UNet (inner 64, mults (1, 2, 4, 8, 16), 1 res block, 16
+# groups, attention only in the mid block at 32², D = 1024; bf16, remat): its
+# parameters, and its GN+Swish and attention calls a forward
+SR512_PARAMS, SR512_GN_FWD, SR512_ATTN_FWD = 155334339, 35, 1
+SR512_BLOCKS = 17  # ResnetBlockWithAttn modules, each rematerialized in the backward
+SR512_SERVE_STEPS = 2000  # the config's val schedule, run in full
+SR512_CUT_STEPS = 20  # the chain cut for kernels vs plain versions and the profile
+SR512_TRAIN_BATCH, SR512_TRAIN_WARMUP, SR512_TRAIN_TIMED = 2, 1, 3
+BF16_FLOPS_PER_S = 989e12
+# the bf16 attention kernel at the mid block (B = 1 serving, 2 training) and
+# at other head dims (N = 1024)
+SR512_ATTN_SHAPES = [(1, 1024, 1024), (2, 1024, 1024), (1, 1024, 512), (1, 1024, 128),
+                     (1, 1024, 64)]
+
+
+def phase_gn_bf16(dev, shapes, groups) -> tuple:
+    """The bf16 GN+Swish kernel at every (C, H, W) of one sr_sr3_64_512
+    forward at batch 1, and the f32 kernel at its C > 1024 shapes: each
+    against an f32 reference from the same inputs (bf16: at most 2x the plain
+    bf16 version's error; f32: the f32 kernel's 1e-4 tolerance), two launches
+    bit-identical, and the times (host loop, device time by CUDA-graph
+    replay, plain, `F.silu(F.group_norm)` in the same dtype, bound) summed
+    over the forward's calls (bf16) or listed by shape (f32)."""
+    import torch
+    import torch.nn.functional as F
+    from diffsplitting_tpu_torch.kernels.variants import device_ms
+    from diffsplitting_tpu_torch.ops import fused_group_norm_swish, group_norm_swish_reference
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    worst, f32_rows = dict(kernel=0.0, plain=0.0), {}
+    cases = [(shape, calls, torch.bfloat16) for shape, calls in sorted(shapes.items())]
+    cases += [(shape, 0, torch.float32) for shape in sorted(shapes) if shape[0] > 1024]
+    for (C, H, W), calls, dtype in cases:
+        x = (torch.randn(1, H, W, C, device=dev, generator=g) * 2 + 0.5).to(dtype)
+        scale = torch.randn(C, device=dev, generator=g)
+        bias = torch.randn(C, device=dev, generator=g)
+        got = fused_group_norm_swish(x, scale, bias, groups)
+        again = fused_group_norm_swish(x, scale, bias, groups)
+        plain = group_norm_swish_reference(x, scale, bias, groups)
+        ref = group_norm_swish_reference(x.float(), scale, bias, groups)
+        torch.cuda.synchronize()
+        err, plain_err = max_err(got, ref), max_err(plain, ref)
+        ok = (err <= 2 * plain_err if dtype == torch.bfloat16
+              else err <= 1e-4 * (1 + ref.abs().max().item()))
+        if not ok or not torch.equal(got, again):
+            raise AssertionError(f"GN+Swish {dtype} C={C} H={H}: err {err} (plain {plain_err}), "
+                                 f"two launches equal {torch.equal(got, again)}")
+        x_nchw = x.permute(0, 3, 1, 2)
+        sc, bi = scale.to(dtype), bias.to(dtype)
+        ms = time_ms(lambda: fused_group_norm_swish(x, scale, bias, groups), 20)
+        dev_ms = device_ms(lambda: fused_group_norm_swish(x, scale, bias, groups), 20)
+        plain_ms = time_ms(lambda: group_norm_swish_reference(x, scale, bias, groups), 5)
+        lib = time_ms(lambda: F.silu(F.group_norm(x_nchw, groups, sc, bi, 1e-5)), 5)
+        bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3  # read x, write y
+        log(f"gn_swish {str(dtype)[6:]} B=1 H={H} W={W} C={C} calls/forward={calls}: err "
+            f"{err:.3g} (plain {str(dtype)[6:]} {plain_err:.3g}, against f32 of the same inputs), "
+            f"two launches bit-identical; kernel {ms:.4f} ms (device time {dev_ms:.4f}) plain "
+            f"{plain_ms:.4f} ms library {lib:.4f} ms bound {bound:.4f} ms ({bound / dev_ms:.1%} "
+            "of the HBM rate by device time)")
+        row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound)
+        if dtype == torch.bfloat16:
+            for k in tot:
+                tot[k] += calls * row[k]
+            worst = dict(kernel=max(worst["kernel"], err), plain=max(worst["plain"], plain_err))
+        else:
+            f32_rows[f"C={C} H={H}"] = dict(row, max_abs_err=err)
+        del x, x_nchw, got, again, plain, ref
+    torch.cuda.empty_cache()
+    log(f"gn_swish bf16 per sr_sr3_64_512 forward at B=1 ({sum(shapes.values())} calls): "
+        + " ".join(f"{k} {v:.4f}" for k, v in tot.items()))
+    return tot, worst, f32_rows
+
+
+def phase_attention_bf16(dev) -> tuple:
+    """The bf16 attention kernel at SR512_ATTN_SHAPES (q, k, v as views of
+    one qkv tensor, as the attention block hands them over): against an f32
+    reference from the same bf16 inputs, at most 2x the plain bf16 version's
+    error; two launches bit-identical; device time by CUDA-graph replay
+    beside the plain version and SDPA in bf16, and the bound (4·B·N²·D
+    operations at 989 TFLOP/s bf16, or q, k, v and out once through HBM)."""
+    import torch
+    import torch.nn.functional as F
+    from diffsplitting_tpu_torch.kernels.variants import device_ms
+    from diffsplitting_tpu_torch.ops import attention_reference, fused_attention
+
+    g = torch.Generator(device=dev).manual_seed(42)
+    res, worst = {}, dict(kernel=0.0, plain=0.0)
+    for B, N, D in SR512_ATTN_SHAPES:
+        qkv = torch.randn(B, N, 1, 3, D, device=dev, generator=g).bfloat16()
+        q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+        scale = 1.0 / math.sqrt(D)
+        reset_launches()
+        got = fused_attention(q, k, v, scale)
+        again = fused_attention(q, k, v, scale)
+        launched = read_launches()
+        plain = attention_reference(q, k, v, scale)
+        ref = attention_reference(q.float(), k.float(), v.float(), scale)
+        torch.cuda.synchronize()
+        err, plain_err = max_err(got, ref), max_err(plain, ref)
+        if launched["attention_bf16"] != 2 or not (err <= 2 * plain_err) or not torch.equal(
+                got, again):
+            raise AssertionError(f"attention bf16 B={B} N={N} D={D}: launches {launched}, err "
+                                 f"{err} (plain {plain_err}), two launches equal "
+                                 f"{torch.equal(got, again)}")
+        worst = dict(kernel=max(worst["kernel"], err), plain=max(worst["plain"], plain_err))
+        ms = time_ms(lambda: fused_attention(q, k, v, scale), 20)
+        dev_ms = device_ms(lambda: fused_attention(q, k, v, scale))
+        plain_ms = device_ms(lambda: attention_reference(q, k, v, scale), 5)
+        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+        flops = 4 * B * N * N * D
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        bytes_ms = 4 * B * N * D * 2 / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        log(f"attention bf16 B={B} N={N} D={D} heads=1: err {err:.3g} (plain bf16 {plain_err:.3g}, "
+            f"against f32 of the same inputs), two launches bit-identical; kernel {ms:.4f} ms "
+            f"(device time {dev_ms:.4f}) plain {plain_ms:.4f} ms SDPA bf16 {lib:.4f} ms (device "
+            f"times; SDPA {lib / dev_ms:.2f}x the kernel's) bound {bound:.4f} ms ({by}; bf16 "
+            f"tensor-core {ops_ms:.4f}, bytes {bytes_ms:.4f}; {bound / dev_ms:.1%} of it, "
+            f"{flops / dev_ms / 1e9:.1f} bf16 TFLOP/s)")
+        res[(B, N, D)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib,
+                              bound_ms=bound, bound_by=by, max_abs_err=err,
+                              plain_max_abs_err=plain_err)
+        del qkv, q, k, v, got, again, plain, ref
+    torch.cuda.empty_cache()
+    return res, worst
+
+
+def phase_sr3_512(dev, work: str) -> dict:
+    """configs/sr_sr3_64_512.json (infer.py's default config) at its full
+    width (inner 64, mults (1, 2, 4, 8, 16), 1 res block, 16 groups, 512²
+    images, 155,334,339 parameters, seeded weights), at its compute dtype
+    bfloat16 with remat on, on seeded synthetic 64 -> 512 LR/HR/SR triples
+    (numpy and PIL bicubic, through the port's prepare_data):
+      * the port's infer.py `main` over the config's full 2000-step val
+        schedule on one image: 35 bf16 GN+Swish and 1 bf16 attention (D =
+        1024, N = 1024) launches a forward asserted, seconds a chain,
+        forwards/s, peak memory; the device time a step of a chain cut to
+        SR512_CUT_STEPS steps under the profiler, and from it the idle share
+        of the unprofiled chain; that cut chain with the kernels against the
+        plain versions from the same noise;
+      * one forward at batch 1 with the kernels against the plain versions,
+        and against the f32 forward of the same weights (the error bf16
+        costs), both reported as max and mean abs error over max|f32|;
+      * the bf16 GN+Swish kernel at each of the forward's (C, H, W) (C = 64
+        ... 2048) and the f32 kernel at C = 1536 and 2048, the bf16
+        attention kernel at SR512_ATTN_SHAPES (phase_gn_bf16,
+        phase_attention_bf16);
+      * the sr3 train step at batch 2, 512², with remat on and off, from the
+        same weights and draws, under cuDNN's deterministic algorithms: loss
+        and every gradient of the two against each other, the launches of
+        each (the remat step recomputes every block's two GN+Swish and the
+        mid block's attention), ms a step and peak memory, remat's peak below
+        the other's."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from diffsplitting_tpu_torch import infer
+    from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
+    from diffsplitting_tpu_torch.data.lrhr_dataset import LRHRDataset
+    from diffsplitting_tpu_torch.kernels import groupnorm_variants
+    from diffsplitting_tpu_torch.models import UNet
+    from diffsplitting_tpu_torch.serving import unet_kwargs
+    from diffsplitting_tpu_torch.train import DiffusionModel
+
+    t_phase = time.perf_counter()
+    base = dict_to_nonedict(load_json(SR512_CONFIG))
+    model_opt = base["model"]
+    if (model_opt["compute_dtype"], model_opt["remat"]) != ("bfloat16", True):
+        raise AssertionError(f"{SR512_CONFIG} no longer trains in bf16 with remat")
+    T = int(model_opt["beta_schedule"]["val"]["n_timestep"])
+    size = int(model_opt["diffusion"]["image_size"])
+    groups = int(model_opt["unet"]["norm_groups"])
+    lr_size = int(base["datasets"]["val"]["l_resolution"])
+    root = write_lrhr_root(work, SR512_TRAIN_BATCH, size, seed=40)
+    steps = SR512_SERVE_STEPS
+    cfg = sr_config(work, SR512_CONFIG, root, 1, None if steps == T else steps)
+    if steps != T:
+        log(f"sr3_512 phase: infer.py's chain is cut to {steps} of {T} steps")
+
+    # ------------------------------------------------ serving: infer.py, bf16
+    per_forward = dict(GN_ATTN_ONLY, group_norm_swish=0, attention=0,
+                       group_norm_swish_bf16=SR512_GN_FWD, attention_bf16=SR512_ATTN_FWD)
+    served = serve_cli("sr3_512 infer.py (bf16)", infer,
+                       ["-c", cfg, "-rootdir", str(Path(work) / "sr512_experiments")],
+                       per_forward, steps)
+    model = served["model"]
+    net = model.nets.denoise_fn
+    n_params = sum(p.numel() for p in net.parameters())
+    unet_opt = model_opt["unet"]
+    widest = max(m.out_channels for m in net.modules()
+                 if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (3, 3))
+    if (n_params, net.compute_dtype, widest) != (
+            SR512_PARAMS, torch.bfloat16,
+            int(unet_opt["inner_channel"]) * max(unet_opt["channel_multiplier"])):
+        raise AssertionError(f"{SR512_CONFIG}: {n_params} parameters, compute dtype "
+                             f"{net.compute_dtype}, widest conv {widest}")
+    results = served["results"]
+    sr = np.asarray(Image.open(Path(results) / "0_1_sr.png"))
+    if sr.shape != (size, size, 3):
+        raise AssertionError(f"infer.py's SR image is {sr.shape}")
+
+    # ------------------------------------------------ a cut chain: profile, plain
+    cut = dict(model_opt["beta_schedule"]["val"], n_timestep=SR512_CUT_STEPS)
+    model.set_new_noise_schedule(cut, "cut")
+    item = LRHRDataset(root, "img", lr_size, size, split="val", need_LR=False)[0]
+    model.feed_data({"input": item["SR"][None], "target": item["HR"][None]})
+    prof = chain_profile(model, SR512_CUT_STEPS, False, steps, served["chain_s"])
+    outs = {}
+    for label, plain in (("kernels", False), ("plain", True)):
+        model.sample_generator.manual_seed(0)
+        with plain_versions() if plain else contextlib.nullcontext():
+            outs[label] = model.test().clone()
+    scale = outs["plain"].abs().max().item()
+    chain_err = max_err(outs["kernels"], outs["plain"]) / scale
+    # bf16 on both sides; the attention kernel keeps f32 scores where the
+    # plain version rounds them to bf16, and the chain carries the difference
+    if not (torch.isfinite(outs["kernels"]).all() and chain_err <= 5e-2):
+        raise AssertionError(f"sr3_512 {SR512_CUT_STEPS}-step chain, kernels vs plain versions: "
+                             f"max abs err {chain_err} of max|plain| > 5e-2")
+    log(f"sr3_512 {SR512_CUT_STEPS}-step chain, kernels vs plain versions: max abs err "
+        f"{chain_err:.3g} of max|plain| (tol 5e-2)")
+    del outs
+
+    # ------------------------------------------------ one forward: plain versions, f32
+    g = torch.Generator(device=dev).manual_seed(43)
+    x = torch.randn(1, size, size, net.in_channel, device=dev, generator=g)
+    level = torch.rand(1, device=dev, generator=g)
+    f32_net = UNet(**dict(unet_kwargs(model_opt, "noise_level"), dtype=None)).to(dev).eval()
+    f32_net.load_state_dict(net.state_dict())
+    with torch.inference_mode():
+        net.eval()
+        reset_launches()
+        got = net(x, level)
+        launched = read_launches()
+        shapes = groupnorm_variants.gn_shapes(net, x, level)
+        with plain_versions():
+            want = net(x, level)
+        exact = f32_net(x, level)
+    if (launched["group_norm_swish_bf16"], launched["attention_bf16"]) != (SR512_GN_FWD,
+                                                                           SR512_ATTN_FWD):
+        raise AssertionError(f"sr3_512 forward: launches {launched}")
+    m = exact.abs().max().item()
+    fwd = {}
+    for what, a, b in (("kernels vs plain versions (bf16)", got, want),
+                       ("bf16 kernels vs f32 forward", got, exact),
+                       ("bf16 plain vs f32 forward", want, exact)):
+        d = (a - b).abs()
+        fwd[what] = dict(max=d.max().item() / m, mean=d.mean().item() / m)
+        log(f"sr3_512 forward B=1 {size}², {what}: max abs err {fwd[what]['max']:.3g}, mean "
+            f"{fwd[what]['mean']:.3g} of max|f32| ({m:.3g})")
+    if not (torch.isfinite(got).all() and fwd["kernels vs plain versions (bf16)"]["max"] <= 5e-2
+            and fwd["bf16 kernels vs f32 forward"]["max"] <= 1e-1):
+        raise AssertionError(f"sr3_512 forward: {fwd}")
+    if sum(shapes.values()) != SR512_GN_FWD:
+        raise AssertionError(f"expected {SR512_GN_FWD} GN+Swish calls a forward, saw {shapes}")
+    del x, got, want, exact, f32_net, model, served["model"]
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ kernels at this config's shapes
+    gn, gn_worst, gn_f32 = phase_gn_bf16(dev, shapes, groups)
+    attn, attn_worst = phase_attention_bf16(dev)
+
+    # ------------------------------------------------ the train step, remat on and off
+    opt = dict_to_nonedict(load_json(cfg))
+    ds = LRHRDataset(root, "img", lr_size, size, split="val", need_LR=False)
+    items = [ds[i] for i in range(SR512_TRAIN_BATCH)]
+    batch = {"target": np.stack([it["HR"] for it in items]),
+             "input": np.stack([it["SR"] for it in items])}
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    train, grads = {}, {}
+    try:
+        for remat in (True, False):
+            opt["model"]["remat"] = remat
+            trainer = DiffusionModel(opt, device=dev, seed=0)
+            trainer.feed_data(batch)
+            gd = torch.Generator(device=dev).manual_seed(44)
+            sched = trainer.current_sched
+            t = 1 + int(torch.randint(0, sched.num_timesteps, (), generator=gd, device=dev))
+            lo, hi = sched.sqrt_alphas_cumprod_prev[t - 1], sched.sqrt_alphas_cumprod_prev[t]
+            gamma = lo + torch.rand(SR512_TRAIN_BATCH, device=dev, generator=gd) * (hi - lo)
+            noise = torch.randn(SR512_TRAIN_BATCH, size, size, 3, device=dev, generator=gd)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            trainer.optimize_parameters([(t, gamma, noise)])
+            torch.cuda.synchronize()
+            launches = read_launches()
+            peak_first = torch.cuda.max_memory_allocated()
+            recompute = 2 * SR512_BLOCKS if remat else 0
+            want = dict(per_forward, group_norm_swish_bf16=SR512_GN_FWD + recompute,
+                        attention_bf16=SR512_ATTN_FWD * (2 if remat else 1))
+            if launches != want:
+                raise AssertionError(f"sr3_512 train step, remat={remat}: launches {launches}, "
+                                     f"expected {want}")
+            grads[remat] = (trainer.get_current_log(),
+                            {n: p.grad.detach().clone()
+                             for n, p in trainer.nets.named_parameters() if p.grad is not None})
+            walls = []
+            for step in range(SR512_TRAIN_WARMUP + SR512_TRAIN_TIMED):
+                if step == SR512_TRAIN_WARMUP:
+                    torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.optimize_parameters()
+                torch.cuda.synchronize()
+                if step >= SR512_TRAIN_WARMUP:
+                    walls.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            ms = sorted(walls)[len(walls) // 2] * 1e3
+            loss = trainer.get_current_log()["l_pix"]
+            if not np.isfinite(loss):
+                raise AssertionError(f"sr3_512 train loss {loss}")
+            train[remat] = dict(ms=ms, samples_per_s=SR512_TRAIN_BATCH / ms * 1e3, peak=peak,
+                                peak_first_step=peak_first, launches=launches)
+            log(f"sr3_512 train step B={SR512_TRAIN_BATCH} {size}², bf16, remat={remat}: "
+                f"{SR512_TRAIN_TIMED} steps {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, "
+                f"median {ms:.2f} ms, {train[remat]['samples_per_s']:.2f} samples/s, peak memory "
+                f"{peak / 2**30:.2f} GiB ({peak} bytes; first step {peak_first}), launches "
+                f"{launches}, loss {loss:.2f}")
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    (log_on, g_on), (log_off, g_off) = grads[True], grads[False]
+    worst, bit_equal = 0.0, True
+    for name, gw in g_off.items():
+        d = (g_on[name] - gw).abs().max().item()
+        bit_equal = bit_equal and d == 0.0
+        worst = max(worst, d / max(gw.abs().max().item(), 1e-30))
+    # remat recomputes the same deterministic forward: the gradients are
+    # expected bit for bit; the bound allows cuDNN's own rounding only
+    if not (g_on.keys() == g_off.keys() and log_on["l_pix"] == log_off["l_pix"]
+            and worst <= 1e-3):
+        raise AssertionError(f"sr3_512 train step, remat vs not: loss {log_on['l_pix']} vs "
+                             f"{log_off['l_pix']}, worst gradient err {worst} of max|g|")
+    if not train[True]["peak"] < train[False]["peak"]:
+        raise AssertionError(f"sr3_512 remat peak {train[True]['peak']} not below "
+                             f"{train[False]['peak']}")
+    log(f"sr3_512 train step, remat vs not: loss equal, gradients bit-equal {bit_equal} (worst "
+        f"{worst:.3g} of max|g|, tol 1e-3); peak memory {train[True]['peak'] / 2**30:.2f} vs "
+        f"{train[False]['peak'] / 2**30:.2f} GiB, ms a step {train[True]['ms']:.2f} vs "
+        f"{train[False]['ms']:.2f}")
+
+    secs = time.perf_counter() - t_phase
+    log(f"sr3_512 phase: {secs:.1f} s")
+    return dict(launches={k: served["launches"][k] + sum(r["launches"][k] for r in train.values())
+                          for k in ("group_norm_swish_bf16", "attention_bf16")},
+                gn=gn, gn_worst=gn_worst, gn_f32=gn_f32, attn=attn, attn_worst=attn_worst,
+                chain=dict(chain_s=served["chain_s"], forwards_per_s=served["forwards_per_s"],
+                           peak=served["peak"], steps=steps, **prof),
+                chain_err=chain_err, forward=fwd, train=train, seconds=secs)
+
+
 def main() -> int:
     import torch
 
@@ -2330,7 +2708,7 @@ def main() -> int:
         model, frames, False,
         {"group_norm_swish": 29 * forwards, "attention": forwards, "attention_wide": 0,
          "attention_narrow": 0,
-         "conv_gn": 0, "sites_kernel": 0, "sites_library": 0},
+         "conv_gn": 0, "sites_kernel": 0, "sites_library": 0, **BF16_NONE},
         n_tiles, forwards)
     model.generator.manual_seed(0)
     with plain_versions():
@@ -2349,7 +2727,8 @@ def main() -> int:
         model, frames, True,
         {"group_norm_swish": forwards, "attention": forwards, "attention_wide": 0,
          "attention_narrow": 0,
-         "conv_gn": 31 * forwards, "sites_kernel": 31 * forwards, "sites_library": 0},
+         "conv_gn": 31 * forwards, "sites_kernel": 31 * forwards, "sites_library": 0,
+         **BF16_NONE},
         n_tiles, forwards)
     err = max_err(out_fused, out)
     tol = 1e-3 * out.abs().max().item() + 1e-4
@@ -2369,6 +2748,7 @@ def main() -> int:
         dcache = phase_deepcache(dev, tref["joint"])
         window = phase_sliding_window(dev, tref["joint"])
         sr3 = phase_sr3(dev, work)
+        sr512 = phase_sr3_512(dev, work)
     wide_shape = (BATCH, 16, 256)  # the mid block of the inner-32 path
     narrow_shape = (BATCH, 16, 64)  # the mid block of the inner-8 path
 
@@ -2427,6 +2807,26 @@ def main() -> int:
              max_abs_err=max(conv_err, sr3["conv_err"]), ms=conv["ms"],
              plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],
              library_ms=conv["library_ms"]),
+        dict(name="group_norm_swish_bf16", route="cuda",
+             source="diffsplitting_tpu_torch/csrc/groupnorm_swish.cu",
+             replaces="diffsplitting_tpu/experimental/groupnorm_pallas.py:21,58",
+             launches=sr512["launches"]["group_norm_swish_bf16"],
+             max_abs_err=sr512["gn_worst"]["kernel"],
+             plain_max_abs_err=sr512["gn_worst"]["plain"],
+             **{k: sr512["gn"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                            "device_ms")}, bound_by="bytes",
+             f32_wide_c=sr512["gn_f32"]),
+        dict(name="attention_bf16", route="cuda",
+             source="diffsplitting_tpu_torch/csrc/attention_bf16.cu",
+             replaces="diffsplitting_tpu/ops/attention.py:33",
+             launches=sr512["launches"]["attention_bf16"],
+             max_abs_err=sr512["attn_worst"]["kernel"],
+             plain_max_abs_err=sr512["attn_worst"]["plain"], at="B=1 N=1024 D=1024",
+             **{k: sr512["attn"][(1, 1024, 1024)][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")},
+             by_shape={"B=%d N=%d D=%d" % key: {k: r[k] for k in (
+                 "device_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+                 "plain_max_abs_err")} for key, r in sr512["attn"].items()}),
     ]
     log("group_norm_swish times are per UNet forward (29 calls at batch 8), through a host loop "
         "of calls (device_ms: its device time alone, by CUDA-graph replay), and its launches are "
@@ -2446,7 +2846,14 @@ def main() -> int:
         "phase's fused exact chain's; each kernel's launches also count the SR3 phase's "
         "(infer.py's 2000-step chains unfused and fused, DDPM's chain, sample.py's, one train "
         "step), attention_wide's its 6 a forward at D = 512, and group_norm_swish's "
-        "sr3_forward_b1 holds its times a forward of sr_sr3_16_128 at batch 1 (55 calls)")
+        "sr3_forward_b1 holds its times a forward of sr_sr3_16_128 at batch 1 (55 calls); "
+        "group_norm_swish_bf16 times are per sr_sr3_64_512 forward at batch 1 (35 calls; "
+        "device_ms by CUDA-graph replay; plain and library (F.silu(F.group_norm) in bf16) "
+        "through a host loop) and its launches are that phase's infer.py chain and its two "
+        "train steps (remat on and off); attention_bf16 times are at its mid block (B=1, "
+        "N=1024, D=1024; plain_ms and library_ms (SDPA in bf16) by CUDA-graph replay), its "
+        "launches likewise; each bf16 max_abs_err is against an f32 reference from the same "
+        "bf16 inputs, beside the plain bf16 version's (plain_max_abs_err)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

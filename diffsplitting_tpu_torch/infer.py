@@ -16,9 +16,10 @@ The device is the card unless `--device` says otherwise; without CUDA the
 CLI raises unless `--device cpu` is given. `-gpu` is accepted and ignored.
 The serving accelerators `--deepcache`, `--sliding_window`, `--ddim`,
 `--w8a8` and `--w8a8_sites` are accepted and raise NotImplementedError: they
-are not ported for ddpm / sr3 (ROADMAP item 1f). A config with
-`compute_dtype: bfloat16` (the default config, configs/sr_sr3_64_512.json)
-is refused: the port computes in float32.
+are not ported for ddpm / sr3 (ROADMAP item 1f). The config's
+`compute_dtype` (bfloat16 in the default config, configs/sr_sr3_64_512.json)
+is the UNet's, as in JAX; DSP_PRECAST=1 casts the Conv/Linear weights to it
+once a chain (models/precision.py); a dtype JAX does not take is refused.
 """
 
 from __future__ import annotations
@@ -105,8 +106,9 @@ def main(argv: Optional[list] = None) -> dict:
     device = resolve_device(args.device)
     refuse_accelerators(args)
     check_compute_dtype(Logger.load_json(args.config)["model"])
-    # float32 throughout, as the JAX package computes these configs; cuDNN
-    # would otherwise run the convolutions in TF32
+    # the config's compute dtype (float32, or bfloat16 with f32 statistics)
+    # as the JAX package computes it; cuDNN would otherwise run the float32
+    # convolutions in TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -14,6 +14,15 @@ kernel. Dropout sits after the GroupNorm+Swish of each ResnetBlock's second
 Block, as in JAX (`Dropout`, `block.2`): a plain op on the kernel's output,
 active only in `train()` mode, with its mask drawn from an explicit generator
 (`set_dropout_generator`).
+
+Compute dtype (the UNet's `compute_dtype`, models/precision.py): parameters
+stay float32. `Conv2d` and `Linear` cast their input, weight and bias to
+their `compute_dtype` at the call, as flax's Conv/Dense(dtype=bf16) promote
+them. The cast points follow JAX's modules: GroupNorm+Swish reads bf16 and
+returns bf16 (f32 statistics); the attention block's own GroupNorm returns
+f32 from a bf16 input (flax promotes to its f32 parameters), and its qkv conv
+casts back to bf16; the time embeddings are f32 until their first Linear;
+Dropout, FiLM, the residual adds and Upsample run in the activations' dtype.
 """
 
 from __future__ import annotations
@@ -32,6 +41,31 @@ GN_EPS = 1e-5
 
 def swish(x):
     return x * torch.sigmoid(x)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that computes in `compute_dtype`, casting its input, weight
+    and bias to it at the call (flax's Conv with `dtype`); None: the
+    promotion of the input's and the weight's dtypes (flax's default). The
+    parameters and their state-dict names are nn.Conv2d's."""
+
+    compute_dtype = None
+
+    def forward(self, x):
+        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """nn.Linear that computes in `compute_dtype`, as `Conv2d` does (flax's
+    Dense with `dtype`)."""
+
+    compute_dtype = None
+
+    def forward(self, x):
+        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class Swish(nn.Module):
@@ -79,7 +113,7 @@ class FeatureWiseAffine(nn.Module):
         super().__init__()
         self.use_affine_level = use_affine_level
         self.noise_func = nn.Sequential(
-            nn.Linear(in_channels, out_channels * (2 if use_affine_level else 1)))
+            Linear(in_channels, out_channels * (2 if use_affine_level else 1)))
 
     def forward(self, noise_embed):
         """(scale or None, bias), each (B, C): features' = features·scale + bias."""
@@ -113,7 +147,8 @@ class Dropout(nn.Module):
     keep each element where a uniform draw is below 1 − p and scale it by
     1/(1 − p); otherwise the identity. The mask comes from `generator` (set
     by `set_dropout_generator`), never from the global RNG, and is drawn in
-    the tensor's NHWC order."""
+    float32 in the tensor's NHWC order, so a bf16 tensor gets the mask an
+    f32 one would; the kept values are scaled in the tensor's dtype."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -129,7 +164,8 @@ class Dropout(nn.Module):
             raise RuntimeError("dropout in train mode needs a generator: call "
                                "set_dropout_generator(module, generator) first")
         nhwc = x.permute(0, 2, 3, 1)
-        u = torch.rand(nhwc.shape, generator=self.generator, device=x.device, dtype=x.dtype)
+        u = torch.rand(nhwc.shape, generator=self.generator, device=x.device,
+                       dtype=torch.float32)
         keep_prob = 1.0 - self.p
         return torch.where(u < keep_prob, nhwc / keep_prob, 0.0).permute(0, 3, 1, 2)
 
@@ -150,7 +186,7 @@ class Block(nn.Module):
         self.block = nn.Sequential(
             GroupNormSwish(groups, dim), nn.Identity(),
             Dropout(dropout) if dropout > 0 else nn.Identity(),
-            nn.Conv2d(dim, dim_out, 3, padding=1))
+            Conv2d(dim, dim_out, 3, padding=1))
 
     def forward(self, x):
         return self.block(x)
@@ -168,13 +204,13 @@ class ResnetBlock(nn.Module):
         super().__init__()
         if cond_type not in ("time", "noise_level", "none"):
             raise ValueError(f"cond_type {cond_type!r}")
-        self.mlp = (nn.Sequential(Swish(), nn.Linear(time_dim, dim_out))
+        self.mlp = (nn.Sequential(Swish(), Linear(time_dim, dim_out))
                     if cond_type == "time" else None)
         self.noise_func = (FeatureWiseAffine(time_dim, dim_out, use_affine_level)
                            if cond_type == "noise_level" else None)
         self.block1 = Block(dim, dim_out, norm_groups)
         self.block2 = Block(dim_out, dim_out, norm_groups, dropout)
-        self.res_conv = nn.Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
+        self.res_conv = Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
     def film(self, time_emb):
         """(scale or None, bias or None), each (B, C): the conditioning as an
@@ -199,19 +235,22 @@ class ResnetBlock(nn.Module):
 class SelfAttention(nn.Module):
     """Full spatial self-attention over H·W tokens, scale 1/√C (the full
     channel count). qkv channels per head are laid out [q | k | v]. Its own
-    GroupNorm has learned weight and bias and no swish."""
+    GroupNorm has learned weight and bias and no swish, and computes and
+    returns f32 whatever the input's dtype, as flax's GroupNorm promotes a
+    bf16 input to its f32 parameters; the qkv conv casts to the compute
+    dtype."""
 
     def __init__(self, channels: int, norm_groups: int, n_head: int = 1):
         super().__init__()
         self.n_head = n_head
         self.norm = nn.GroupNorm(norm_groups, channels, eps=GN_EPS)
-        self.qkv = nn.Conv2d(channels, channels * 3, 1, bias=False)
-        self.out = nn.Conv2d(channels, channels, 1)
+        self.qkv = Conv2d(channels, channels * 3, 1, bias=False)
+        self.out = Conv2d(channels, channels, 1)
 
     def forward(self, x):
         B, C, H, W = x.shape
         head_dim = C // self.n_head
-        qkv = self.qkv(self.norm(x))
+        qkv = self.qkv(self.norm(x.float()))
         # NHWC, contiguous (a no-op view when the conv kept channels_last), so
         # that q, k and v are unit-stride views of one tensor
         qkv = qkv.permute(0, 2, 3, 1).contiguous().reshape(B, H * W, self.n_head, 3, head_dim)
@@ -222,6 +261,8 @@ class SelfAttention(nn.Module):
 
 
 class ResnetBlockWithAttn(nn.Module):
+    remat = False  # rematerialized in the UNet's train forward (UNet's `remat`)
+
     def __init__(self, dim: int, dim_out: int, time_dim, norm_groups: int,
                  cond_type: str = "time", with_attn: bool = False, dropout: float = 0.0,
                  use_affine_level: bool = False):
@@ -242,7 +283,7 @@ class Downsample(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.conv = nn.Conv2d(dim, dim, 3, stride=2, padding=1)
+        self.conv = Conv2d(dim, dim, 3, stride=2, padding=1)
 
     def forward(self, x):
         return self.conv(x)
@@ -253,7 +294,7 @@ class Upsample(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.conv = nn.Conv2d(dim, dim, 3, padding=1)
+        self.conv = Conv2d(dim, dim, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))

@@ -74,9 +74,7 @@ class CachedUNet:
 
     def __call__(self, x, time=None, cached_deep: Optional[torch.Tensor] = None):
         net = self.net
-        if x.shape[-1] != net.in_channel:
-            raise ValueError(f"expected {net.in_channel} input channels, got {x.shape[-1]}")
-        h = x.float().permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        h = net.entry(x)
         t = net.embed(time)
 
         def run(layers, h, skips, push):

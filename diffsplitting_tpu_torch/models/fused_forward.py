@@ -35,7 +35,9 @@ disagrees with `net.apply` whenever that bias is not zero. Here the bias is
 added to the second conv's bias (b + b_skip), which matches the UNet.
 
 Inference only: it runs without autograd, and the conv kernel has no
-backward.
+backward. float32 only: a UNet at compute dtype bfloat16 raises
+NotImplementedError (the conv_gn kernel in bf16 is the next ROADMAP item,
+1e part 3); it is not routed to library ops.
 """
 
 from __future__ import annotations
@@ -226,6 +228,10 @@ def fused_unet_forward(unet, x, time=None):
     Returns (B, H, W, out_channel) f32, as `unet(x, time)` does."""
     if x.shape[-1] != unet.in_channel:
         raise ValueError(f"expected {unet.in_channel} input channels, got {x.shape[-1]}")
+    if unet.compute_dtype is not None:
+        raise NotImplementedError(
+            f"the fused walk at compute dtype {unet.compute_dtype} needs the conv_gn kernel in "
+            "bf16 (ROADMAP item 1e, part 3): serve this UNet unfused (DSP_FUSED unset)")
     t = unet.embed(time)
 
     h = st_from(_conv_nhwc(unet.downs[0], x.float().contiguous()))

@@ -24,24 +24,72 @@ none), as in JAX; it acts in `train()` mode only (`blocks.Dropout`).
 Submodule names give exactly the state-dict keys of the reference torch
 UNet (`time_mlp.*`, `downs.*`, `mid.*`, `ups.*`, `final_conv.*`).
 `forward(x, t)` takes NHWC like the JAX UNet and returns NHWC float32.
+
+`dtype` (torch.bfloat16 or None, float32) is the compute dtype, as JAX's
+`dtype`: the parameters stay float32, every Conv/Linear computes in it
+(`blocks.Conv2d`, `blocks.Linear`), the input is cast to it at the entry and
+the output to float32 at the exit, and the conditioning is cast to it after
+the embedding MLP.
+
+`remat` rematerializes, in `train()` mode, each ResnetBlockWithAttn whose
+resolution is at least `remat_min_res` (0: all), as JAX wraps them in
+`nn.remat`: `torch.utils.checkpoint` keeps only the block's inputs and
+recomputes the rest in the backward (`remat_block`), replaying the forward's
+dropout masks. The parameter names do not change, so remat and plain
+checkpoints are interchangeable.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import (
     Block,
+    Conv2d,
     Downsample,
+    Dropout,
+    Linear,
     PositionalEncoding,
     ResnetBlockWithAttn,
     Swish,
     TimeEmbedding,
     Upsample,
 )
+
+
+def remat_block(layer: ResnetBlockWithAttn, x, t):
+    """`layer(x, t)` under activation checkpointing (non-reentrant): the
+    forward keeps only x and t, and the backward runs the block again. Its
+    Dropouts draw from explicit generators, which checkpoint's
+    `preserve_rng_state` does not cover, so the recompute sets each generator
+    back to its state at the block's entry, as `nn.remat` replays its keys,
+    and afterwards to the state it had found (the recompute may stop early)."""
+    gens = []
+    for m in layer.modules():
+        if (isinstance(m, Dropout) and m.training and m.p > 0 and m.generator is not None
+                and all(m.generator is not g for g in gens)):
+            gens.append(m.generator)
+    entry = [g.get_state() for g in gens]
+    calls = [0]
+
+    def run(x, t):
+        calls[0] += 1
+        if calls[0] == 1:
+            return layer(x, t)
+        found = [g.get_state() for g in gens]
+        for g, state in zip(gens, entry):
+            g.set_state(state)
+        try:
+            return layer(x, t)
+        finally:
+            for g, state in zip(gens, found):
+                g.set_state(state)
+
+    return checkpoint(run, x, t, use_reentrant=False, preserve_rng_state=False)
 
 
 class UNet(nn.Module):
@@ -58,14 +106,20 @@ class UNet(nn.Module):
         cond_type: str = "time",
         dropout: float = 0.0,
         use_affine_level: bool = False,
+        dtype: Optional[torch.dtype] = None,
+        remat: bool = False,
+        remat_min_res: int = 0,
     ):
         super().__init__()
         if cond_type not in ("time", "noise_level", "none"):
             raise ValueError(f"cond_type {cond_type!r}")
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
+        self.compute_dtype = None if dtype == torch.float32 else dtype
 
         def mlp(embedding):
-            return nn.Sequential(embedding, nn.Linear(inner_channel, inner_channel * 4), Swish(),
-                                 nn.Linear(inner_channel * 4, inner_channel))
+            return nn.Sequential(embedding, Linear(inner_channel, inner_channel * 4), Swish(),
+                                 Linear(inner_channel * 4, inner_channel))
 
         self.time_mlp = mlp(TimeEmbedding(inner_channel)) if cond_type == "time" else None
         self.noise_level_mlp = (mlp(PositionalEncoding(inner_channel))
@@ -76,15 +130,18 @@ class UNet(nn.Module):
         self.image_size = image_size
 
         def rb(dim, dim_out, with_attn):
-            return ResnetBlockWithAttn(dim, dim_out, time_dim, norm_groups, cond_type,
-                                       with_attn=with_attn, dropout=dropout,
-                                       use_affine_level=use_affine_level)
+            block = ResnetBlockWithAttn(dim, dim_out, time_dim, norm_groups, cond_type,
+                                        with_attn=with_attn, dropout=dropout,
+                                        use_affine_level=use_affine_level)
+            # JAX's selective remat: blocks at a resolution >= remat_min_res
+            block.remat = bool(remat) and now_res >= remat_min_res
+            return block
 
         num_mults = len(channel_mults)
         now_res = image_size
         pre = inner_channel
         feat_channels = [pre]
-        downs = [nn.Conv2d(in_channel, inner_channel, 3, padding=1)]
+        downs = [Conv2d(in_channel, inner_channel, 3, padding=1)]
         for ind in range(num_mults):
             is_last = ind == num_mults - 1
             use_attn = now_res in attn_res
@@ -115,30 +172,49 @@ class UNet(nn.Module):
         self.ups = nn.ModuleList(ups)
 
         self.final_conv = Block(pre, out_channel, norm_groups)
+        for m in self.modules():
+            if isinstance(m, (Conv2d, Linear)):
+                m.compute_dtype = self.compute_dtype
 
     def embed(self, time):
-        """The (B, inner_channel) conditioning of a (B,) step or noise level,
-        or None for cond_type 'none'."""
+        """The (B, inner_channel) conditioning of a (B,) step or noise level
+        in the compute dtype, or None for cond_type 'none'."""
         mlp = self.time_mlp if self.time_mlp is not None else self.noise_level_mlp
-        return mlp(time) if mlp is not None else None
+        if mlp is None:
+            return None
+        t = mlp(time)
+        return t if self.compute_dtype is None else t.to(self.compute_dtype)
+
+    def entry(self, x):
+        """An NHWC input, its channels checked, as the NCHW channels_last
+        activation in the compute dtype (float32 when None)."""
+        if x.shape[-1] != self.in_channel:
+            raise ValueError(f"expected {self.in_channel} input channels, got {x.shape[-1]}")
+        h = x.to(self.compute_dtype or torch.float32).permute(0, 3, 1, 2)
+        return h.contiguous(memory_format=torch.channels_last)
+
+    def block(self, layer: ResnetBlockWithAttn, h, t):
+        """One ResnetBlockWithAttn, rematerialized when it is marked so and
+        the forward records a graph in train mode."""
+        if layer.remat and self.training and torch.is_grad_enabled():
+            return remat_block(layer, h, t)
+        return layer(h, t)
 
     def forward(self, x, time=None):
         """x: (B, H, W, in_channel); time: (B,) step or noise level ->
         (B, H, W, out_channel) f32."""
-        if x.shape[-1] != self.in_channel:
-            raise ValueError(f"expected {self.in_channel} input channels, got {x.shape[-1]}")
-        h = x.float().permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        h = self.entry(x)
         t = self.embed(time)
 
         feats = []
         for layer in self.downs:
-            h = layer(h, t) if isinstance(layer, ResnetBlockWithAttn) else layer(h)
+            h = self.block(layer, h, t) if isinstance(layer, ResnetBlockWithAttn) else layer(h)
             feats.append(h)
         for layer in self.mid:
-            h = layer(h, t)
+            h = self.block(layer, h, t)
         for layer in self.ups:
             if isinstance(layer, ResnetBlockWithAttn):
-                h = layer(torch.cat([h, feats.pop()], dim=1), t)
+                h = self.block(layer, torch.cat([h, feats.pop()], dim=1), t)
             else:
                 h = layer(h)
         if feats:

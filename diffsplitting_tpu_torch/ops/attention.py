@@ -3,14 +3,17 @@
 Counterpart: diffsplitting_tpu/ops/attention.py (`attention_reference`,
 `fused_attention` with its custom VJP; the Pallas `_kernel`).
 
-`fused_attention` launches a CUDA kernel of csrc/attention.cu for CUDA
-tensors, picked by the head dim D alone (`head_dim_route`), all three on the
-tensor cores at f32 accuracy: the D = 128 kernel; the wide kernel, in 128-wide
-head-dim slices (the last one zero-filled past D), at any other multiple of 4
-above 128 up to 1024; the narrow kernel, at D padded to a multiple of 16, at
-any multiple of 4 below 128. It raises on any other D. CPU tensors run the
-plain version. Backward runs autograd through the plain version, as the JAX
-custom VJP does.
+`fused_attention` launches a CUDA kernel for CUDA tensors, picked by the
+dtype and then by the head dim D (`head_dim_route`). float32, csrc/attention.cu,
+all three on the tensor cores at f32 accuracy: the D = 128 kernel; the wide
+kernel, in 128-wide head-dim slices (the last one zero-filled past D), at any
+other multiple of 4 above 128 up to 1024; the narrow kernel, at D padded to a
+multiple of 16, at any multiple of 4 below 128. bfloat16 (the UNet at
+`compute_dtype: bfloat16`), csrc/attention_bf16.cu: one bf16 tensor-core
+kernel at any multiple of 8 up to 1024 (f32 scores and softmax, P rounded to
+bf16, f32 sums, a bf16 result). It raises on any other D or dtype. CPU
+tensors run the plain version. Backward runs autograd through the plain
+version, as the JAX custom VJP does.
 """
 
 from __future__ import annotations
@@ -31,9 +34,17 @@ def attention_reference(q, k, v, scale: float):
     return torch.einsum("bhqk,bkhd->bqhd", attn.to(q.dtype), v)
 
 
-def head_dim_route(D: int) -> str:
-    """The kernel that takes head dim D: "d128", "wide" or "narrow"; raises on
-    a D that none takes."""
+def head_dim_route(D: int, dtype=torch.float32) -> str:
+    """The kernel that takes head dim D at `dtype`: "d128", "wide" or
+    "narrow" (float32), "bf16" (bfloat16); raises on a D or dtype that none
+    takes."""
+    if dtype == torch.bfloat16:
+        if D % 8 or not 0 < D <= MAX_HEAD_DIM:
+            raise ValueError(f"the bf16 attention kernel takes a head dim that is a multiple "
+                             f"of 8 up to {MAX_HEAD_DIM}, got {D}")
+        return "bf16"
+    if dtype != torch.float32:
+        raise TypeError(f"attention kernels take float32 or bfloat16, got {dtype}")
     if D % 4 or not 0 < D <= MAX_HEAD_DIM:
         raise ValueError(f"attention kernels take a head dim that is a multiple of 4 up to "
                          f"{MAX_HEAD_DIM}, got {D}")
@@ -47,19 +58,24 @@ def _launch(q, k, v, scale: float):
     B, N, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
-    route = head_dim_route(D)
-    if not all(t.dtype == torch.float32 for t in (q, k, v)):
-        raise TypeError("attention kernel takes float32")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+    route = head_dim_route(D, q.dtype)
     strides = q.stride()
     if k.stride() != strides or v.stride() != strides or strides[3] != 1:
         raise ValueError("attention kernel takes q, k, v with one set of strides "
                          "and a unit stride on the head dim")
-    if any(s % 4 for s in strides[:3]) or any(t.data_ptr() % 16 for t in (q, k, v)):
+    per_16_bytes = 16 // q.element_size()
+    if any(s % per_16_bytes for s in strides[:3]) or any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("attention kernel needs 16-byte aligned rows")
-    out = torch.empty((B, N, H, D), device=q.device, dtype=torch.float32)
+    out = torch.empty((B, N, H, D), device=q.device, dtype=q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    if route == "d128":
+    if route == "bf16":
+        err = library().attention_bf16(*ptrs, B, N, H, D, *strides[:3], float(scale), stream)
+        check(err, "attention_bf16")
+        FusedAttention.launches_bf16 += 1
+    elif route == "d128":
         err = library().attention_f32_d128(*ptrs, B, N, H, *strides[:3], float(scale), stream)
         check(err, "attention_f32_d128")
         FusedAttention.launches += 1
@@ -82,6 +98,7 @@ class FusedAttention(torch.autograd.Function):
     launches = 0  # D = 128 kernel launches, counted by _launch
     launches_wide = 0  # wide kernel launches (D above 128), counted by _launch
     launches_narrow = 0  # narrow kernel launches (D below 128), counted by _launch
+    launches_bf16 = 0  # bf16 kernel launches (any D), counted by _launch
 
     @staticmethod
     def forward(ctx, q, k, v, scale):

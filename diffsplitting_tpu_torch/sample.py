@@ -12,8 +12,8 @@ write `datasets.val.data_len` samples as `<step>_<idx>_sr.png` under
 Val: `datasets.val.data_len` samples, each written as its trajectory grid
 `<step>_<idx>_sample_process.png` and its last frame `_sample.png`.
 
-The device, `-gpu`, the refused accelerator flags and float32 are as in
-`infer.py`.
+The device, `-gpu`, the refused accelerator flags and the compute dtype
+are as in `infer.py`.
 """
 
 from __future__ import annotations

@@ -44,6 +44,7 @@ from .diffusion.deepcache import (cached_indi_inference, cached_joint_indi_infer
 from .diffusion.parallel_sampling import (indi_inference_sliding_window,
                                           joint_indi_inference_sliding_window)
 from .models import UNet, apply_unet
+from .models.precision import compute_dtype
 
 logger = logging.getLogger("base")
 
@@ -73,10 +74,15 @@ class JointInDINets(nn.Module):
 def unet_kwargs(model_opt: Mapping, cond_type: str = "time",
                 use_affine_level: bool = False) -> dict:
     """The UNet of a config's `model` section, conditioned by `cond_type`
-    ('time' for ddpm / indi / joint_indi, 'noise_level' for sr3). The JAX
-    factory leaves `use_affine_level` at the module's default, False."""
+    ('time' for ddpm / indi / joint_indi, 'noise_level' for sr3), with the
+    compute dtype (`compute_dtype`), `remat` and `remat_min_res`, as JAX's
+    factory reads them (train/factory.py `_unet_kwargs`). The JAX factory
+    leaves `use_affine_level` at the module's default, False."""
     unet = model_opt["unet"]
     return dict(
+        dtype=compute_dtype(model_opt),
+        remat=bool(model_opt.get("remat", False)),
+        remat_min_res=int(model_opt.get("remat_min_res") or 0),
         in_channel=unet["in_channel"],
         out_channel=unet["out_channel"],
         inner_channel=unet["inner_channel"],
@@ -92,11 +98,9 @@ def unet_kwargs(model_opt: Mapping, cond_type: str = "time",
 
 
 def check_compute_dtype(model_opt: Mapping) -> None:
-    """Raise on a `compute_dtype` other than float32: the port computes in
-    float32 (bfloat16 is ROADMAP item 1e, part 2)."""
-    if model_opt.get("compute_dtype") not in (None, "float32"):
-        raise NotImplementedError(f"compute_dtype={model_opt['compute_dtype']!r} is not ported; "
-                                  "the port computes in float32")
+    """Raise on a `compute_dtype` the JAX package does not take (it takes
+    float32, the default, and bfloat16)."""
+    compute_dtype(model_opt)
 
 
 def define_generator(opt: Mapping):

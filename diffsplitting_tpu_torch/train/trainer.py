@@ -44,9 +44,21 @@ ones `sample`; the nets serve in eval mode (no dropout), through
 `models.apply_unet` (DSP_FUSED=1 or `fused=True`: the fused walk), with
 noise from a generator of their own seeded by `seed`.
 
-Not ported: `remat`, compute dtypes other than float32, sharding, and for
-ddpm / sr3 the accelerated samplers (DDIM, DeepCache, the sliding window,
-W8A8: ROADMAP item 1f), which raise NotImplementedError.
+Compute dtype and remat (`model.compute_dtype`, `model.remat`,
+`model.remat_min_res`): the UNet computes in bf16 where the config says so,
+with its parameters, Adam's moments, the EMA and the gradients in float32
+(the casts at each Conv/Linear carry the gradients back to the f32
+parameters) and the loss in float32 on the UNet's f32 output, as in JAX;
+remat rematerializes the UNet's blocks in the backward (models/unet.py).
+DSP_PRECAST=1 serves from a copy whose Conv/Linear weights are cast once a
+call (`_inference_nets`, JAX's `_inference_params`).
+
+On one device, `train.optimizer.zero` and `model.param_sharding` (JAX's
+ZeRO-1 Adam moments and FSDP parameters over the 'data' mesh axis) are the
+no-ops they are on a one-device mesh and are not read; sharding across cards
+is ROADMAP item 1h. Not ported: for ddpm / sr3 the accelerated samplers
+(DDIM, DeepCache, the sliding window, W8A8: ROADMAP item 1f), which raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -65,6 +77,7 @@ from ..device import resolve_device
 from ..diffusion import JointInDIProcess, build_ddpm_schedule
 from ..models import apply_unet
 from ..models.blocks import set_dropout_generator
+from ..models.precision import cast_unet_params_for_inference, precast_enabled
 from ..serving import SplittingModel, define_generator, init_weights
 from ..utils.weights import load_reference_checkpoint
 from .checkpoints import load_trainer_state, resolve_checkpoint, save_checkpoint
@@ -251,7 +264,13 @@ class DiffusionModel:
         return OrderedDict((k, float(v)) for k, v in self.log_dict.items())
 
     def _inference_nets(self):
-        return self.ema_nets if self.use_ema else self.nets
+        """The nets a chain serves from: the EMA copy when the EMA is on; with
+        DSP_PRECAST=1 and a bf16 UNet, a copy of them whose Conv/Linear
+        weights are cast to bf16 once for the call (bit-identical outputs)."""
+        nets = self.ema_nets if self.use_ema else self.nets
+        if precast_enabled() and any(u.compute_dtype == torch.bfloat16 for u in self.unets()):
+            return cast_unet_params_for_inference(nets)
+        return nets
 
     def set_deepcache(self, interval, depth: int = 1):
         """DeepCache serving for `test` (`SplittingModel.set_deepcache`)."""

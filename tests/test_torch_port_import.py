@@ -1,6 +1,6 @@
 """The port stands alone: it imports and runs (the fused forward, a train
-step, the DeepCache and sliding-window chains, and an SR3 forward and chain
-included) with jax and the JAX package blocked, its sources import neither, and its entry points refuse
+step, the DeepCache and sliding-window chains, an SR3 forward and chain, and
+a bf16 UNet with remat included) with jax and the JAX package blocked, its sources import neither, and its entry points refuse
 to run without CUDA unless the caller asks for the CPU."""
 
 import ast
@@ -95,6 +95,19 @@ sched = build_ddpm_schedule({"schedule": "linear", "n_timestep": 2, "linear_star
 chain = SR3Process(16).p_sample_loop(sr3, sched, cond, continuous=True,
                                      generator=torch.Generator().manual_seed(0))
 assert chain.shape == (3, 1, 16, 16, 3) and torch.isfinite(chain).all()
+# bf16 and remat (models/precision.py): a remat backward at dropout 0.2, and
+# the precast copy's forward
+from diffsplitting_tpu_torch.models.precision import cast_unet_params_for_inference
+b16 = UNet(in_channel=6, out_channel=3, inner_channel=8, norm_groups=4, channel_mults=(1, 2),
+           attn_res=(8,), res_blocks=1, image_size=16, cond_type="noise_level",
+           dtype=torch.bfloat16, remat=True, dropout=0.2).train()
+set_dropout_generator(b16, torch.Generator().manual_seed(0))
+x6, lvl = torch.cat([cond, cond], -1), torch.full((1,), 0.5)
+b16(x6, lvl).sum().backward()
+assert all(p.grad is not None and p.grad.dtype == torch.float32 for p in b16.parameters())
+b16.eval()
+with torch.no_grad():
+    assert torch.equal(cast_unet_params_for_inference(b16)(x6, lvl), b16(x6, lvl))
 print("OK")
 """
 

@@ -40,7 +40,8 @@ def cuda():
 
 
 # the last two: sr_sr3_16_128's 128² maps at C = 64 with 32 groups (2 channels
-# a group) and its widest GroupNorm, C = 1024 (the kernel's limit), at batch 1
+# a group) and its widest GroupNorm, C = 1024, at batch 1 (C up to 2048:
+# tests/test_torch_port_kernels_bf16.py)
 @pytest.mark.parametrize("B,H,C,G", [(2, 64, 16, 16), (2, 32, 48, 16), (1, 16, 96, 16),
                                      (2, 8, 256, 16), (1, 7, 12, 4), (1, 128, 64, 32),
                                      (1, 16, 1024, 32)])

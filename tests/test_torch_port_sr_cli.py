@@ -25,6 +25,7 @@ from PIL import Image
 from diffsplitting_tpu.data import lrhr_dataset as jax_lrhr
 from diffsplitting_tpu.data import prepare_data as jax_prepare
 from diffsplitting_tpu_torch import eval as port_eval, infer as port_infer, sample as port_sample
+from diffsplitting_tpu_torch.config import load_json
 from diffsplitting_tpu_torch.data import create_dataset, lrhr_dataset
 from diffsplitting_tpu_torch.data import prepare_data
 
@@ -195,10 +196,15 @@ def test_cli_accelerator_flags_are_refused(flag, lrhr_root, tmp_path):
 
 
 def test_infer_refuses_bfloat16_config(tmp_path):
-    """The JAX CLI's default config computes in bfloat16; the port refuses it
-    (the next slice ports models/precision.py)."""
+    """The JAX CLI's default config computes in bfloat16, which the port
+    serves since models/precision.py was ported (tests/test_torch_port_sr512.py
+    drives it). What infer.py still refuses, before any directory is made, is
+    a compute_dtype the JAX package does not take: that config at float16."""
     root = Path(__file__).resolve().parent.parent
+    cfg = json.loads(json.dumps(load_json(str(root / "configs/sr_sr3_64_512.json"))))
+    cfg["model"]["compute_dtype"] = "float16"
+    path = tmp_path / "sr_sr3_64_512_float16.json"
+    path.write_text(json.dumps(cfg))
     with pytest.raises(NotImplementedError, match="compute_dtype"):
-        port_infer.main(["-c", str(root / "configs/sr_sr3_64_512.json"), "-rootdir",
-                         str(tmp_path / "exp"), "--device", "cpu"])
+        port_infer.main(["-c", str(path), "-rootdir", str(tmp_path / "exp"), "--device", "cpu"])
     assert not (tmp_path / "exp").exists()
