@@ -76,16 +76,21 @@ written PNGs.
 Last, SR3 at bf16 (`phase_sr3_512`): configs/sr_sr3_64_512.json (infer.py's
 default config) at its full width (155,334,339 parameters, seeded weights),
 in its compute dtype bfloat16 with remat, on synthetic 64 -> 512 triples:
-infer.py's full 2000-step chain (35 bf16 GN+Swish and 1 bf16 attention
-launches a forward), the idle share from a profiled cut chain, that chain and
-one forward with the kernels against the plain versions and the forward
-against the f32 forward of the same weights, the bf16 GN+Swish kernel at
-each of its shapes (C = 64 ... 2048) and the f32 one at C = 1536 and 2048,
-the bf16 attention kernel at D = 1024 (B = 1, 2), 512, 128 and 64 (each
-within 2x the plain bf16 version's error against f32, bit-identical twice,
-timed beside the plain version, the library call and the bound), and the sr3
-train step at batch 2, 512², with remat on and off (launches, gradients
-against each other, ms a step, peak memory, remat's peak the lower).
+infer.py's full 2000-step chain unfused (35 bf16 GN+Swish and 1 bf16
+attention launches a forward) and with DSP_FUSED=1 (11 bf16 conv_gn, 1 bf16
+GN+Swish, 1 bf16 attention a forward; 27 conv sites on library ops), the
+idle share of each from a profiled cut chain, that chain each way and one
+forward each way with the kernels against the plain versions, both forwards
+against the f32 forward of the same weights and the fused against the
+unfused, the bf16 GN+Swish kernel at each of its shapes (C = 64 ... 2048)
+and the f32 one at C = 1536 and 2048, the bf16 attention kernel at D = 1024
+(B = 1, 2), 512, 128 and 64 (each within 2x the plain bf16 version's error
+against f32, bit-identical twice, timed beside the plain version, the
+library call and the bound), the bf16 conv_gn kernel at the 11 sites (within
+one bf16 step of its plain version, bit-identical twice, timed beside the
+plain version, cuDNN in bf16 and the bound), and the sr3 train step at batch
+2, 512², with remat on and off (launches, gradients against each other, ms a
+step, peak memory, remat's peak the lower).
 
 Every phase raises on failure, so the script exits non-zero with no result
 line. It prints the card's name and power limit, per-kernel times beside
@@ -155,7 +160,8 @@ def max_err(got, want) -> float:
 @contextlib.contextmanager
 def plain_versions():
     """Route the UNet blocks and the fused walk through the kernels' plain
-    versions."""
+    versions (each plain version takes both dtypes: conv_gn_reference at
+    bf16 x stands in for the bf16 conv_gn kernel as at f32 for the f32 one)."""
     from diffsplitting_tpu_torch.models import blocks, fused_forward
     from diffsplitting_tpu_torch.ops import (attention_reference, conv_gn_reference,
                                              group_norm_swish_reference)
@@ -293,7 +299,7 @@ SR3_SHAPES = [(4, 256, 512), (4, 64, 512), (1, 256, 512), (1, 64, 512), (12, 16,
 # route of ops.attention.head_dim_route -> its launch count in read_launches()
 ROUTE_COUNTER = {"d128": "attention", "wide": "attention_wide", "narrow": "attention_narrow"}
 # the bf16 kernels' launch counts on a float32 path
-BF16_NONE = {"group_norm_swish_bf16": 0, "attention_bf16": 0}
+BF16_NONE = {"group_norm_swish_bf16": 0, "attention_bf16": 0, "conv_gn_bf16": 0}
 
 
 def phase_attention_any_d(dev):
@@ -698,6 +704,7 @@ def reset_launches() -> None:
         k.launches = 0
     FusedAttention.launches_wide = FusedAttention.launches_narrow = 0
     FusedGroupNormSwish.launches_bf16 = FusedAttention.launches_bf16 = 0
+    FusedConvGN.launches_bf16 = 0
     ConvSitePlan.kernel = ConvSitePlan.library = 0
 
 
@@ -710,7 +717,8 @@ def read_launches() -> dict:
             "attention_narrow": FusedAttention.launches_narrow, "conv_gn": FusedConvGN.launches,
             "sites_kernel": ConvSitePlan.kernel, "sites_library": ConvSitePlan.library,
             "group_norm_swish_bf16": FusedGroupNormSwish.launches_bf16,
-            "attention_bf16": FusedAttention.launches_bf16}
+            "attention_bf16": FusedAttention.launches_bf16,
+            "conv_gn_bf16": FusedConvGN.launches_bf16}
 
 
 def slice_inputs(dev):
@@ -2265,6 +2273,9 @@ SR512_SERVE_STEPS = 2000  # the config's val schedule, run in full
 SR512_CUT_STEPS = 20  # the chain cut for kernels vs plain versions and the profile
 SR512_TRAIN_BATCH, SR512_TRAIN_WARMUP, SR512_TRAIN_TIMED = 2, 1, 3
 BF16_FLOPS_PER_S = 989e12
+# conv sites a fused forward plans to the bf16 conv_gn kernel (the 512² and
+# 256² ResnetBlock and upsample convs) and to library ops
+SR512_CONV_FWD = (11, 27)
 # the bf16 attention kernel at the mid block (B = 1 serving, 2 training) and
 # at other head dims (N = 1024)
 SR512_ATTN_SHAPES = [(1, 1024, 1024), (2, 1024, 1024), (1, 1024, 512), (1, 1024, 128),
@@ -2386,6 +2397,107 @@ def phase_attention_bf16(dev) -> tuple:
     return res, worst
 
 
+def phase_conv_gn_bf16(dev, sites) -> tuple:
+    """The bf16 conv_gn kernel at each site of one sr_sr3_64_512 fused
+    forward at batch 1 that the walk plans to it (`sites`: site -> calls),
+    on seeded bf16 x and residual and f32 weights (as the walk passes the
+    UNet's parameters): against its plain version (y within one bf16 step,
+    2^-7·|y|, + 1e-4·max|y|, a rounding that the order of the f32 sums
+    flips; the statistics within 1e-5 of Σ|y|), two launches bit-identical;
+    the kernel's time through a host loop and by CUDA-graph replay, the
+    plain version's and the library's (cuDNN `F.conv2d` in bf16 on the
+    activated input, channels_last, + the residual or its 1x1 skip conv;
+    device times), and the bound (the larger of 2·H·W·(9·Cin [+ Cres])·Cout
+    operations at 989 TFLOP/s bf16 and x, the residual, y, the weights and
+    vectors once through HBM), each summed over the forward's calls."""
+    import torch
+    import torch.nn.functional as F
+    from diffsplitting_tpu_torch.kernels.conv_gn_variants import site_args
+    from diffsplitting_tpu_torch.kernels.variants import device_ms
+    from diffsplitting_tpu_torch.ops import conv_gn_fused, conv_gn_reference
+
+    g = torch.Generator(device=dev).manual_seed(45)
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+               bytes_ms=0.0, gflop=0.0, gbytes=0.0)
+    worst, by_site = 0.0, {}
+    for site, calls in sorted(sites.items(), key=str):
+        H, W, Cin, Cout, act, res, Cres = site
+        x, w, b, scale, shift, r, w_skip = site_args(site, 1, g)
+        x = x.bfloat16()
+        r = r.bfloat16() if r is not None else None
+        args = (x, w, b, scale, shift, r, w_skip)
+        reset_launches()
+        got = conv_gn_fused(*args)
+        again = conv_gn_fused(*args)
+        launched = read_launches()["conv_gn_bf16"]
+        y_ref, s_ref, q_ref = conv_gn_reference(*args)
+        torch.cuda.synchronize()
+        (y, s, q), yf, rf = got, got[0].float(), y_ref.float()
+        err = (yf - rf).abs().max().item()
+        ok = (launched == 2 and y.dtype == torch.bfloat16
+              and all(torch.equal(a, c) for a, c in zip(got, again))
+              and ((yf - rf).abs() <= 2.0 ** -7 * rf.abs() + 1e-4 * rf.abs().max()).all()
+              and ((s - s_ref).abs() <= 1e-5 * rf.abs().sum(dim=(1, 2)) + 1e-4).all()
+              and ((q - q_ref).abs() <= 1e-5 * q_ref + 1e-4).all())
+        if not ok:
+            raise AssertionError(f"conv_gn bf16 H={H} Cin={Cin} Cout={Cout} act={act} res={res} "
+                                 f"Cres={Cres}: launches {launched}, max abs err {err}, sums err "
+                                 f"{max_err(s, s_ref)}, sumsqs err {max_err(q, q_ref)}, two "
+                                 f"launches equal {all(torch.equal(a, c) for a, c in zip(got, again))}")
+        worst = max(worst, err)
+        del got, again, y, yf, rf, y_ref
+        ms = time_ms(lambda: conv_gn_fused(*args), 10)
+        dev_ms = device_ms(lambda: conv_gn_fused(*args), 10)
+        plain = device_ms(lambda: conv_gn_reference(*args), 3)
+        xa = x if not act else F.silu(x.float() * scale[:, None, None, :]
+                                      + shift[:, None, None, :]).bfloat16()
+        xa = xa.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        w16 = w.permute(3, 2, 0, 1).bfloat16()
+        b16 = b.bfloat16()
+        r_nchw = r.permute(0, 3, 1, 2) if r is not None else None
+        ws16 = w_skip.t()[:, :, None, None].bfloat16() if w_skip is not None else None
+
+        def library():
+            out = F.conv2d(xa, w16, b16, padding=1)
+            if ws16 is not None:
+                out = out + F.conv2d(r_nchw, ws16)
+            elif r_nchw is not None:
+                out = out + r_nchw
+            return out
+
+        lib = device_ms(library, 10)
+        k_skip = Cres if res == "projected" else 0
+        flops = 2 * H * W * (9 * Cin + k_skip) * Cout
+        nbytes = (2 * H * W * (Cin + Cout + Cres) + 4 * (9 * Cin * Cout + k_skip * Cout)
+                  + 4 * (Cout + 2 * Cin) + 8 * Cout)
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        log(f"conv_gn bf16 B=1 H={H} W={W} Cin={Cin} Cout={Cout} prologue={act} residual={res} "
+            f"Cres={Cres} calls/forward={calls}: err {err:.3g} against the plain version, two "
+            f"launches bit-identical; kernel {ms:.4f} ms (device time {dev_ms:.4f}) plain "
+            f"{plain:.4f} ms library {lib:.4f} ms (device times) bound {bound:.4f} ms ({by}; bf16 "
+            f"tensor-core {ops_ms:.4f}, bytes {bytes_ms:.4f}; {bound / dev_ms:.1%} of it, "
+            f"{flops / dev_ms / 1e9:.1f} bf16 TFLOP/s)")
+        row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                   ops_ms=ops_ms, bytes_ms=bytes_ms, gflop=flops / 1e9, gbytes=nbytes / 1e9)
+        for k in tot:
+            tot[k] += calls * row[k]
+        by_site[f"H={H} Cin={Cin} Cout={Cout} prologue={act} residual={res} Cres={Cres}"] = dict(
+            row, bound_by=by, max_abs_err=err, calls=calls)
+        del x, xa, r, r_nchw, args
+        torch.cuda.empty_cache()
+    tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
+    log(f"conv_gn bf16 per sr_sr3_64_512 fused forward at B=1 ({sum(sites.values())} calls; "
+        "library = cuDNN F.conv2d in bf16 on the activated input + the residual or 1x1 "
+        "skip): "
+        + " ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in tot.items())
+        + f" ({tot['gflop'] / tot['device_ms']:.1f} bf16 TFLOP/s, "
+        f"{tot['bound_ms'] / tot['device_ms']:.1%} of the bound by device time)")
+    return tot, worst, by_site
+
+
 def phase_sr3_512(dev, work: str) -> dict:
     """configs/sr_sr3_64_512.json (infer.py's default config) at its full
     width (inner 64, mults (1, 2, 4, 8, 16), 1 res block, 16 groups, 512²
@@ -2393,19 +2505,25 @@ def phase_sr3_512(dev, work: str) -> dict:
     bfloat16 with remat on, on seeded synthetic 64 -> 512 LR/HR/SR triples
     (numpy and PIL bicubic, through the port's prepare_data):
       * the port's infer.py `main` over the config's full 2000-step val
-        schedule on one image: 35 bf16 GN+Swish and 1 bf16 attention (D =
-        1024, N = 1024) launches a forward asserted, seconds a chain,
-        forwards/s, peak memory; the device time a step of a chain cut to
-        SR512_CUT_STEPS steps under the profiler, and from it the idle share
-        of the unprofiled chain; that cut chain with the kernels against the
-        plain versions from the same noise;
+        schedule on one image, unfused and with DSP_FUSED=1: unfused 35 bf16
+        GN+Swish and 1 bf16 attention (D = 1024, N = 1024) launches a
+        forward asserted; fused 11 bf16 conv_gn (the sites SR512_CONV_FWD
+        plans to the kernel; 27 on library ops), 1 bf16 GN+Swish (the head),
+        1 bf16 attention and no f32 kernel; seconds a chain, forwards/s, peak
+        memory; the device time a step of a chain cut to SR512_CUT_STEPS
+        steps under the profiler, and from it the idle share of the
+        unprofiled chain, each way; that cut chain, each way, with the
+        kernels against the plain versions from the same noise;
       * one forward at batch 1 with the kernels against the plain versions,
         and against the f32 forward of the same weights (the error bf16
-        costs), both reported as max and mean abs error over max|f32|;
+        costs); the fused forward against the fused forward through the
+        plain versions, the unfused bf16 forward and the f32 forward; all
+        reported as max and mean abs error over max|f32|;
       * the bf16 GN+Swish kernel at each of the forward's (C, H, W) (C = 64
         ... 2048) and the f32 kernel at C = 1536 and 2048, the bf16
-        attention kernel at SR512_ATTN_SHAPES (phase_gn_bf16,
-        phase_attention_bf16);
+        attention kernel at SR512_ATTN_SHAPES, the bf16 conv_gn kernel at
+        each of the fused forward's 11 sites (phase_gn_bf16,
+        phase_attention_bf16, phase_conv_gn_bf16);
       * the sr3 train step at batch 2, 512², with remat on and off, from the
         same weights and draws, under cuDNN's deterministic algorithms: loss
         and every gradient of the two against each other, the launches of
@@ -2418,8 +2536,8 @@ def phase_sr3_512(dev, work: str) -> dict:
     from diffsplitting_tpu_torch import infer
     from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
     from diffsplitting_tpu_torch.data.lrhr_dataset import LRHRDataset
-    from diffsplitting_tpu_torch.kernels import groupnorm_variants
-    from diffsplitting_tpu_torch.models import UNet
+    from diffsplitting_tpu_torch.kernels import conv_gn_variants, groupnorm_variants
+    from diffsplitting_tpu_torch.models import UNet, fused_unet_forward
     from diffsplitting_tpu_torch.serving import unet_kwargs
     from diffsplitting_tpu_torch.train import DiffusionModel
 
@@ -2460,27 +2578,48 @@ def phase_sr3_512(dev, work: str) -> dict:
     if sr.shape != (size, size, 3):
         raise AssertionError(f"infer.py's SR image is {sr.shape}")
 
+    # ------------------------------------------------ serving: infer.py, DSP_FUSED=1, bf16
+    if conv_site_plan(net) != SR512_CONV_FWD:
+        raise AssertionError(f"{SR512_CONFIG}: conv sites {conv_site_plan(net)} on the kernel / "
+                             f"library ops, expected {SR512_CONV_FWD}")
+    fused_per_forward = dict(per_forward, group_norm_swish_bf16=1, conv_gn_bf16=SR512_CONV_FWD[0],
+                             sites_kernel=SR512_CONV_FWD[0], sites_library=SR512_CONV_FWD[1])
+    with fused_env(True):
+        fused_served = serve_cli(
+            "sr3_512 infer.py (bf16, DSP_FUSED=1)", infer,
+            ["-c", cfg, "-rootdir", str(Path(work) / "sr512_fused_experiments")],
+            fused_per_forward, steps)
+    fused_sr = torch.as_tensor(fused_served["model"].prediction)
+    if not (torch.isfinite(fused_sr).all() and (Path(fused_served["results"]) / "0_1_sr.png")
+            .exists()):
+        raise AssertionError("sr3_512 fused chain: non-finite output or no SR image")
+    del fused_served["model"]
+
     # ------------------------------------------------ a cut chain: profile, plain
     cut = dict(model_opt["beta_schedule"]["val"], n_timestep=SR512_CUT_STEPS)
     model.set_new_noise_schedule(cut, "cut")
     item = LRHRDataset(root, "img", lr_size, size, split="val", need_LR=False)[0]
     model.feed_data({"input": item["SR"][None], "target": item["HR"][None]})
     prof = chain_profile(model, SR512_CUT_STEPS, False, steps, served["chain_s"])
-    outs = {}
-    for label, plain in (("kernels", False), ("plain", True)):
-        model.sample_generator.manual_seed(0)
-        with plain_versions() if plain else contextlib.nullcontext():
-            outs[label] = model.test().clone()
-    scale = outs["plain"].abs().max().item()
-    chain_err = max_err(outs["kernels"], outs["plain"]) / scale
-    # bf16 on both sides; the attention kernel keeps f32 scores where the
-    # plain version rounds them to bf16, and the chain carries the difference
-    if not (torch.isfinite(outs["kernels"]).all() and chain_err <= 5e-2):
-        raise AssertionError(f"sr3_512 {SR512_CUT_STEPS}-step chain, kernels vs plain versions: "
-                             f"max abs err {chain_err} of max|plain| > 5e-2")
-    log(f"sr3_512 {SR512_CUT_STEPS}-step chain, kernels vs plain versions: max abs err "
-        f"{chain_err:.3g} of max|plain| (tol 5e-2)")
-    del outs
+    fused_prof = chain_profile(model, SR512_CUT_STEPS, True, steps, fused_served["chain_s"])
+    chain_err = {}
+    for fused in (False, True):
+        outs = {}
+        for label, plain in (("kernels", False), ("plain", True)):
+            model.sample_generator.manual_seed(0)
+            with plain_versions() if plain else contextlib.nullcontext():
+                outs[label] = model.test(fused=fused).clone()
+        scale = outs["plain"].abs().max().item()
+        err = chain_err[fused] = max_err(outs["kernels"], outs["plain"]) / scale
+        # bf16 on both sides; the attention kernel keeps f32 scores where the
+        # plain version rounds them to bf16, and the chain carries the
+        # difference (and, fused, the conv_gn kernel's other order of sums)
+        if not (torch.isfinite(outs["kernels"]).all() and err <= 5e-2):
+            raise AssertionError(f"sr3_512 {SR512_CUT_STEPS}-step chain, fused={fused}, kernels "
+                                 f"vs plain versions: max abs err {err} of max|plain| > 5e-2")
+        log(f"sr3_512 {SR512_CUT_STEPS}-step chain, fused={fused}, kernels vs plain versions: "
+            f"max abs err {err:.3g} of max|plain| (tol 5e-2)")
+        del outs
 
     # ------------------------------------------------ one forward: plain versions, f32
     g = torch.Generator(device=dev).manual_seed(43)
@@ -2494,32 +2633,54 @@ def phase_sr3_512(dev, work: str) -> dict:
         got = net(x, level)
         launched = read_launches()
         shapes = groupnorm_variants.gn_shapes(net, x, level)
+        reset_launches()
+        fused = fused_unet_forward(net, x, level)
+        fused_launched = read_launches()
+        sites = conv_gn_variants.conv_gn_sites(net, x, level)
         with plain_versions():
             want = net(x, level)
+            fused_plain = fused_unet_forward(net, x, level)
         exact = f32_net(x, level)
     if (launched["group_norm_swish_bf16"], launched["attention_bf16"]) != (SR512_GN_FWD,
                                                                            SR512_ATTN_FWD):
         raise AssertionError(f"sr3_512 forward: launches {launched}")
+    if fused_launched != fused_per_forward:
+        raise AssertionError(f"sr3_512 fused forward: launches {fused_launched}, expected "
+                             f"{fused_per_forward}")
     m = exact.abs().max().item()
     fwd = {}
     for what, a, b in (("kernels vs plain versions (bf16)", got, want),
                        ("bf16 kernels vs f32 forward", got, exact),
-                       ("bf16 plain vs f32 forward", want, exact)):
+                       ("bf16 plain vs f32 forward", want, exact),
+                       ("fused kernels vs fused plain versions (bf16)", fused, fused_plain),
+                       ("fused vs unfused (bf16 kernels)", fused, got),
+                       ("fused bf16 kernels vs f32 forward", fused, exact)):
         d = (a - b).abs()
         fwd[what] = dict(max=d.max().item() / m, mean=d.mean().item() / m)
         log(f"sr3_512 forward B=1 {size}², {what}: max abs err {fwd[what]['max']:.3g}, mean "
             f"{fwd[what]['mean']:.3g} of max|f32| ({m:.3g})")
-    if not (torch.isfinite(got).all() and fwd["kernels vs plain versions (bf16)"]["max"] <= 5e-2
-            and fwd["bf16 kernels vs f32 forward"]["max"] <= 1e-1):
+    # bf16 on both sides of the first, fourth and fifth: each rounds at
+    # other places (fused: the carried statistics, cuDNN's rounding before
+    # the bias at library sites); against f32, bf16's own error
+    if not (torch.isfinite(got).all() and torch.isfinite(fused).all()
+            and fwd["kernels vs plain versions (bf16)"]["max"] <= 5e-2
+            and fwd["fused kernels vs fused plain versions (bf16)"]["max"] <= 5e-2
+            and fwd["fused vs unfused (bf16 kernels)"]["max"] <= 5e-2
+            and fwd["bf16 kernels vs f32 forward"]["max"] <= 1e-1
+            and fwd["fused bf16 kernels vs f32 forward"]["max"] <= 1e-1):
         raise AssertionError(f"sr3_512 forward: {fwd}")
     if sum(shapes.values()) != SR512_GN_FWD:
         raise AssertionError(f"expected {SR512_GN_FWD} GN+Swish calls a forward, saw {shapes}")
-    del x, got, want, exact, f32_net, model, served["model"]
+    if sum(sites.values()) != SR512_CONV_FWD[0]:
+        raise AssertionError(f"expected {SR512_CONV_FWD[0]} conv_gn calls a fused forward, saw "
+                             f"{dict(sites)}")
+    del x, got, want, exact, fused, fused_plain, f32_net, model, served["model"]
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ kernels at this config's shapes
     gn, gn_worst, gn_f32 = phase_gn_bf16(dev, shapes, groups)
     attn, attn_worst = phase_attention_bf16(dev)
+    conv, conv_worst, conv_sites = phase_conv_gn_bf16(dev, sites)
 
     # ------------------------------------------------ the train step, remat on and off
     opt = dict_to_nonedict(load_json(cfg))
@@ -2605,11 +2766,16 @@ def phase_sr3_512(dev, work: str) -> dict:
 
     secs = time.perf_counter() - t_phase
     log(f"sr3_512 phase: {secs:.1f} s")
-    return dict(launches={k: served["launches"][k] + sum(r["launches"][k] for r in train.values())
-                          for k in ("group_norm_swish_bf16", "attention_bf16")},
+    runs = [served, fused_served, *train.values()]
+    return dict(launches={k: sum(r["launches"][k] for r in runs)
+                          for k in ("group_norm_swish_bf16", "attention_bf16", "conv_gn_bf16")},
                 gn=gn, gn_worst=gn_worst, gn_f32=gn_f32, attn=attn, attn_worst=attn_worst,
+                conv=conv, conv_worst=conv_worst, conv_sites=conv_sites,
                 chain=dict(chain_s=served["chain_s"], forwards_per_s=served["forwards_per_s"],
                            peak=served["peak"], steps=steps, **prof),
+                fused_chain=dict(chain_s=fused_served["chain_s"],
+                                 forwards_per_s=fused_served["forwards_per_s"],
+                                 peak=fused_served["peak"], steps=steps, **fused_prof),
                 chain_err=chain_err, forward=fwd, train=train, seconds=secs)
 
 
@@ -2827,6 +2993,15 @@ def main() -> int:
              by_shape={"B=%d N=%d D=%d" % key: {k: r[k] for k in (
                  "device_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
                  "plain_max_abs_err")} for key, r in sr512["attn"].items()}),
+        dict(name="conv_gn_bf16", route="cuda",
+             source="diffsplitting_tpu_torch/csrc/conv_gn_bf16.cu",
+             replaces="diffsplitting_tpu/experimental/conv_gn.py:270",
+             launches=sr512["launches"]["conv_gn_bf16"], max_abs_err=sr512["conv_worst"],
+             **{k: sr512["conv"][k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                              "bound_ms", "bound_by")},
+             by_site={k: {f: r[f] for f in ("calls", "device_ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by", "max_abs_err")}
+                      for k, r in sr512["conv_sites"].items()}),
     ]
     log("group_norm_swish times are per UNet forward (29 calls at batch 8), through a host loop "
         "of calls (device_ms: its device time alone, by CUDA-graph replay), and its launches are "
@@ -2853,7 +3028,12 @@ def main() -> int:
         "train steps (remat on and off); attention_bf16 times are at its mid block (B=1, "
         "N=1024, D=1024; plain_ms and library_ms (SDPA in bf16) by CUDA-graph replay), its "
         "launches likewise; each bf16 max_abs_err is against an f32 reference from the same "
-        "bf16 inputs, beside the plain bf16 version's (plain_max_abs_err)")
+        "bf16 inputs, beside the plain bf16 version's (plain_max_abs_err); conv_gn_bf16 times "
+        "are per sr_sr3_64_512 fused forward at batch 1 (11 calls; ms through a host loop, "
+        "device_ms, plain_ms and library_ms (cuDNN F.conv2d in bf16 on the activated input, + "
+        "the residual or its 1x1 skip conv) by CUDA-graph replay; by_site per call), its "
+        "max_abs_err against its plain version (bf16 operands, f32 sums, y rounded to bf16), "
+        "its launches the phase's fused infer.py chain's (11 a forward)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -60,9 +60,9 @@
 //   * Epilogue: bias, identity residual, float2 NHWC stores; per-channel sums
 //     of y and y^2 over the block's valid pixels, reduced across the lanes of
 //     a channel by shuffles and across warps in shared memory, each in a
-//     fixed order, into partials [b][tile][2][Cout]; conv_gn_stats_fold folds
-//     the tiles in order. No atomics, so the result does not depend on the
-//     order in which blocks run.
+//     fixed order, into partials [b][tile][2][Cout]; conv_gn_stats_fold
+//     (conv_gn_stats.cuh) folds the tiles in order. No atomics, so the
+//     result does not depend on the order in which blocks run.
 //   * Geometry per Cout (ops/conv_gn.py `conv_gn_tiling` states the same),
 //     every warp 2 m16 tiles: BN 16 takes 8 warps on 16 x 16 pixels (NT 2);
 //     BN 32 and 64 take 4 warps on 8 x 16 (NT 4, 8), so that 2-3 blocks share
@@ -85,6 +85,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "conv_gn_stats.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -406,25 +407,6 @@ __global__ void __launch_bounds__(NW * 32, 1) conv_gn_kernel(Params p) {
         for (int r = 0; r < WM; ++r) a += red[which * WM * BN + r * BN + n];
         p.partials[(((long long)b * p.tiles + tile) * 2 + which) * p.Cout + n] = a;
     }
-}
-
-// stats [2][B][Cout] (sums, then sums of squares) from partials
-// [B][tiles][2][Cout]: a warp an entry, lane l summing tiles l, l + 32, ... in
-// order, then a fixed shuffle tree
-__global__ void conv_gn_stats_fold(const float* __restrict__ partials, float* __restrict__ stats,
-                                   int B, int tiles, int Cout) {
-    const int e = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-    const int lane = threadIdx.x % 32;
-    if (e >= 2 * B * Cout) return;  // the whole warp
-    const int which = e / (B * Cout);
-    const int b = (e / Cout) % B;
-    const int n = e % Cout;
-    const float* pp = partials + ((long long)b * tiles * 2 + which) * Cout + n;
-    float a = 0.f;
-    for (int k = lane; k < tiles; k += 32) a += pp[(long long)k * 2 * Cout];
-#pragma unroll
-    for (int m = 16; m > 0; m /= 2) a += __shfl_xor_sync(0xffffffffu, a, m);
-    if (lane == 0) stats[e] = a;
 }
 
 template <int BN, int NW, int WN, int TR, int TW, int TPS>

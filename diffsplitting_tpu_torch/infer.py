@@ -10,7 +10,8 @@ For each val item (batch 1, `datasets.val`, mode LRHR): `feed_data`, then
 `test(continuous=True)` over the config's val schedule, and
 `<step>_<idx>_sr_process.png` (the trajectory as a grid), `_sr.png` (its last
 frame), `_hr.png` and `_inf.png` (the bicubic-upsampled condition) under
-`path.results`. DSP_FUSED=1 serves through the fused UNet forward.
+`path.results`. DSP_FUSED=1 serves through the fused UNet forward, at the
+config's compute dtype (bf16 in the default config: the bf16 conv_gn kernel).
 
 The device is the card unless `--device` says otherwise; without CUDA the
 CLI raises unless `--device cpu` is given. `-gpu` is accepted and ignored.

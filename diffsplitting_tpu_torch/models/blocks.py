@@ -115,9 +115,13 @@ class FeatureWiseAffine(nn.Module):
         self.noise_func = nn.Sequential(
             Linear(in_channels, out_channels * (2 if use_affine_level else 1)))
 
-    def forward(self, noise_embed):
-        """(scale or None, bias), each (B, C): features' = features·scale + bias."""
+    def forward(self, noise_embed, dtype=None):
+        """(scale or None, bias), each (B, C): features' = features·scale + bias;
+        the linear's output cast to `dtype` first when given (the fused walk
+        takes them in f32, as JAX's)."""
         h = self.noise_func(noise_embed)
+        if dtype is not None:
+            h = h.to(dtype)
         if self.use_affine_level:
             gamma, beta = h.chunk(2, dim=-1)
             return 1 + gamma, beta
@@ -212,13 +216,15 @@ class ResnetBlock(nn.Module):
         self.block2 = Block(dim_out, dim_out, norm_groups, dropout)
         self.res_conv = Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
-    def film(self, time_emb):
+    def film(self, time_emb, dtype=None):
         """(scale or None, bias or None), each (B, C): the conditioning as an
-        affine of block1's output, h' = h·scale + bias."""
+        affine of block1's output, h' = h·scale + bias; in `dtype` when given
+        (the linear's output cast before 1 + γ)."""
         if self.mlp is not None:
-            return None, self.mlp(time_emb)
+            bias = self.mlp(time_emb)
+            return None, bias if dtype is None else bias.to(dtype)
         if self.noise_func is not None:
-            return self.noise_func(time_emb)
+            return self.noise_func(time_emb, dtype)
         return None, None
 
     def forward(self, x, time_emb=None):

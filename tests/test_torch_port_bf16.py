@@ -36,7 +36,7 @@ from diffsplitting_tpu.models import UNet as FlaxUNet
 from diffsplitting_tpu.ops.attention import _pallas_forward as jax_pallas_attention
 from diffsplitting_tpu.ops.attention import attention_reference as jax_attention
 from diffsplitting_tpu.ops.groupnorm import group_norm_swish_reference as jax_gn_swish
-from diffsplitting_tpu_torch.models import UNet, fused_unet_forward, set_dropout_generator
+from diffsplitting_tpu_torch.models import UNet, set_dropout_generator
 from diffsplitting_tpu_torch.models import blocks
 from diffsplitting_tpu_torch.models.precision import (cast_unet_params_for_inference,
                                                       compute_dtype)
@@ -177,13 +177,6 @@ def test_bf16_unet_matches_jax(cond_type):
     err = np.abs(got - want)
     m = np.abs(want).max()
     assert err.max() <= 3e-2 * m and err.mean() <= 5e-3 * m
-
-
-def test_fused_walk_refuses_bf16():
-    _, _, port = pair("noise_level")
-    x, t = (torch.from_numpy(a) for a in inputs())
-    with pytest.raises(NotImplementedError, match="1e, part 3"):
-        fused_unet_forward(port, x, t)
 
 
 def test_config_compute_dtype_and_remat():

@@ -1,5 +1,6 @@
-"""The port's bfloat16 kernels, and the float32 GroupNorm+Swish kernel past
-1024 channels, against their plain versions on the card.
+"""The port's bfloat16 kernels (GroupNorm+Swish, attention, conv_gn), and the
+float32 GroupNorm+Swish kernel past 1024 channels, against their plain
+versions on the card.
 
 Marked `gpu`; each test asks the `cuda` fixture, which skips without a card
 (decided at run time, so every worker collects the same tests). On the card:
@@ -9,6 +10,13 @@ The bf16 check, as chip_smoke.py makes it: from the same bf16 inputs, an f32
 reference (the plain version on the inputs made f32); the kernel's max abs
 error against it must be at most 2x the plain bf16 version's. Both round the
 result to bf16; the plain attention also rounds the scores and P to bf16.
+
+The bf16 conv_gn kernel computes what its plain version computes (bf16
+operands, exact products, f32 sums, y rounded once), in another order of the
+sums: y within one bf16 step (2^-7·|y|, a rounding that the order flips) plus
+1e-4·max|y| (values near 0, where the f32 sums' own difference exceeds their
+bf16 step); the statistics within 1e-5 of Σ|y| (sums over H·W pixels in
+another order), as chip_smoke.py holds them.
 """
 
 import math
@@ -16,14 +24,19 @@ import math
 import pytest
 import torch
 
+from diffsplitting_tpu_torch.models import UNet, fused_unet_forward
 from diffsplitting_tpu_torch.ops import (
     FusedAttention,
+    FusedConvGN,
     FusedGroupNormSwish,
     attention_reference,
+    conv_gn_fused,
+    conv_gn_reference,
     fused_attention,
     fused_group_norm_swish,
     group_norm_swish_reference,
 )
+from diffsplitting_tpu_torch.serving import init_weights
 
 pytestmark = pytest.mark.gpu
 
@@ -153,3 +166,127 @@ def test_attention_bf16_kernel_refuses_other_head_dims(cuda, D):
     with pytest.raises(ValueError, match="head dim"):
         fused_attention(q, q, q, 0.1)
     assert FusedAttention.launches_bf16 == before
+
+
+# the 11 sites of an sr_sr3_64_512 forward that the fused walk plans to the
+# kernel, at batch 1: (B, H, W, Cin, Cout, prologue, residual, Cres, gain);
+# then ragged widths (12, 20: a pixel 8-byte aligned, a K step part filled),
+# ragged maps (13 x 20, 9 x 17), no prologue, batch 2 and 3, inputs x8
+CONV_GN_BF16_SITES = [
+    (1, 512, 512, 64, 64, True, None, 0, 1), (1, 512, 512, 64, 64, True, "identity", 64, 1),
+    (1, 512, 512, 128, 128, False, None, 0, 1), (1, 512, 512, 192, 64, True, None, 0, 1),
+    (1, 512, 512, 64, 64, True, "projected", 192, 1), (1, 512, 512, 128, 64, True, None, 0, 1),
+    (1, 512, 512, 64, 64, True, "projected", 128, 1), (1, 256, 256, 64, 128, True, None, 0, 1),
+    (1, 256, 256, 128, 128, True, "projected", 64, 1), (1, 256, 256, 192, 128, True, None, 0, 1),
+    (1, 256, 256, 128, 128, True, "projected", 192, 1),
+]
+CONV_GN_BF16_CASES = CONV_GN_BF16_SITES + [
+    (1, 13, 20, 12, 12, True, "identity", 12, 1), (2, 9, 17, 12, 20, True, "projected", 20, 1),
+    (2, 16, 16, 20, 16, True, "projected", 12, 1), (3, 13, 20, 96, 32, True, "projected", 96, 1),
+    (2, 8, 16, 256, 128, True, None, 0, 1), (2, 16, 16, 128, 128, True, "projected", 256, 1),
+    (1, 32, 32, 32, 32, False, None, 0, 1), (2, 16, 16, 96, 32, True, "projected", 96, 8),
+    (1, 8, 16, 128, 128, False, "identity", 128, 8),
+]
+
+
+def _conv_gn_bf16_inputs(dev, B, H, W, Cin, Cout, act, res, Cres, gain=1, seed=0):
+    """bf16 x and residual; f32 w, b, w_skip (the UNet's parameters), scale
+    and shift."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
+    x = (rand(B, H, W, Cin) * gain).bfloat16()
+    w = rand(3, 3, Cin, Cout) / math.sqrt(9 * Cin)
+    b = rand(Cout) * 0.1
+    scale = rand(B, Cin) * 0.2 + 1 if act else None
+    shift = rand(B, Cin) * 0.5 if act else None
+    r = (rand(B, H, W, Cres) * gain).bfloat16() if res else None
+    ws = rand(Cres, Cout) / math.sqrt(Cres) if res == "projected" else None
+    return x, w, b, scale, shift, r, ws
+
+
+def _assert_conv_gn_bf16_close(got, want):
+    (y, s, q), (y_ref, s_ref, q_ref) = got, want
+    assert y.dtype == y_ref.dtype == torch.bfloat16 and s.dtype == q.dtype == torch.float32
+    yf, rf = y.float(), y_ref.float()
+    tol = 2.0 ** -7 * rf.abs() + 1e-4 * rf.abs().max()
+    assert ((yf - rf).abs() <= tol).all(), (yf - rf).abs().max().item()
+    assert ((s - s_ref).abs() <= 1e-5 * rf.abs().sum(dim=(1, 2)) + 1e-4).all()
+    assert ((q - q_ref).abs() <= 1e-5 * q_ref + 1e-4).all()
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,act,res,Cres,gain", CONV_GN_BF16_CASES)
+def test_conv_gn_bf16_kernel(cuda, B, H, W, Cin, Cout, act, res, Cres, gain):
+    args = _conv_gn_bf16_inputs(cuda, B, H, W, Cin, Cout, act, res, Cres, gain)
+    before = FusedConvGN.launches, FusedConvGN.launches_bf16
+    got = conv_gn_fused(*args)
+    again = conv_gn_fused(*args)
+    torch.cuda.synchronize()
+    assert (FusedConvGN.launches, FusedConvGN.launches_bf16) == (before[0], before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_conv_gn_bf16_close(got, conv_gn_reference(*args))
+
+
+def test_conv_gn_bf16_kernel_takes_precast_weights_and_oihw_views(cuda):
+    """bf16 copies of the weights and bias (DSP_PRECAST=1) give the bits the
+    f32 parameters give; the HWIO view of an OIHW weight and a transposed 1x1
+    weight are read in place."""
+    x, _, b, scale, shift, r, _ = _conv_gn_bf16_inputs(cuda, 2, 16, 16, 48, 16, True,
+                                                        "projected", 48)
+    conv = torch.nn.Conv2d(48, 16, 3, padding=1).to(cuda)
+    skip = torch.nn.Conv2d(48, 16, 1).to(cuda)
+    w, ws = conv.weight.permute(2, 3, 1, 0), skip.weight[:, :, 0, 0].t()
+    b = b.bfloat16().float()  # a bias that bf16 holds exactly
+    with torch.no_grad():
+        got = conv_gn_fused(x, w, b, scale, shift, r, ws)
+        cast = conv_gn_fused(x, w.bfloat16(), b.bfloat16(), scale, shift, r, ws.bfloat16())
+        want = conv_gn_reference(x, w.contiguous(), b, scale, shift, r, ws.contiguous())
+    assert all(torch.equal(a, c) for a, c in zip(got, cast))
+    _assert_conv_gn_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("what", ["float16", "f32_residual", "bf16_scale", "width"])
+def test_conv_gn_bf16_kernel_refuses(cuda, what):
+    x, w, b, scale, shift, r, _ = _conv_gn_bf16_inputs(cuda, 1, 8, 8, 16, 16, True,
+                                                        "identity", 16)
+    if what == "float16":
+        x = x.half()
+    elif what == "f32_residual":
+        r = r.float()
+    elif what == "bf16_scale":
+        scale = scale.bfloat16()
+    else:
+        x, w = x[..., :14].contiguous(), w[:, :, :14]
+    before = FusedConvGN.launches_bf16
+    with pytest.raises((TypeError, ValueError)):
+        conv_gn_fused(x, w, b, scale, shift, r)
+    assert FusedConvGN.launches_bf16 == before
+
+
+def test_fused_unet_forward_bf16_on_the_card(cuda):
+    """A bf16 noise-level UNet (inner 64, 16 groups, affine FiLM, attention at
+    16²): the fused walk through the bf16 kernels against the same walk
+    through the plain versions, and against the unfused bf16 forward."""
+    net = UNet(in_channel=6, out_channel=3, inner_channel=64, norm_groups=16,
+               channel_mults=(1, 2, 4), attn_res=(16,), res_blocks=1, image_size=64,
+               cond_type="noise_level", use_affine_level=True, dtype=torch.bfloat16)
+    init_weights(net, torch.Generator().manual_seed(0))
+    with torch.no_grad():  # non-zero biases, the FiLM's and res_conv's included
+        for p in net.parameters():
+            if p.ndim == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+    net = net.to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(2, 64, 64, 6, device=cuda, generator=g)
+    level = torch.rand(2, device=cuda, generator=g)
+    before = FusedConvGN.launches, FusedConvGN.launches_bf16
+    with torch.no_grad():
+        got = fused_unet_forward(net, x, level)
+        launched = FusedConvGN.launches - before[0], FusedConvGN.launches_bf16 - before[1]
+        unfused = net(x, level)
+    assert launched[0] == 0 and launched[1] > 0
+    assert got.dtype == torch.float32 and got.shape == unfused.shape == (2, 64, 64, 3)
+    assert torch.isfinite(got).all()
+    m = unfused.abs().max().item()
+    # bf16 rounds at other places in the two walks (TOL_FUSED_BF16 of
+    # tests/test_torch_port_fused_bf16.py)
+    assert (got - unfused).abs().max().item() <= 3e-2 * m
