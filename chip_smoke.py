@@ -186,14 +186,16 @@ def phase_group_norm(dev, shapes, groups, batch=BATCH, timed=True):
     launches must give the same bits. When `timed`: the kernel, plain and
     library times through a host loop of calls (as the kernel has been timed
     since it was ported; at the small shapes the wrapper's host time bounds
-    it), and the kernel's device time alone by CUDA-graph replay."""
+    it), and the kernel's and the library's device time alone by CUDA-graph
+    replay."""
     import torch
     import torch.nn.functional as F
     from diffsplitting_tpu_torch.kernels.variants import device_ms
     from diffsplitting_tpu_torch.ops import fused_group_norm_swish, group_norm_swish_reference
 
     g = torch.Generator(device=dev).manual_seed(1)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, device_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, device_ms=0.0,
+               library_device_ms=0.0)
     worst = 0.0
     for (C, H, W), calls in sorted(shapes.items()):
         x = torch.randn(batch, H, W, C, device=dev, generator=g) * 2 + 0.5
@@ -222,13 +224,15 @@ def phase_group_norm(dev, shapes, groups, batch=BATCH, timed=True):
         dev_ms = device_ms(lambda: fused_group_norm_swish(x, scale, bias, groups), 20)
         plain = time_ms(lambda: group_norm_swish_reference(x, scale, bias, groups), 5)
         lib = time_ms(lambda: F.silu(F.group_norm(x_nchw, groups, scale, bias, 1e-5)), 5)
+        lib_dev = device_ms(lambda: F.silu(F.group_norm(x_nchw, groups, scale, bias, 1e-5)), 5)
         bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3  # read x, write y
         log(f"gn_swish B={batch} H={H} W={W} C={C} C/G={C // groups} calls/forward={calls}: "
             f"err {err:.3g} kernel {ms:.4f} ms (device time {dev_ms:.4f}) plain {plain:.4f} ms "
-            f"library {lib:.4f} ms bound {bound:.4f} ms ({bound / ms:.1%} of HBM rate; "
-            f"{bound / dev_ms:.1%} by device time)")
+            f"library {lib:.4f} ms (device time {lib_dev:.4f}) bound {bound:.4f} ms "
+            f"({bound / ms:.1%} of HBM rate; {bound / dev_ms:.1%} by device time)")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bound_ms", bound), ("device_ms", dev_ms)):
+                         ("bound_ms", bound), ("device_ms", dev_ms),
+                         ("library_device_ms", lib_dev)):
             tot[key] += calls * val
         del x, x_nchw
         torch.cuda.empty_cache()
@@ -2786,7 +2790,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
-    from diffsplitting_tpu_torch.kernels import build, conv_gn_variants, groupnorm_variants
+    from diffsplitting_tpu_torch.kernels import build, conv_gn_variants, groupnorm_variants, variants
     from diffsplitting_tpu_torch.models import fused_unet_forward
     from diffsplitting_tpu_torch.predict import predict_frames
     from diffsplitting_tpu_torch.serving import SplittingModel
@@ -2806,6 +2810,11 @@ def main() -> int:
     for line in build_log.splitlines():
         if "Used" in line or "Compiling entry" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    conv_bf16_regs = variants.ptxas_summary(build_log.split("== conv_gn_bf16.cu")[1]
+                                            .split("\n== ")[0])
+    log("conv_gn_bf16 registers and spills (consumer warpgroups raised to 232 by setmaxnreg, "
+        "the producer lowered to 40; ptxas reports the launch's 168): "
+        + "; ".join(conv_bf16_regs))
 
     opt = dict_to_nonedict(load_json(CONFIG))
     if int(opt["datasets"]["patch_size"]) != PATCH:
@@ -2996,6 +3005,12 @@ def main() -> int:
         dict(name="conv_gn_bf16", route="cuda",
              source="diffsplitting_tpu_torch/csrc/conv_gn_bf16.cu",
              replaces="diffsplitting_tpu/experimental/conv_gn.py:270",
+             design="wgmma.mma_async m64nBNk16 bf16 (A from registers, B by a 32-byte-swizzle "
+                    "descriptor), each stage's 9 taps summed from 0 and added in f32; weights "
+                    "streamed by cp.async.bulk into a 3-stage mbarrier ring by a producer "
+                    "warpgroup (setmaxnreg 40 / 232); two consumer warpgroups, each with its own "
+                    "halo window (cp.async, activated in place) and taking turns to issue",
+             registers=conv_bf16_regs,
              launches=sr512["launches"]["conv_gn_bf16"], max_abs_err=sr512["conv_worst"],
              **{k: sr512["conv"][k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
                                               "bound_ms", "bound_by")},

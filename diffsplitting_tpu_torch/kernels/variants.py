@@ -58,7 +58,7 @@ def build_all(sources: dict, main: str, work: Path) -> dict:
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        print(f"{name}: " + "; ".join(_ptxas_summary(out)))
+        print(f"{name}: " + "; ".join(ptxas_summary(out)))
         libs[name] = ctypes.CDLL(str(work / name / "lib.so"))
     return libs
 
@@ -80,7 +80,7 @@ def _kernel_name(mangled: str) -> str:
     return name
 
 
-def _ptxas_summary(log: str) -> list:
+def ptxas_summary(log: str) -> list:
     """'kernel<template args>: registers, spill bytes' for each entry function
     in an `-Xptxas -v` log."""
     out, name, spill = [], None, "?"

@@ -11,12 +11,11 @@ products, f32 accuracy), csrc/conv_gn_bf16.cu at bfloat16 x, as JAX's kernel
 computes at `x.dtype` bf16 (the fused walk of a UNet at `compute_dtype:
 bfloat16`): the prologue in f32 rounded to bf16, bf16 tensor-core products
 with f32 sums, f32 statistics, y rounded once to bf16. Both kernels take the
-same widths and tile the map alike, so the fused walk's plan does not depend
-on the dtype. Inference only: there is no backward, as the JAX kernel has
-none. Not ported: the pair layout
-(`pair_pack`, `pair_weights`, …), `pick_tile_h` and the channels ≡ 0 mod 128
-rule, which exist only for the TPU's lanes; the Hopper kernel takes the
-widths of the splitting UNet as they are.
+same widths, so the fused walk's plan does not depend on the dtype.
+Inference only: there is no backward, as the JAX kernel has none. Not
+ported: the pair layout (`pair_pack`, `pair_weights`, …), `pick_tile_h` and
+the channels ≡ 0 mod 128 rule, which exist only for the TPU's lanes; the
+Hopper kernels take the widths of the splitting UNet as they are.
 """
 
 from __future__ import annotations
@@ -29,6 +28,11 @@ from ..kernels.build import check, library
 # csrc/conv_gn.cu: output channels a block (BN >= Cout) -> (tile rows, tile
 # columns), its `launch<BN, NW, WN, TR, TW, TPS>` lines; K steps of 16 channels
 _TILES = {16: (16, 16), 32: (8, 16), 64: (8, 16), 128: (8, 16)}
+# csrc/conv_gn_bf16.cu: BN (a wgmma width) -> (tile rows, tile columns), its
+# `launch<BN, MT>` lines (8·MT rows); a projected residual's K steps go in
+# stages of kResGroup chunks, the last one zero-padded
+_TILES_BF16 = {8: (16, 16), 16: (16, 16), 32: (16, 16), 64: (16, 16), 128: (8, 16)}
+_RES_GROUP_BF16 = 4
 _KC = 16
 MAX_CIN = 256
 MAX_COUT = 128
@@ -94,28 +98,34 @@ def conv_gn_reference(x, w, b, scale=None, shift=None, residual=None, w_skip=Non
     return y.to(dt), y.sum(dim=(1, 2)), (y * y).sum(dim=(1, 2))
 
 
-def _block_channels(Cout: int) -> int:
-    return next(bn for bn in _TILES if bn >= Cout)
+def _block_channels(Cout: int, bf16: bool = False) -> int:
+    return next(bn for bn in (_TILES_BF16 if bf16 else _TILES) if bn >= Cout)
 
 
-def conv_gn_tiling(H: int, W: int, Cout: int):
+def conv_gn_tiling(H: int, W: int, Cout: int, bf16: bool = False):
     """The kernel's block geometry for an H×W map and Cout channels: (tile
     rows, tile columns, tiles per batch element). A block covers all Cout
-    (rounded up to 16, 32, 64 or 128) and a fixed tr×tw tile of one batch
-    element for that width: 16×16 pixels on 8 warps at 16 channels, 8×16 on
-    4 warps at 32 and 64, 8×16 on 8 warps at 128 (a 64² map at batch 8
-    still gives 256 blocks); ragged edges are masked."""
-    tr, tw = _TILES[_block_channels(Cout)]
+    and a fixed tr×tw tile of one batch element for that width. The f32
+    kernel (Cout rounded up to 16, 32, 64 or 128): 16×16 pixels on 8 warps at
+    16 channels, 8×16 on 4 warps at 32 and 64, 8×16 on 8 warps at 128 (a 64²
+    map at batch 8 still gives 256 blocks). The bf16 kernel (`bf16`; Cout
+    rounded up to 8, 16, 32, 64 or 128): two warpgroups on 16×16 pixels, two
+    m64 tiles each, up to 64 channels, and on 8×16, an m64 tile each, at
+    128. Ragged edges are masked."""
+    tr, tw = (_TILES_BF16 if bf16 else _TILES)[_block_channels(Cout, bf16)]
     return tr, tw, -(-H // tr) * -(-W // tw)
 
 
-def conv_gn_weight_elems(Cin: int, Cout: int, Cres_skip: int) -> int:
+def conv_gn_weight_elems(Cin: int, Cout: int, Cres_skip: int, bf16: bool = False) -> int:
     """Elements of one plane of the kernels' weight scratch: BN×16 for each
     K step (9 taps × Cin/16 chunks, plus Cres/16 chunks of a projected
-    residual, `Cres_skip` 0 without one). The bf16 kernel packs one bf16
-    plane; the f32 kernel splits into a big and a small f32 plane."""
-    steps = 9 * -(-Cin // _KC) + -(-Cres_skip // _KC)
-    return steps * _block_channels(Cout) * _KC
+    residual, `Cres_skip` 0 without one). The bf16 kernel (`bf16`) packs one
+    bf16 plane, its residual chunks padded to whole stages; the f32 kernel
+    splits into a big and a small f32 plane."""
+    res = -(-Cres_skip // _KC)
+    if bf16:
+        res = -(-res // _RES_GROUP_BF16) * _RES_GROUP_BF16
+    return (9 * -(-Cin // _KC) + res) * _block_channels(Cout, bf16) * _KC
 
 
 def conv_gn_split_floats(Cin: int, Cout: int, Cres_skip: int) -> int:
@@ -192,18 +202,19 @@ def _launch(x, w, b, scale, shift, residual, w_skip, Cres: int):
     Cout = w.shape[-1]
     bf16 = x.dtype == torch.bfloat16
     # the bf16 kernel reads the bias as f32 and copies x and the residual in
-    # 8-byte pieces; the f32 kernel copies them in 16-byte pieces
+    # 16-byte pieces where they allow it, else in 8-byte ones; the f32 kernel
+    # copies them in 16-byte pieces
     b = b.float().contiguous()
     align = 8 if bf16 else 16
     if (any(t is not None and t.data_ptr() % align for t in (x, residual))
             or any(t is not None and t.data_ptr() % 16 for t in (b, scale, shift))):
         raise ValueError(f"conv_gn kernel needs {align}-byte aligned x and residual, 16-byte "
                          "aligned b, scale and shift")
-    tr, tw, tiles = conv_gn_tiling(H, W, Cout)
+    tr, tw, tiles = conv_gn_tiling(H, W, Cout, bf16)
     y = torch.empty((B, H, W, Cout), device=x.device, dtype=x.dtype)
     partials = torch.empty((B, tiles, 2, Cout), device=x.device, dtype=torch.float32)
     stats = torch.empty((2, B, Cout), device=x.device, dtype=torch.float32)
-    elems = conv_gn_weight_elems(Cin, Cout, Cres if w_skip is not None else 0)
+    elems = conv_gn_weight_elems(Cin, Cout, Cres if w_skip is not None else 0, bf16)
     wscratch = (torch.empty(elems, device=x.device, dtype=torch.bfloat16) if bf16 else
                 torch.empty(2 * elems, device=x.device, dtype=torch.float32))
     ws = w.stride()

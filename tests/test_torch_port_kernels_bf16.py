@@ -171,7 +171,12 @@ def test_attention_bf16_kernel_refuses_other_head_dims(cuda, D):
 # the 11 sites of an sr_sr3_64_512 forward that the fused walk plans to the
 # kernel, at batch 1: (B, H, W, Cin, Cout, prologue, residual, Cres, gain);
 # then ragged widths (12, 20: a pixel 8-byte aligned, a K step part filled),
-# ragged maps (13 x 20, 9 x 17), no prologue, batch 2 and 3, inputs x8
+# ragged maps (13 x 20, 9 x 17), no prologue, batch 2 and 3, inputs x8; then
+# the wgmma kernel's edges: an 11 x 7 map (the second warpgroup's m64 tile
+# empty, the first's rows part filled), Cout 4, 8 and 12 (wgmma n8 and n16,
+# y in 8-byte pieces at 4 and 12), Cin 20 at Cout 128 (a last chunk with 4
+# valid channels), a projected residual of 44 channels (a residual stage
+# zero-padded past its chunks), and the 512² upsample site at batch 2
 CONV_GN_BF16_SITES = [
     (1, 512, 512, 64, 64, True, None, 0, 1), (1, 512, 512, 64, 64, True, "identity", 64, 1),
     (1, 512, 512, 128, 128, False, None, 0, 1), (1, 512, 512, 192, 64, True, None, 0, 1),
@@ -186,6 +191,9 @@ CONV_GN_BF16_CASES = CONV_GN_BF16_SITES + [
     (2, 8, 16, 256, 128, True, None, 0, 1), (2, 16, 16, 128, 128, True, "projected", 256, 1),
     (1, 32, 32, 32, 32, False, None, 0, 1), (2, 16, 16, 96, 32, True, "projected", 96, 8),
     (1, 8, 16, 128, 128, False, "identity", 128, 8),
+    (2, 11, 7, 64, 64, True, None, 0, 1), (1, 16, 16, 16, 4, True, None, 0, 1),
+    (2, 9, 17, 20, 8, True, "identity", 8, 1), (2, 16, 24, 32, 12, True, "projected", 44, 1),
+    (1, 10, 33, 20, 128, True, None, 0, 1), (2, 512, 512, 128, 128, False, None, 0, 1),
 ]
 
 
@@ -242,6 +250,24 @@ def test_conv_gn_bf16_kernel_takes_precast_weights_and_oihw_views(cuda):
         want = conv_gn_reference(x, w.contiguous(), b, scale, shift, r, ws.contiguous())
     assert all(torch.equal(a, c) for a, c in zip(got, cast))
     _assert_conv_gn_bf16_close(got, want)
+
+
+def test_conv_gn_bf16_kernel_takes_8_byte_aligned_inputs(cuda):
+    """x and the residual 8 bytes past a 16-byte boundary (views into larger
+    buffers) are copied in 8-byte pieces at widths that are multiples of 8,
+    and give the bits of 16-byte aligned copies of the same values."""
+    args = list(_conv_gn_bf16_inputs(cuda, 2, 16, 24, 32, 64, True, "projected", 48))
+    shifted = list(args)
+    for k in (0, 5):
+        buf = torch.empty(args[k].numel() + 4, device=cuda, dtype=torch.bfloat16)
+        shifted[k] = buf[4:].view_as(args[k])
+        shifted[k].copy_(args[k])
+        assert shifted[k].data_ptr() % 16 == 8 and args[k].data_ptr() % 16 == 0
+    got = conv_gn_fused(*shifted)
+    want = conv_gn_fused(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+    _assert_conv_gn_bf16_close(got, conv_gn_reference(*args))
 
 
 @pytest.mark.parametrize("what", ["float16", "f32_residual", "bf16_scale", "width"])
