@@ -157,6 +157,35 @@ def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def graph_replay_equals_eager(what: str, fn, eager) -> None:
+    """A CUDA-graph replay of fn (one kernel call on the current stream)
+    gives the eager call's bits; raises otherwise."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, eager):
+        raise AssertionError(f"{what}: a CUDA-graph replay differs from the eager launch")
+    del graph, out
+
+
+def gn_route(x, groups: int) -> str:
+    """The GN+Swish kernel's route for x: "cluster" or "stream"."""
+    from diffsplitting_tpu_torch.ops import groupnorm
+
+    B, H, W, C = x.shape
+    return groupnorm.plan(B, H * W, C, groups, groupnorm._ENTRY[x.dtype][1],
+                          groupnorm._sm_count(x.device.index)).route
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the UNet blocks and the fused walk through the kernels' plain
@@ -183,11 +212,12 @@ def plain_versions():
 
 def phase_group_norm(dev, shapes, groups, batch=BATCH, timed=True):
     """Kernel vs plain version at every (C, H, W) of one forward; two
-    launches must give the same bits. When `timed`: the kernel, plain and
-    library times through a host loop of calls (as the kernel has been timed
-    since it was ported; at the small shapes the wrapper's host time bounds
-    it), and the kernel's and the library's device time alone by CUDA-graph
-    replay."""
+    launches must give the same bits. When `timed`: a CUDA-graph replay gives
+    the eager launch's bits; the kernel, plain and library times through a
+    host loop of calls (as the kernel has been timed since it was ported; at
+    the small shapes the wrapper's host time bounds it), and the kernel's and
+    the library's device time alone by CUDA-graph replay, by shape with the
+    kernel's route in tot["by_shape"]."""
     import torch
     import torch.nn.functional as F
     from diffsplitting_tpu_torch.kernels.variants import device_ms
@@ -196,7 +226,7 @@ def phase_group_norm(dev, shapes, groups, batch=BATCH, timed=True):
     g = torch.Generator(device=dev).manual_seed(1)
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, device_ms=0.0,
                library_device_ms=0.0)
-    worst = 0.0
+    worst, by_shape = 0.0, {}
     for (C, H, W), calls in sorted(shapes.items()):
         x = torch.randn(batch, H, W, C, device=dev, generator=g) * 2 + 0.5
         scale = torch.randn(C, device=dev, generator=g)
@@ -214,11 +244,15 @@ def phase_group_norm(dev, shapes, groups, batch=BATCH, timed=True):
         if not torch.equal(got, again):
             raise AssertionError(f"GN+Swish B={batch} C={C} H={H}: two launches differ")
         worst = max(worst, err)
-        del got, again, want
+        del again, want
         if not timed:
             log(f"gn_swish B={batch} H={H} W={W} C={C} C/G={C // groups} calls/forward={calls}: "
                 f"err {err:.3g} (tol {tol:.3g}), two launches bit-identical")
             continue
+        graph_replay_equals_eager(f"GN+Swish B={batch} C={C} H={H}",
+                                  lambda: fused_group_norm_swish(x, scale, bias, groups), got)
+        route = gn_route(x, groups)
+        del got
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of the same bytes
         ms = time_ms(lambda: fused_group_norm_swish(x, scale, bias, groups), 20)
         dev_ms = device_ms(lambda: fused_group_norm_swish(x, scale, bias, groups), 20)
@@ -226,19 +260,23 @@ def phase_group_norm(dev, shapes, groups, batch=BATCH, timed=True):
         lib = time_ms(lambda: F.silu(F.group_norm(x_nchw, groups, scale, bias, 1e-5)), 5)
         lib_dev = device_ms(lambda: F.silu(F.group_norm(x_nchw, groups, scale, bias, 1e-5)), 5)
         bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3  # read x, write y
-        log(f"gn_swish B={batch} H={H} W={W} C={C} C/G={C // groups} calls/forward={calls}: "
-            f"err {err:.3g} kernel {ms:.4f} ms (device time {dev_ms:.4f}) plain {plain:.4f} ms "
-            f"library {lib:.4f} ms (device time {lib_dev:.4f}) bound {bound:.4f} ms "
-            f"({bound / ms:.1%} of HBM rate; {bound / dev_ms:.1%} by device time)")
+        log(f"gn_swish B={batch} H={H} W={W} C={C} C/G={C // groups} calls/forward={calls} "
+            f"({route} route): err {err:.3g}, graph replay bit-identical; kernel {ms:.4f} ms "
+            f"(device time {dev_ms:.4f}) plain {plain:.4f} ms library {lib:.4f} ms (device time "
+            f"{lib_dev:.4f}) bound {bound:.4f} ms ({bound / ms:.1%} of HBM rate; "
+            f"{bound / dev_ms:.1%} by device time)")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bound_ms", bound), ("device_ms", dev_ms),
                          ("library_device_ms", lib_dev)):
             tot[key] += calls * val
+        by_shape[f"B={batch} H={H} W={W} C={C}"] = dict(
+            calls=calls, route=route, device_ms=dev_ms, library_device_ms=lib_dev, bound_ms=bound)
         del x, x_nchw
         torch.cuda.empty_cache()
     if timed:
         log(f"gn_swish per UNet forward ({sum(shapes.values())} calls): "
             + " ".join(f"{k} {v:.4f}" for k, v in tot.items()))
+        tot["by_shape"] = by_shape
     return tot, worst
 
 
@@ -2267,6 +2305,14 @@ def phase_sr3(dev, work: str) -> dict:
 
 
 
+GN_DESIGN = ("two routes chosen per call by ops.groupnorm.plan: cluster (one launch; a "
+             "thread-block cluster of up to 8 blocks holds a slab of whole groups of one element "
+             "in shared memory, loaded by cp.async (a slab of the row) or TMA bulk copies (the "
+             "whole row) in 4 stages; f32 sums added across the cluster through distributed "
+             "shared memory in rank order; y stored from shared memory) or stream (two launches: "
+             "per-chunk sums, added across clusters of up to 8 chunks where an element has more "
+             "than 128; every normalize block folds its element's partials, in a fixed order, "
+             "into a_c and b_c, and reads x again)")
 SR512_CONFIG = "configs/sr_sr3_64_512.json"
 # sr_sr3_64_512's UNet (inner 64, mults (1, 2, 4, 8, 16), 1 res block, 16
 # groups, attention only in the mid block at 32², D = 1024; bf16, remat): its
@@ -2291,17 +2337,20 @@ def phase_gn_bf16(dev, shapes, groups) -> tuple:
     forward at batch 1, and the f32 kernel at its C > 1024 shapes: each
     against an f32 reference from the same inputs (bf16: at most 2x the plain
     bf16 version's error; f32: the f32 kernel's 1e-4 tolerance), two launches
-    bit-identical, and the times (host loop, device time by CUDA-graph
-    replay, plain, `F.silu(F.group_norm)` in the same dtype, bound) summed
-    over the forward's calls (bf16) or listed by shape (f32)."""
+    bit-identical, a CUDA-graph replay bit-identical to the eager launch, and
+    the times (host loop, device time by CUDA-graph replay, plain,
+    `F.silu(F.group_norm)` in the same dtype through a host loop and by
+    device time, bound) summed over the forward's calls (bf16; by shape with
+    the kernel's route in tot["by_shape"]) or listed by shape (f32)."""
     import torch
     import torch.nn.functional as F
     from diffsplitting_tpu_torch.kernels.variants import device_ms
     from diffsplitting_tpu_torch.ops import fused_group_norm_swish, group_norm_swish_reference
 
     g = torch.Generator(device=dev).manual_seed(41)
-    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    worst, f32_rows = dict(kernel=0.0, plain=0.0), {}
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               library_device_ms=0.0)
+    worst, f32_rows, by_shape = dict(kernel=0.0, plain=0.0), {}, {}
     cases = [(shape, calls, torch.bfloat16) for shape, calls in sorted(shapes.items())]
     cases += [(shape, 0, torch.float32) for shape in sorted(shapes) if shape[0] > 1024]
     for (C, H, W), calls, dtype in cases:
@@ -2319,29 +2368,39 @@ def phase_gn_bf16(dev, shapes, groups) -> tuple:
         if not ok or not torch.equal(got, again):
             raise AssertionError(f"GN+Swish {dtype} C={C} H={H}: err {err} (plain {plain_err}), "
                                  f"two launches equal {torch.equal(got, again)}")
+        graph_replay_equals_eager(f"GN+Swish {dtype} C={C} H={H}",
+                                  lambda: fused_group_norm_swish(x, scale, bias, groups), got)
+        route = gn_route(x, groups)
         x_nchw = x.permute(0, 3, 1, 2)
         sc, bi = scale.to(dtype), bias.to(dtype)
         ms = time_ms(lambda: fused_group_norm_swish(x, scale, bias, groups), 20)
         dev_ms = device_ms(lambda: fused_group_norm_swish(x, scale, bias, groups), 20)
         plain_ms = time_ms(lambda: group_norm_swish_reference(x, scale, bias, groups), 5)
         lib = time_ms(lambda: F.silu(F.group_norm(x_nchw, groups, sc, bi, 1e-5)), 5)
+        lib_dev = device_ms(lambda: F.silu(F.group_norm(x_nchw, groups, sc, bi, 1e-5)), 5)
         bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3  # read x, write y
-        log(f"gn_swish {str(dtype)[6:]} B=1 H={H} W={W} C={C} calls/forward={calls}: err "
-            f"{err:.3g} (plain {str(dtype)[6:]} {plain_err:.3g}, against f32 of the same inputs), "
-            f"two launches bit-identical; kernel {ms:.4f} ms (device time {dev_ms:.4f}) plain "
-            f"{plain_ms:.4f} ms library {lib:.4f} ms bound {bound:.4f} ms ({bound / dev_ms:.1%} "
-            "of the HBM rate by device time)")
-        row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound)
+        log(f"gn_swish {str(dtype)[6:]} B=1 H={H} W={W} C={C} calls/forward={calls} ({route} "
+            f"route): err {err:.3g} (plain {str(dtype)[6:]} {plain_err:.3g}, against f32 of the "
+            "same inputs), two launches and a graph replay bit-identical; kernel "
+            f"{ms:.4f} ms (device time {dev_ms:.4f}) plain {plain_ms:.4f} ms library {lib:.4f} "
+            f"ms (device time {lib_dev:.4f}) bound {bound:.4f} ms ({bound / dev_ms:.1%} of the "
+            "HBM rate by device time)")
+        row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound,
+                   library_device_ms=lib_dev)
         if dtype == torch.bfloat16:
             for k in tot:
                 tot[k] += calls * row[k]
             worst = dict(kernel=max(worst["kernel"], err), plain=max(worst["plain"], plain_err))
+            by_shape[f"B=1 H={H} W={W} C={C}"] = dict(
+                calls=calls, route=route, device_ms=dev_ms, library_device_ms=lib_dev,
+                bound_ms=bound)
         else:
-            f32_rows[f"C={C} H={H}"] = dict(row, max_abs_err=err)
+            f32_rows[f"C={C} H={H}"] = dict(row, max_abs_err=err, route=route)
         del x, x_nchw, got, again, plain, ref
     torch.cuda.empty_cache()
     log(f"gn_swish bf16 per sr_sr3_64_512 forward at B=1 ({sum(shapes.values())} calls): "
         + " ".join(f"{k} {v:.4f}" for k, v in tot.items()))
+    tot["by_shape"] = by_shape
     return tot, worst, f32_rows
 
 
@@ -2938,8 +2997,11 @@ def main() -> int:
              max_abs_err=max(gn_err, sr3["gn_err"]), ms=gn["ms"],
              plain_ms=gn["plain_ms"], bound_ms=gn["bound_ms"], bound_by="bytes",
              library_ms=gn["library_ms"], device_ms=gn["device_ms"],
+             library_device_ms=gn["library_device_ms"], design=GN_DESIGN, by_shape=gn["by_shape"],
              sr3_forward_b1={k: sr3["gn"][k] for k in ("ms", "device_ms", "plain_ms",
-                                                       "library_ms", "bound_ms")}),
+                                                       "library_ms", "bound_ms",
+                                                       "library_device_ms")},
+             sr3_by_shape=sr3["gn"]["by_shape"]),
         dict(name="attention", route="cuda",
              source="diffsplitting_tpu_torch/csrc/attention.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
@@ -2989,8 +3051,8 @@ def main() -> int:
              max_abs_err=sr512["gn_worst"]["kernel"],
              plain_max_abs_err=sr512["gn_worst"]["plain"],
              **{k: sr512["gn"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                            "device_ms")}, bound_by="bytes",
-             f32_wide_c=sr512["gn_f32"]),
+                                            "device_ms", "library_device_ms")}, bound_by="bytes",
+             design=GN_DESIGN, by_shape=sr512["gn"]["by_shape"], f32_wide_c=sr512["gn_f32"]),
         dict(name="attention_bf16", route="cuda",
              source="diffsplitting_tpu_torch/csrc/attention_bf16.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
@@ -3036,10 +3098,13 @@ def main() -> int:
         "phase's fused exact chain's; each kernel's launches also count the SR3 phase's "
         "(infer.py's 2000-step chains unfused and fused, DDPM's chain, sample.py's, one train "
         "step), attention_wide's its 6 a forward at D = 512, and group_norm_swish's "
-        "sr3_forward_b1 holds its times a forward of sr_sr3_16_128 at batch 1 (55 calls); "
+        "sr3_forward_b1 holds its times a forward of sr_sr3_16_128 at batch 1 (55 calls), "
+        "by_shape and sr3_by_shape each shape's route, device time, library device time and "
+        "bound (ms a call); "
         "group_norm_swish_bf16 times are per sr_sr3_64_512 forward at batch 1 (35 calls; "
-        "device_ms by CUDA-graph replay; plain and library (F.silu(F.group_norm) in bf16) "
-        "through a host loop) and its launches are that phase's infer.py chain and its two "
+        "device_ms and library_device_ms by CUDA-graph replay; plain and library "
+        "(F.silu(F.group_norm) in bf16) through a host loop; by_shape per call, with its route) "
+        "and its launches are that phase's infer.py chain and its two "
         "train steps (remat on and off); attention_bf16 times are at its mid block (B=1, "
         "N=1024, D=1024; plain_ms and library_ms (SDPA in bf16) by CUDA-graph replay), its "
         "launches likewise; each bf16 max_abs_err is against an f32 reference from the same "

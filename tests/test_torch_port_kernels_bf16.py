@@ -35,7 +35,9 @@ from diffsplitting_tpu_torch.ops import (
     fused_attention,
     fused_group_norm_swish,
     group_norm_swish_reference,
+    groupnorm,
 )
+from diffsplitting_tpu_torch.kernels.groupnorm_variants import plan_with
 from diffsplitting_tpu_torch.serving import init_weights
 
 pytestmark = pytest.mark.gpu
@@ -110,6 +112,133 @@ def test_group_norm_swish_kernel_refuses(cuda, dtype, C):
     w = torch.ones(C, device=cuda)
     with pytest.raises((ValueError, TypeError)):
         fused_group_norm_swish(x, w, w, 4)
+
+
+def _gn_route(dev, B, H, W, C, G, dtype, route, seed=2, constants=None):
+    """The kernel on the route `route` (`ops.groupnorm.plan` with its tuning
+    `constants` set, as kernels/groupnorm_variants.py sets them): launched twice (the same bits, one count a launch) and held
+    against the plain version, f32 at 1e-4·(1 + max|ref|), bf16 within 2x
+    the plain bf16 version's error against f32 of the same inputs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(B, H, W, C, device=dev, generator=g) * 2 + 0.5).to(dtype)
+    scale = torch.randn(C, device=dev, generator=g)
+    bias = torch.randn(C, device=dev, generator=g)
+    pv = groupnorm._ENTRY[dtype][1]
+    how = plan_with(constants or {}, B, H * W, C, G, pv, groupnorm._sm_count(dev.index),
+                    route=route)
+    assert how.route == route
+    before = FusedGroupNormSwish.launches + FusedGroupNormSwish.launches_bf16
+    got = groupnorm._launch(x, scale, bias, G, 1e-5, how)
+    again = groupnorm._launch(x, scale, bias, G, 1e-5, how)
+    torch.cuda.synchronize()
+    assert FusedGroupNormSwish.launches + FusedGroupNormSwish.launches_bf16 == before + 2
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, again)
+    ref = group_norm_swish_reference(x.float(), scale, bias, G)
+    if dtype == torch.bfloat16:
+        assert _err(got, ref) <= 2 * _err(group_norm_swish_reference(x, scale, bias, G), ref)
+    else:
+        assert _err(got, ref) <= 1e-4 * (1 + ref.abs().max().item())
+    return how
+
+
+# each route at its edges: the largest on-chip slabs of the slice (bf16 128²
+# at C = 768, 214 KB a block; f32 64² at C = 192 with batch 8 on the widest
+# slab, 215 KB), a cluster of 16 (256² at C = 128, bf16), the smallest maps on
+# the stream route (one chunk, and one cluster of 8 chunks) and its largest
+# (512² at C = 192, bf16, clusters of 8); C/G of 3, 6 and 12 on both routes;
+# C = 2048 in both dtypes; ragged H*W
+WIDE, K16, CLUSTERED = {"_TWO_SLAB_BYTES": 1 << 30}, {"PLAN_CLUSTER": 16}, {"_FOLD_ALONE": 0}
+GN_ROUTE_CASES = [
+    (1, 128, 128, 768, 16, torch.bfloat16, "cluster", {}),
+    (8, 64, 64, 192, 16, torch.float32, "cluster", WIDE),
+    (1, 256, 256, 128, 16, torch.bfloat16, "cluster", K16),
+    (1, 4, 4, 64, 16, torch.bfloat16, "stream", {}),
+    (1, 32, 32, 64, 16, torch.float32, "stream", CLUSTERED),
+    (1, 512, 512, 192, 16, torch.bfloat16, "stream", {}),
+    (2, 32, 32, 48, 16, torch.float32, "cluster", {}),
+    (2, 32, 32, 48, 16, torch.float32, "stream", {}),
+    (2, 32, 32, 96, 16, torch.float32, "cluster", {}),
+    (2, 32, 32, 96, 16, torch.bfloat16, "stream", {}),
+    (2, 32, 32, 192, 16, torch.bfloat16, "cluster", {}),
+    (2, 32, 32, 192, 16, torch.float32, "stream", {}),
+    (1, 32, 32, 2048, 16, torch.float32, "cluster", {}),
+    (1, 32, 32, 2048, 16, torch.float32, "stream", {}),
+    (1, 32, 32, 2048, 16, torch.bfloat16, "cluster", {}),
+    (1, 32, 32, 2048, 16, torch.bfloat16, "stream", {}),
+    (3, 33, 17, 48, 16, torch.float32, "cluster", {}),
+    (3, 33, 17, 48, 16, torch.float32, "stream", {}),
+    (1, 13, 11, 64, 16, torch.bfloat16, "cluster", {}),
+    (1, 13, 11, 64, 16, torch.bfloat16, "stream", {}),
+]
+
+
+@pytest.mark.parametrize("B,H,W,C,G,dtype,route,constants", GN_ROUTE_CASES)
+def test_group_norm_swish_routes(cuda, B, H, W, C, G, dtype, route, constants):
+    how = _gn_route(cuda, B, H, W, C, G, dtype, route, constants=constants)
+    # the edge each case is for
+    if constants is K16:
+        assert how.cluster == 16
+    if constants is CLUSTERED:
+        assert how.cluster == 8
+    if constants is WIDE:
+        assert how.smem > groupnorm.SMEM_MAX // 2
+
+
+# batch 1 ... 8 on the cluster route (a cluster a slab and element)
+@pytest.mark.parametrize("B", range(1, 9))
+def test_group_norm_swish_cluster_route_at_each_batch(cuda, B):
+    how = _gn_route(cuda, B, 32, 32, 512, 16, torch.bfloat16, "cluster", seed=B)
+    assert how.blocks == B * how.chunks * how.cluster
+
+
+# a CUDA-graph replay gives the eager launch's bits, on both routes
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,C", [(64, 1536), (256, 64)])
+def test_group_norm_swish_graph_replay_equals_eager(cuda, dtype, H, C):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn(1, H, H, C, device=cuda, generator=g) * 2 + 0.5).to(dtype)
+    scale = torch.randn(C, device=cuda, generator=g)
+    bias = torch.randn(C, device=cuda, generator=g)
+    eager = fused_group_norm_swish(x, scale, bias, 16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_group_norm_swish(x, scale, bias, 16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fused_group_norm_swish(x, scale, bias, 16)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
+
+
+# stream-route calls on two streams at once give the bits each gives alone
+# (the kernels keep no state between calls: each call's statistics live in
+# its own scratch)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_swish_calls_on_two_streams_equal_one_by_one(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    xs = [(torch.randn(1, 256, 256, 64, device=cuda, generator=g) * 2 + k).to(dtype)
+          for k in (0.5, -1.0)]
+    scale = torch.randn(64, device=cuda, generator=g)
+    bias = torch.randn(64, device=cuda, generator=g)
+    assert groupnorm.plan(1, 256 * 256, 64, 16, groupnorm._ENTRY[dtype][1],
+                          groupnorm._sm_count(cuda.index)).route == "stream"
+    alone = [fused_group_norm_swish(x, scale, bias, 16) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(8):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[k].append(fused_group_norm_swish(xs[k], scale, bias, 16))
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert all(torch.equal(y, alone[k]) for y in outs[k])
 
 
 # the config's mid block (N = 1024 tokens of 32², D = 1024, one head) at its
