@@ -2305,6 +2305,14 @@ def phase_sr3(dev, work: str) -> dict:
 
 
 
+ATTN_BF16_DESIGN = (
+    "wgmma.mma_async m64n64k16 bf16 with f32 accumulators (S = Q K^T with Q and K by 128-byte-"
+    "swizzle descriptors; O += P V with P from registers and V read transposed), 64 queries a "
+    "block, Q, K and V by TMA tensor maps into an mbarrier ring filled by one producer thread; "
+    "up to D = 256 a block holds O and walks its keys with an online softmax; above, the wide "
+    "kernel sums S over all of D itself for a group of 128 keys, takes its softmax in one "
+    "pass, then O in 256-wide chunks one after another; keys split across blocks by "
+    "ops.attention.plan, the splits' f32 partials combined in split order by a second launch")
 GN_DESIGN = ("two routes chosen per call by ops.groupnorm.plan: cluster (one launch; a "
              "thread-block cluster of up to 8 blocks holds a slab of whole groups of one element "
              "in shared memory, loaded by cp.async (a slab of the row) or TMA bulk copies (the "
@@ -2408,13 +2416,16 @@ def phase_attention_bf16(dev) -> tuple:
     """The bf16 attention kernel at SR512_ATTN_SHAPES (q, k, v as views of
     one qkv tensor, as the attention block hands them over): against an f32
     reference from the same bf16 inputs, at most 2x the plain bf16 version's
-    error; two launches bit-identical; device time by CUDA-graph replay
-    beside the plain version and SDPA in bf16, and the bound (4·B·N²·D
-    operations at 989 TFLOP/s bf16, or q, k, v and out once through HBM)."""
+    error; two launches and a CUDA-graph replay bit-identical; device time
+    by CUDA-graph replay beside the plain version and SDPA in bf16, and the
+    bound (4·B·N²·D operations at 989 TFLOP/s bf16, or q, k, v and out once
+    through HBM); the launch plan (kernel, key splits) logged."""
     import torch
     import torch.nn.functional as F
     from diffsplitting_tpu_torch.kernels.variants import device_ms
     from diffsplitting_tpu_torch.ops import attention_reference, fused_attention
+    from diffsplitting_tpu_torch.ops.attention import plan
+    from diffsplitting_tpu_torch.ops.groupnorm import _sm_count
 
     g = torch.Generator(device=dev).manual_seed(42)
     res, worst = {}, dict(kernel=0.0, plain=0.0)
@@ -2435,6 +2446,9 @@ def phase_attention_bf16(dev) -> tuple:
             raise AssertionError(f"attention bf16 B={B} N={N} D={D}: launches {launched}, err "
                                  f"{err} (plain {plain_err}), two launches equal "
                                  f"{torch.equal(got, again)}")
+        graph_replay_equals_eager(f"attention bf16 B={B} N={N} D={D}",
+                                  lambda: fused_attention(q, k, v, scale), got)
+        how = plan(B, N, D, _sm_count(dev.index or 0))
         worst = dict(kernel=max(worst["kernel"], err), plain=max(worst["plain"], plain_err))
         ms = time_ms(lambda: fused_attention(q, k, v, scale), 20)
         dev_ms = device_ms(lambda: fused_attention(q, k, v, scale))
@@ -2446,15 +2460,18 @@ def phase_attention_bf16(dev) -> tuple:
         bytes_ms = 4 * B * N * D * 2 / HBM_BYTES_PER_S * 1e3
         bound = max(ops_ms, bytes_ms)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
-        log(f"attention bf16 B={B} N={N} D={D} heads=1: err {err:.3g} (plain bf16 {plain_err:.3g}, "
-            f"against f32 of the same inputs), two launches bit-identical; kernel {ms:.4f} ms "
+        log(f"attention bf16 B={B} N={N} D={D} heads=1 ({'wide kernel, ' if how.wide else ''}"
+            f"{how.splits} key splits of {how.tiles_per_split} tiles, {how.blocks * B} blocks): "
+            f"err {err:.3g} (plain bf16 "
+            f"{plain_err:.3g}, against f32 of the same inputs), two launches and a graph replay "
+            f"bit-identical; kernel {ms:.4f} ms "
             f"(device time {dev_ms:.4f}) plain {plain_ms:.4f} ms SDPA bf16 {lib:.4f} ms (device "
             f"times; SDPA {lib / dev_ms:.2f}x the kernel's) bound {bound:.4f} ms ({by}; bf16 "
             f"tensor-core {ops_ms:.4f}, bytes {bytes_ms:.4f}; {bound / dev_ms:.1%} of it, "
             f"{flops / dev_ms / 1e9:.1f} bf16 TFLOP/s)")
         res[(B, N, D)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib,
                               bound_ms=bound, bound_by=by, max_abs_err=err,
-                              plain_max_abs_err=plain_err)
+                              plain_max_abs_err=plain_err, splits=how.splits, wide=how.wide)
         del qkv, q, k, v, got, again, plain, ref
     torch.cuda.empty_cache()
     return res, worst
@@ -2874,6 +2891,10 @@ def main() -> int:
     log("conv_gn_bf16 registers and spills (consumer warpgroups raised to 232 by setmaxnreg, "
         "the producer lowered to 40; ptxas reports the launch's 168): "
         + "; ".join(conv_bf16_regs))
+    attn_bf16_regs = variants.ptxas_summary(build_log.split("== attention_bf16.cu")[1]
+                                            .split("\n== ")[0])
+    log("attention_bf16 registers and spills (<panels> up to D = 256, then the wide kernel): "
+        + "; ".join(attn_bf16_regs))
 
     opt = dict_to_nonedict(load_json(CONFIG))
     if int(opt["datasets"]["patch_size"]) != PATCH:
@@ -3056,6 +3077,7 @@ def main() -> int:
         dict(name="attention_bf16", route="cuda",
              source="diffsplitting_tpu_torch/csrc/attention_bf16.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
+             design=ATTN_BF16_DESIGN, registers=attn_bf16_regs,
              launches=sr512["launches"]["attention_bf16"],
              max_abs_err=sr512["attn_worst"]["kernel"],
              plain_max_abs_err=sr512["attn_worst"]["plain"], at="B=1 N=1024 D=1024",
@@ -3063,7 +3085,7 @@ def main() -> int:
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")},
              by_shape={"B=%d N=%d D=%d" % key: {k: r[k] for k in (
                  "device_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
-                 "plain_max_abs_err")} for key, r in sr512["attn"].items()}),
+                 "plain_max_abs_err", "splits", "wide")} for key, r in sr512["attn"].items()}),
         dict(name="conv_gn_bf16", route="cuda",
              source="diffsplitting_tpu_torch/csrc/conv_gn_bf16.cu",
              replaces="diffsplitting_tpu/experimental/conv_gn.py:270",

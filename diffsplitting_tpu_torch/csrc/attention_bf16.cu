@@ -1,59 +1,86 @@
-// Spatial self-attention softmax(q k^T * scale) v in bfloat16, for sm_90a, on
-// the bf16 tensor cores (mma.sync.m16n8k16, f32 accumulators): the UNet's
-// attention at `compute_dtype: bfloat16`. One kernel,
-// attention_bf16_kernel<DS, SW>, at any head dim D that is a multiple of 8 up
-// to 1024: DS = 1 slice of SW = D rounded up to a multiple of 16 below 128,
-// else DS = ceil(D / 128) slices of SW = 128, the last one zero-filled past D.
+// Spatial self-attention softmax(q k^T * scale) v in bfloat16, for sm_90a:
+// the UNet's attention at `compute_dtype: bfloat16`, on the bf16 tensor
+// cores through wgmma with f32 accumulators, at any head dim D that is a
+// multiple of 8 up to 1024 and any N >= 1.
 //
 // Replaces: diffsplitting_tpu/ops/attention.py:33, `_kernel` (launched by
-//   `_pallas_forward`) at bf16 q, k and v: f32 scores and softmax, P
+//   `_pallas_forward`, :60) at bf16 q, k and v: f32 scores and softmax, P
 //   normalised and cast to bf16, P V summed in f32, a bf16 result
 //   (`out_ref.dtype`). The f32 kernels of attention.cu take the float32 UNet.
 //
 // Bound: operations. The two products take 4 * N^2 * D flops a (batch,
 //   head): 4.29 GFLOP at sr_sr3_64_512's mid block (B = 1, N = 1024, D =
 //   1024), 0.0043 ms at 989 TFLOP/s dense bf16, against 8.4 MB of q, k, v and
-//   out (0.0025 ms at 3.35 TB/s). Each block reads all of K and V of its
-//   (batch, head) from L2: 4 * N * D bytes for its 16 * kRowGroups queries.
+//   out (0.0025 ms at 3.35 TB/s).
 //
-// Design (a simple kernel first: mma.sync, not wgmma or TMA):
-//   * One block of kRowGroups x DS warps per (b * head, 16 * kRowGroups-query
-//     tile), as attention_tf32x3_wide_kernel: warp (rg, ds) owns query rows
-//     16 rg ... 16 rg + 15 and head dims SW ds ... SW ds + SW - 1, so its O is
-//     16 x SW f32, at most 64 floats a thread at any D (a 16 x 1024 f32 O
-//     would not fit one warp's registers). kRowGroups is 4 up to D = 256, 2
-//     up to 512, 1 above.
-//   * S = Q K^T by slices: each warp sums its slice's SW terms of a score in
-//     the MMA accumulator; with DS > 1 it writes that partial S to shared
-//     memory, and after a barrier each warp of the row group adds the DS
-//     partials of its rows in f32 in the order ds = 0, 1, ... All warps of a
-//     row group so hold the same S bits and the same running max and sum; no
-//     atomics, and two launches give the same bits.
-//   * Online softmax in f32 in the exp2 domain; keys past N at -inf. P is
-//     rounded to bf16 in registers: the m16n8k16 accumulator layout of two
-//     8-key n-tiles of S (rows g and g + 8, keys 2t, 2t + 1) is the A
-//     fragment of the next MMA (16 keys deep), so P never leaves registers.
-//     The row sum is taken on the f32 P, and O is divided by it once, at the
-//     end (the Pallas kernel divides P first, then rounds it to bf16).
-//   * O += P V in the MMA accumulator, f32, over all keys. The accumulator
-//     rounds toward zero (PERF.md, the f32 kernels), about N / 16 roundings
-//     of 2^-23 relative at most here, far below bf16's 2^-8 step of the
-//     result: it is not designed around.
-//   * Shared memory, dynamic: the block's Q tile and a ring of two stages of
-//     kTileK-key K and V tiles (rows of DS * SW + 8 bf16), filled by
-//     cp.async.cg one tile ahead; the partial S (16 x kTileK f32 a warp) when
-//     DS > 1. kTileK is 64 at DS = 1, 32 up to D = 512, 16 above: at D = 1024
-//     a stage of K and V is 64 KB.
-//   * Fragments come from shared memory through ldmatrix (x4): Q and K as
-//     stored, V with .trans, which gives P V's B fragment (keys 2t, 2t + 1 of
-//     column g) from row-major V. Rows of DS * SW + 8 bf16 put the 8 rows an
-//     8 x 8 matrix reads in 8 different 16-byte bank groups: no conflicts.
-//   * Any N >= 1: K and V rows past N, and Q rows past N, are zero-filled
-//     (cp.async with a source size of 0 reads nothing); query rows past N are
-//     not stored, and a row group all past N only helps stage. Columns past D
-//     are zero-filled in Q, K and V, add nothing to S, and are not stored.
-//   * Output: bf16, O * (1 / l) rounded once, two values a store.
+// Design (a Hopper redesign of PR 14's mma.sync kernel, which ran the mid
+// block in 0.1355 ms on an H100 80GB HBM3 at 700 W: 3.2 % of its bound).
+// Times below are device times by CUDA-graph replay on an H100 80GB HBM3 at
+// 700 W (PERF.md row 4d). PR 14's four faults and what this design does
+// about each:
+//   1. Too few blocks (64 of 16 queries at the mid block, one an SM): the
+//      keys are split across blocks, flash-decoding style. Split s of a
+//      (batch * head, 64-query tile) walks key tiles [s * tps, (s + 1) *
+//      tps); each split writes its f32 running max m, row sum l and
+//      unnormalised O to scratch the wrapper allocates, and a second launch
+//      (attention_bf16_combine) adds the splits in split order. A split with
+//      no key (a forced split count may leave the last one empty) writes m =
+//      -inf, l = 0 and O = 0, and the combine gives it weight 0 without
+//      computing -inf - (-inf). The split count is chosen in Python
+//      (ops/attention.py `plan`) from (B * heads, N, D, SM count); with one
+//      split the kernel writes the bf16 result itself.
+//   2. K and V read again by every 16 queries: a block takes 64 queries (one
+//      wgmma m64 tile), so each K and V tile read from L2 serves 64.
+//   3. One stage in flight and two block-wide barriers a stage: Q, K and V
+//      come by TMA (cp.async.bulk.tensor, 128-byte swizzle, zero fill past D
+//      and N) into a ring of slots, filled by one producer thread and handed
+//      over on mbarriers (full: transaction bytes; empty: the consumer
+//      warpgroup's release once its wgmma that read the slot have
+//      completed). No __syncthreads() in the key loop.
+//   4. mma.sync: S = Q K^T runs as wgmma.m64n64k16 with Q and K both read
+//      from shared memory through 128-byte-swizzle K-major descriptors; O +=
+//      P V as wgmma.m64n64k16 with P from registers (S's accumulator layout
+//      is P's A fragment, rounded to bf16) and V read transposed (an MN-major
+//      descriptor: V stays row-major, as TMA lands it). The waits on
+//      mbarriers loop inside their asm, and the role of a warp is read
+//      through a shuffle, so that ptxas sees no divergent path around the
+//      wgmma (it serialized them otherwise).
+// Two kernels, by D:
+//   * D <= 256, attention_bf16_kernel<PB>: a block holds its 64 queries' Q
+//     (PB 64-wide panels) and O (64 x 64 PB f32, at most 128 registers a
+//     thread) and walks its split's 64-key tiles with an online softmax, K
+//     and V of a tile in ring slots of their own.
+//   * D > 256, attention_bf16_wide_kernel: O (64 x D f32, 256 KB at D =
+//     1024) fits neither a warpgroup's registers nor an SM's. A block takes
+//     its split's keys in groups of two 64-key tiles. For a group it sums S
+//     over all of D itself in the accumulator (Q and the two K tiles
+//     streamed a 64-wide panel at a time), takes the group's softmax in one
+//     pass (online across groups), then O in 256-wide chunks one after
+//     another (P stays in registers: 32 bf16 pairs a thread), each chunk
+//     stored in f32 to the splits' scratch, from which a later group of the
+//     same split reloads and rescales it. The plan splits the keys 128 a
+//     split where the grid stays within 4 waves, so at the mid block each
+//     chunk is stored once: 0.0346-0.0352 ms there (1 split: 0.1689-0.1708;
+//     16 splits of one tile: 0.0735-0.0739; a ring of 4 slots: 0.0360). The
+//     first design held O across the blocks of a thread-block cluster, 256
+//     head dims a block, and added the blocks' S partials over distributed
+//     shared memory every key tile: its warpgroups waited most of a tile for
+//     that exchange (0.0550-0.0560 ms at the mid block). Recomputing S for
+//     each 256-wide slice of O would read all of K once a slice.
+// Softmax: f32 in the exp2 domain; keys past N at -inf. The row sum is
+//   taken on the f32 P, and O is divided by it once, at the end (the Pallas
+//   kernel divides P first, then rounds it to bf16). Both products sum in
+//   the wgmma accumulator, which rounds toward zero: S over at most 256
+//   head dims (D <= 256) or all of D (at most 64 steps of 2^-23 relative
+//   each), O over a split's keys (D <= 256) or a group's 128 keys, far
+//   below bf16's 2^-8 step of the result;
+//   tests/test_torch_port_attention_bf16_sums.py emulates the sums.
+// Nothing is read past D or N: TMA boxes are clipped by the tensor map's
+//   extents (D, N, heads, B) and zero-filled; query rows past N are not
+//   stored, nor head dims past D. No atomics and no state kept between
+//   calls: two launches, and a CUDA-graph replay, give the same bits.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,344 +90,737 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-template <int DS, int SW>
-struct Bf16Tile {
-    static_assert(SW % 16 == 0 && SW >= 16 && SW <= 128, "slices of 16 ... 128 head dims");
-    static_assert(DS >= 1 && DS <= 8 && (DS == 1 || SW == 128), "D up to 1024");
-    static constexpr int kD = DS * SW;     // head dims a block works on, D padded
-    static constexpr int kLd = kD + 8;     // bf16 a shared-memory row
-    static constexpr int kChunks = kD / 8;  // 16-byte chunks a row
-    static constexpr int kRowGroups = DS <= 2 ? 4 : DS <= 4 ? 2 : 1;
-    static constexpr int kTileK = DS == 1 ? 64 : DS <= 4 ? 32 : 16;  // keys a stage
-    static constexpr int kWarps = kRowGroups * DS;
-    static constexpr int kThreads = 32 * kWarps;
-    static constexpr int kRows = 16 * kRowGroups;  // queries a block
-    static constexpr int kNT = kTileK / 8;         // 8-key n-tiles of S a stage
-    static constexpr int kNO = SW / 8;             // 8-wide n-tiles of a warp's O
-    static constexpr int kStageElems = 2 * kTileK * kLd;  // K, then V
-    static constexpr size_t kSmemBytes =
-        (size_t)(kRows * kLd + 2 * kStageElems) * sizeof(bf16) +
-        (DS > 1 ? (size_t)kWarps * 16 * kTileK * sizeof(float) : 0);
-    static_assert(kSmemBytes <= 232448, "227 KB of shared memory a block");
+constexpr int kRows = 64;        // queries a block: one wgmma m64 tile
+constexpr int kTileK = 64;       // keys a tile
+constexpr int kPanel = 64;       // head dims a panel: one 128-byte swizzled row
+constexpr int kMaxPanels = 4;    // panels of O a block holds (256 head dims)
+constexpr int kRing = 4;         // D <= 256: ring slots (K and V of a tile take one each)
+constexpr int kWideRing = 6;     // D > 256: ring slots
+constexpr int kConsumers = 128;  // one consumer warpgroup
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kPanelBytes = kTileK * kPanel * 2;  // a K or V panel of a tile
+constexpr int kQPanelBytes = kRows * kPanel * 2;
+constexpr int kWideStage = 4 * kPanelBytes;  // D > 256: Q and two K panels, or 4 V panels
+constexpr int kNT = kTileK / 8;  // n8 blocks of S a tile
+
+template <int PB>
+struct Smem {
+    static constexpr int Q = 0;                          // [PB][64 rows][128 B]
+    static constexpr int STAGE = PB * kPanelBytes;       // a ring slot
+    static constexpr int RING = Q + PB * kQPanelBytes;
+    static constexpr int BARS = RING + kRing * STAGE;    // q, full, empty
+    static constexpr int BYTES = BARS + (1 + 2 * kRing) * 8 + 1024;  // + the alignment
+    static_assert(BYTES <= 232448, "227 KB of shared memory a block");
+    static_assert(STAGE % 1024 == 0 && kQPanelBytes % 1024 == 0, "swizzle atoms aligned");
+};
+
+struct WideSmem {
+    static constexpr int BARS = kWideRing * kWideStage;  // full, empty
+    static constexpr int BYTES = BARS + 2 * kWideRing * 8 + 1024;
+    static_assert(BYTES <= 232448, "227 KB of shared memory a block");
+};
+
+struct Params {
+    bf16* out;        // (B, N, heads, D), written where splits == 1
+    float* opart;     // [splits][B * heads][N][D] unnormalised O (see attention_bf16)
+    float* ml;        // [splits][B * heads][N][2] running max and row sum, where splits > 1
+    int n_tokens, heads, d;
+    int panels;       // 64-wide head-dim panels of D
+    int splits, tps;  // key splits and key tiles a split
+    float c2;         // scale * log2(e)
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes from src, or 16 zero bytes where !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// arrive where `pred` (a predicate inside the asm, so that the compiler sees
+// no divergent branch near the wgmma: it would serialize them)
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+                 "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+                 ::"r"(smem_addr(bar)), "r"((int)pred) : "memory");
 }
 
-// four 8 x 8 b16 matrices; lanes 8i ... 8i + 7 give the row addresses of
-// matrix i, and each lane gets row lane / 4, columns 2 (lane % 4), +1 of each
-// (with .trans: column lane / 4, rows 2 (lane % 4), +1)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p))
-                 : "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+                 "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p))
-                 : "memory");
-}
-
-// d += a * b: a 16 x 16 (row), b 16 x 8 (col) bf16, d 16 x 8 f32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// until the phase of parity `parity` of the barrier has completed (the loop
+// inside the asm: no divergent branch for the compiler)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+        "{\n.reg .pred p;\nWAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+        "@!p bra WAIT;\n}\n"
+        ::"r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
-// two floats as a bf16 pair, `lo` in the low half (the lower column)
+// a 64-wide panel box of map at (dim, row, head, batch) into dst, completed
+// on bar; the box is clipped by the map's extents and zero-filled past them
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int dim, int row,
+                                         int head, int batch, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+        ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(dim), "r"(row),
+          "r"(head), "r"(batch), "r"(smem_addr(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of r across a wgmma fence or wait
+__device__ __forceinline__ void fence_regs(float (&r)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// A shared-memory matrix in the 128-byte swizzle (as TMA lands a box of
+// 64-element rows): 8-row groups 1024 bytes apart (the stride byte offset).
+// For K-major operands (Q, K) the leading byte offset is unused (1); for V,
+// read MN-major, it would step to a second 64-wide MN atom, which an n of 64
+// never reaches, and is set to the same 1024.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+           (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+#define DSP_WGMMA_D32                                                                         \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define DSP_WGMMA_REGS32                                                                  \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+    "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+
+// d (+)= a b, 64 x 64 f32: a 64 x 16 bf16 by descriptor (K-major), b 16 x 64
+// bf16 by descriptor (K-major); d zeroed first iff !scale_d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" DSP_WGMMA_REGS32
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : DSP_WGMMA_D32
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += a b, 64 x 64 f32: a 64 x 16 bf16 from registers (mma.m16n8k16's A
+// layout, a warp's 16 rows each), b 16 x 64 bf16 by descriptor, MN-major
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint4& a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" DSP_WGMMA_REGS32
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : DSP_WGMMA_D32
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(db), "r"(1));
+}
+
+// two floats as a bf16 pair (to nearest even), `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int DS, int SW>
-__global__ void __launch_bounds__(Bf16Tile<DS, SW>::kThreads, 1)
-attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out, int n_tokens,
-                      int heads, int d, long long sb, long long sn, long long sh, float scale) {
-    using T = Bf16Tile<DS, SW>;
-    constexpr int LD = T::kLd, TK = T::kTileK, NT = T::kNT, NO = T::kNO;
-    extern __shared__ float4 smem4[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem4);          // [kRows][LD]
-    bf16* Ring = Qs + T::kRows * LD;                     // [2][K: TK x LD, V: TK x LD]
-    float4* Sp = reinterpret_cast<float4*>(Ring + 2 * T::kStageElems);  // [kWarps][NT][32 lanes]
+// P's A fragment for the 64 keys of an accumulator s: keys 16 kk ... are
+// s's n8 blocks 2 kk and 2 kk + 1, rounded to bf16
+__device__ __forceinline__ void pack_p(const float (&s)[32], uint4 (&pa)[kTileK / 16]) {
+#pragma unroll
+    for (int kk = 0; kk < kTileK / 16; ++kk)
+        pa[kk] = make_uint4(pack_bf16(s[8 * kk], s[8 * kk + 1]),
+                            pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                            pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+                            pack_bf16(s[8 * kk + 6], s[8 * kk + 7]));
+}
 
-    const int bh = blockIdx.y;
-    const int b = bh / heads;
-    const int h = bh % heads;
-    const int q0 = blockIdx.x * T::kRows;
+// over the 4 threads of a quad, which hold one accumulator row
+__device__ __forceinline__ float quad_sum(float x) {
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// ------------------------------------------------------------ D <= 256
+// PB: 64-wide head-dim panels of D (at most kMaxPanels). Grid (query tiles,
+// splits, B * heads).
+template <int PB>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
+                      const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv, Params p) {
+    typedef Smem<PB> S;
+    constexpr int R = kRing;
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+    uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + S::BARS);
+    uint64_t* full = qbar + 1;
+    uint64_t* empty = full + R;
+
+    const int q0 = blockIdx.x * kRows;
+    const int split = blockIdx.y;
+    const int bh = blockIdx.z;
+    const int b = bh / p.heads;
+    const int h = bh % p.heads;
+    const int n_tiles = (p.n_tokens + kTileK - 1) / kTileK;
+    const int t0 = split * p.tps;
+    const int nt = max(0, min(n_tiles, t0 + p.tps) - t0);  // its key tiles (0: an empty split)
     const int tid = threadIdx.x;
+    // 0: the consumer warpgroup, 1: the producer warp (warp-uniform, as the
+    // compiler sees it)
+    const int role = __shfl_sync(0xffffffffu, tid / kConsumers, 0);
+
+    if (tid == 0) {
+        mbar_init(qbar, 1);
+        for (int i = 0; i < R; ++i) {
+            mbar_init(&full[i], 1);
+            mbar_init(&empty[i], 1);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (role == 1) {
+        // ---- producer: one thread issues every TMA load of the block
+        if (tid == kConsumers && nt > 0) {
+            mbar_expect_tx(qbar, PB * kQPanelBytes);
+            for (int j = 0; j < PB; ++j)
+                tma_load(smem + S::Q + j * kQPanelBytes, &tmq, j * kPanel, q0, h, b, qbar);
+            for (int i = 0; i < 2 * nt; ++i) {  // K of tile i / 2, then its V
+                const int slot = i % R;
+                if (i >= R) mbar_wait(&empty[slot], (i / R - 1) & 1);
+                const CUtensorMap* map = (i & 1) ? &tmv : &tmk;
+                const int key0 = (t0 + i / 2) * kTileK;
+                mbar_expect_tx(&full[slot], PB * kPanelBytes);
+                for (int j = 0; j < PB; ++j)
+                    tma_load(smem + S::RING + slot * S::STAGE + j * kPanelBytes, map, j * kPanel,
+                             key0, h, b, &full[slot]);
+            }
+        }
+        __syncwarp();
+        return;
+    }
+
+    // ---- consumers: one warpgroup, 64 query rows
     const int warp = tid / 32;
     const int lane = tid % 32;
-    const int g = lane / 4;  // mma group: rows g and g + 8
-    const int t = lane % 4;  // thread in group
-    const int lr = lane % 8;  // ldmatrix: the row this lane addresses ...
-    const int lm = lane / 8;  // ... in matrix lm of the four
-    const int rg = warp / DS;
-    const int ds = warp % DS;
-    const int r0 = 16 * rg;
-    const int c0 = SW * ds;  // the warp's first head dim
-    const bool active = q0 + r0 < n_tokens;  // warp-uniform, and uniform over a row group
-    const long long base = (long long)b * sb + (long long)h * sh;
-    const int d8 = d / 8;  // 16-byte chunks a row that hold data; the rest are zeros
+    const int g = lane / 4;  // accumulator rows g and g + 8 of the warp's 16
+    const int t = lane % 4;  // columns 2t, 2t + 1 of each n8 block
+    const uint32_t q_sm = smem_addr(smem + S::Q);
+    const uint32_t ring_sm = smem_addr(smem + S::RING);
 
-    // stage Q; rows past N and columns past D are zeros
-    for (int c = tid; c < T::kRows * T::kChunks; c += T::kThreads) {
-        const int row = c / T::kChunks, chunk = c % T::kChunks;
-        const bool ok = q0 + row < n_tokens && chunk < d8;
-        const long long src = base + (ok ? (long long)(q0 + row) * sn + chunk * 8 : 0);
-        cp_async16(Qs + row * LD + chunk * 8, q + src, ok);
-    }
-    // keys past N, and columns past D, are zeros in K and V
-    auto stage_kv = [&](int tile, int stage) {
-        bf16* kd = Ring + stage * T::kStageElems;
-        bf16* vd = kd + TK * LD;
-        for (int c = tid; c < TK * T::kChunks; c += T::kThreads) {
-            const int key = c / T::kChunks, chunk = c % T::kChunks;
-            const int kg = tile * TK + key;
-            const bool ok = kg < n_tokens && chunk < d8;
-            const long long src = base + (ok ? (long long)kg * sn + chunk * 8 : 0);
-            cp_async16(kd + key * LD + chunk * 8, k + src, ok);
-            cp_async16(vd + key * LD + chunk * 8, v + src, ok);
-        }
-    };
-    const int n_tiles = (n_tokens + TK - 1) / TK;
-    stage_kv(0, 0);  // with Q, one group
-    cp_async_commit();
-
-    const float c2 = scale * 1.4426950408889634f;  // scores in the exp2 domain
-    float o[NO][4];
+    float o[PB][32];
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
+    for (int j = 0; j < PB; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+        for (int e = 0; e < 32; ++e) o[j][e] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY};
     float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+    if (nt > 0) mbar_wait(qbar, 0);
 
-    for (int it = 0; it < n_tiles; ++it) {
-        cp_async_wait_all();  // tile it (and Q) have landed for this thread
-        __syncthreads();      // ... and for every thread; no warp still reads tile it - 1
-        if (it + 1 < n_tiles) stage_kv(it + 1, (it + 1) & 1);  // into tile it - 1's stage
-        cp_async_commit();
-        const bf16* Kt = Ring + (it & 1) * T::kStageElems;
-        const bf16* Vt = Kt + TK * LD;
+#pragma unroll 1
+    for (int it = 0; it < nt; ++it) {
+        const int ik = 2 * it, iv = 2 * it + 1;
+        // S = Q K^T over the panels, in the accumulator
+        float s[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[e] = 0.f;
+        mbar_wait(&full[ik % R], (ik / R) & 1);
+        const uint32_t k_sm = ring_sm + (ik % R) * S::STAGE;
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < PB; ++j)
+#pragma unroll
+            for (int kk = 0; kk < kPanel / 16; ++kk)
+                wgmma_ss(s, desc_kmajor(q_sm + j * kQPanelBytes + 32 * kk),
+                         desc_kmajor(k_sm + j * kPanelBytes + 32 * kk), j + kk > 0);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(s);
+        mbar_arrive_if(&empty[ik % R], tid == 0);  // K's slot is read
 
-        // S = Q K^T for rows r0+g, r0+g+8 and the tile's keys over this
-        // warp's slice, summed in the MMA accumulator; s[n] holds rows g (0,
-        // 1) and g+8 (2, 3), keys 8n + 2t and 8n + 2t + 1
-        float s[NT][4];
+        // keys past N take no weight; s[4n + 2r + c] is row g + 8r, key 8n + 2t + c
+        const int keys_left = p.n_tokens - (t0 + it) * kTileK;
+        if (keys_left < kTileK) {
 #pragma unroll
-        for (int n = 0; n < NT; ++n)
+            for (int n = 0; n < kNT; ++n)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-        if (active) {
-#pragma unroll
-            for (int ks = 0; ks < SW / 16; ++ks) {
-                const int col = c0 + 16 * ks;
-                uint32_t a[4];  // rows +0 / +8 (lm & 1), head dims +0 / +8 (lm >> 1)
-                ldmatrix_x4(a, Qs + (r0 + (lm & 1) * 8 + lr) * LD + col + (lm >> 1) * 8);
-#pragma unroll
-                for (int p = 0; p < NT / 2; ++p) {
-                    uint32_t kb[4];  // keys +0 / +8 (lm >> 1), head dims +0 / +8 (lm & 1)
-                    ldmatrix_x4(kb, Kt + (16 * p + (lm >> 1) * 8 + lr) * LD + col + (lm & 1) * 8);
-                    mma_bf16(s[2 * p], a, kb[0], kb[1]);
-                    mma_bf16(s[2 * p + 1], a, kb[2], kb[3]);
-                }
-            }
-            if constexpr (DS > 1) {
-#pragma unroll
-                for (int n = 0; n < NT; ++n)
-                    Sp[(warp * NT + n) * 32 + lane] =
-                        make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
-            }
-        }
-        if constexpr (DS > 1) {
-            __syncthreads();  // every partial of tile it is written
-            if (active) {
-                // the row group's partials added in f32, ds = 0, 1, ... in order
-#pragma unroll
-                for (int n = 0; n < NT; ++n) {
-                    float4 acc = Sp[(rg * DS * NT + n) * 32 + lane];
-#pragma unroll
-                    for (int e = 1; e < DS; ++e) {
-                        const float4 x = Sp[((rg * DS + e) * NT + n) * 32 + lane];
-                        acc.x += x.x;
-                        acc.y += x.y;
-                        acc.z += x.z;
-                        acc.w += x.w;
-                    }
-                    s[n][0] = acc.x;
-                    s[n][1] = acc.y;
-                    s[n][2] = acc.z;
-                    s[n][3] = acc.w;
-                }
-            }
-        }
-        if (!active) continue;
-
-        // keys past N take no weight
-        const int keys_left = n_tokens - it * TK;
-        if (keys_left < TK) {
-#pragma unroll
-            for (int n = 0; n < NT; ++n) {
-                if (8 * n + 2 * t >= keys_left) s[n][0] = s[n][2] = -INFINITY;
-                if (8 * n + 2 * t + 1 >= keys_left) s[n][1] = s[n][3] = -INFINITY;
-            }
+                for (int c = 0; c < 2; ++c)
+                    if (8 * n + 2 * t + c >= keys_left)
+                        s[4 * n + c] = s[4 * n + 2 + c] = -INFINITY;
         }
 
-        // online softmax, f32
+        // online softmax, f32, in the exp2 domain
         float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
+        for (int n = 0; n < kNT; ++n) {
 #pragma unroll
-            for (int i = 0; i < 4; ++i) s[n][i] *= c2;
-            mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-            mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+            for (int e = 0; e < 4; ++e) s[4 * n + e] *= p.c2;
+            mx[0] = fmaxf(mx[0], fmaxf(s[4 * n], s[4 * n + 1]));
+            mx[1] = fmaxf(mx[1], fmaxf(s[4 * n + 2], s[4 * n + 3]));
         }
         float corr[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-            const float m_new = fmaxf(m_run[r], mx[r]);
+            const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
             corr[r] = exp2f(m_run[r] - m_new);
             m_run[r] = m_new;
             l_run[r] *= corr[r];
         }
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            s[n][0] = exp2f(s[n][0] - m_run[0]);
-            s[n][1] = exp2f(s[n][1] - m_run[0]);
-            s[n][2] = exp2f(s[n][2] - m_run[1]);
-            s[n][3] = exp2f(s[n][3] - m_run[1]);
-            l_run[0] += s[n][0] + s[n][1];
-            l_run[1] += s[n][2] + s[n][3];
-        }
+        for (int n = 0; n < kNT; ++n) {
 #pragma unroll
-        for (int n = 0; n < NO; ++n) {
-            o[n][0] *= corr[0];
-            o[n][1] *= corr[0];
-            o[n][2] *= corr[1];
-            o[n][3] *= corr[1];
+            for (int e = 0; e < 4; ++e) s[4 * n + e] = exp2f(s[4 * n + e] - m_run[e / 2]);
+            l_run[0] += s[4 * n] + s[4 * n + 1];
+            l_run[1] += s[4 * n + 2] + s[4 * n + 3];
         }
+        uint4 pa[kTileK / 16];
+        pack_p(s, pa);
+#pragma unroll
+        for (int j = 0; j < PB; ++j)
+#pragma unroll
+            for (int e = 0; e < 32; ++e) o[j][e] *= corr[(e / 2) % 2];
 
-        // O += P V, 16 keys a k-step: P's A fragment is S's n-tiles 2kk and
-        // 2kk + 1 rounded to bf16; V's B fragments for two 8-wide n-tiles of
-        // O come from one ldmatrix .trans
+        // O += P V: V's panel j, keys 16 kk ..., by an MN-major descriptor
+        // (two 8-key groups 1024 bytes apart)
+        mbar_wait(&full[iv % R], (iv / R) & 1);
+        const uint32_t v_sm = ring_sm + (iv % R) * S::STAGE;
 #pragma unroll
-        for (int kk = 0; kk < TK / 16; ++kk) {
-            uint32_t pa[4];
-            pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-            pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-            pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-            pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        for (int j = 0; j < PB; ++j) fence_regs(o[j]);
+        wgmma_fence();
 #pragma unroll
-            for (int p = 0; p < NO / 2; ++p) {
-                uint32_t vb[4];  // keys +0 / +8 (lm & 1), head dims +0 / +8 (lm >> 1)
-                ldmatrix_x4_trans(
-                    vb, Vt + (16 * kk + (lm & 1) * 8 + lr) * LD + c0 + 16 * p + (lm >> 1) * 8);
-                mma_bf16(o[2 * p], pa, vb[0], vb[1]);
-                mma_bf16(o[2 * p + 1], pa, vb[2], vb[3]);
-            }
-        }
+        for (int kk = 0; kk < kTileK / 16; ++kk)
+#pragma unroll
+            for (int j = 0; j < PB; ++j)
+                wgmma_rs_t(o[j], pa[kk], desc_mnmajor(v_sm + j * kPanelBytes + 2048 * kk));
+        wgmma_commit();
+        wgmma_wait0();
+#pragma unroll
+        for (int j = 0; j < PB; ++j) fence_regs(o[j]);
+        mbar_arrive_if(&empty[iv % R], tid == 0);  // V's slot is read
     }
 
-    if (!active) return;
-    // out is (B, N, heads, D) contiguous; o[n] holds head dims c0 + 8n + 2t,
-    // +1 of rows g (0, 1) and g + 8 (2, 3); nothing past D is stored (D is a
-    // multiple of 8, so a pair lies wholly below or past it)
+    // ---- epilogue: o[j][4n + 2r + c] is row 16 warp + g + 8r, head dim
+    // 64 j + 8n + 2t + c
+    const long long BH = (long long)gridDim.z;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-        float l = l_run[r];
-        l += __shfl_xor_sync(0xffffffffu, l, 1);
-        l += __shfl_xor_sync(0xffffffffu, l, 2);
-        const float inv = 1.0f / l;
-        const int row = q0 + r0 + g + 8 * r;
-        if (row >= n_tokens) continue;
-        bf16* dst = out + (((long long)b * n_tokens + row) * heads + h) * d;
+        const float l = quad_sum(l_run[r]);
+        const int row = q0 + 16 * warp + g + 8 * r;
+        if (row >= p.n_tokens) continue;
+        if (p.splits == 1) {
+            const float inv = 1.0f / l;
+            bf16* dst = p.out + (((long long)b * p.n_tokens + row) * p.heads + h) * p.d;
 #pragma unroll
-        for (int n = 0; n < NO; ++n) {
-            const int col = c0 + 8 * n + 2 * t;
-            if (col < d)
-                *reinterpret_cast<uint32_t*>(dst + col) =
-                    pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+            for (int j = 0; j < PB; ++j)
+#pragma unroll
+                for (int n = 0; n < kNT; ++n) {
+                    const int col = j * kPanel + 8 * n + 2 * t;
+                    if (col < p.d)
+                        *reinterpret_cast<uint32_t*>(dst + col) =
+                            pack_bf16(o[j][4 * n + 2 * r] * inv, o[j][4 * n + 2 * r + 1] * inv);
+                }
+        } else {
+            const long long prow = ((long long)split * BH + bh) * p.n_tokens + row;
+            float* dst = p.opart + prow * p.d;
+#pragma unroll
+            for (int j = 0; j < PB; ++j)
+#pragma unroll
+                for (int n = 0; n < kNT; ++n) {
+                    const int col = j * kPanel + 8 * n + 2 * t;
+                    if (col < p.d)
+                        *reinterpret_cast<float2*>(dst + col) =
+                            make_float2(o[j][4 * n + 2 * r], o[j][4 * n + 2 * r + 1]);
+                }
+            if (t == 0) *reinterpret_cast<float2*>(p.ml + 2 * prow) = make_float2(m_run[r], l);
         }
     }
 }
 
-template <int DS, int SW>
-int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int n_tokens,
-                int heads, int d, long long sb, long long sn, long long sh, float scale,
-                cudaStream_t stream) {
-    using T = Bf16Tile<DS, SW>;
-    cudaError_t err = cudaFuncSetAttribute(attention_bf16_kernel<DS, SW>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)T::kSmemBytes);
+// ------------------------------------------------------------- D > 256
+// Grid (query tiles, splits, B * heads). A split's keys in groups of two
+// tiles; for each group the ring takes panels 0 ... panels - 1 of Q and of
+// the group's two K tiles, then for each 256-wide chunk of O the two tiles'
+// V panels of that chunk (those past D or N are zeros). The second tile of a
+// group of one (a split of an odd number of tiles) is loaded all the same
+// and its keys masked.
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bf16_wide_kernel(const __grid_constant__ CUtensorMap tmq,
+                           const __grid_constant__ CUtensorMap tmk,
+                           const __grid_constant__ CUtensorMap tmv, Params p) {
+    constexpr int R = kWideRing;
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + WideSmem::BARS);
+    uint64_t* empty = full + R;
+    const int q0 = blockIdx.x * kRows;
+    const int split = blockIdx.y;
+    const int bh = blockIdx.z;
+    const int b = bh / p.heads;
+    const int h = bh % p.heads;
+    const int n_tiles = (p.n_tokens + kTileK - 1) / kTileK;
+    const int t0 = split * p.tps;
+    const int nt = max(0, min(n_tiles, t0 + p.tps) - t0);  // its key tiles (0: an empty split)
+    const int groups = (nt + 1) / 2;
+    const int chunks = (p.panels + kMaxPanels - 1) / kMaxPanels;
+    const int tid = threadIdx.x;
+    const int role = __shfl_sync(0xffffffffu, tid / kConsumers, 0);
+    if (tid == 0) {
+        for (int i = 0; i < R; ++i) {
+            mbar_init(&full[i], 1);
+            mbar_init(&empty[i], 1);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (role == 1) {
+        // ---- producer: one thread issues every TMA load of the block
+        if (tid == kConsumers) {
+            int i = 0;
+            for (int gi = 0; gi < groups; ++gi) {
+                const int key0 = (t0 + 2 * gi) * kTileK;
+                for (int pn = 0; pn < p.panels + 2 * chunks; ++pn, ++i) {
+                    const int slot = i % R;
+                    if (i >= R) mbar_wait(&empty[slot], (i / R - 1) & 1);
+                    unsigned char* st = smem + slot * kWideStage;
+                    if (pn < p.panels) {  // Q's panel pn and the two K tiles'
+                        mbar_expect_tx(&full[slot], 3 * kPanelBytes);
+                        tma_load(st, &tmq, pn * kPanel, q0, h, b, &full[slot]);
+                        for (int u = 0; u < 2; ++u)
+                            tma_load(st + (1 + u) * kPanelBytes, &tmk, pn * kPanel,
+                                     key0 + u * kTileK, h, b, &full[slot]);
+                    } else {  // chunk c of V, tile u
+                        const int c = (pn - p.panels) / 2, u = (pn - p.panels) % 2;
+                        mbar_expect_tx(&full[slot], kMaxPanels * kPanelBytes);
+                        for (int j = 0; j < kMaxPanels; ++j)
+                            tma_load(st + j * kPanelBytes, &tmv, (kMaxPanels * c + j) * kPanel,
+                                     key0 + u * kTileK, h, b, &full[slot]);
+                    }
+                }
+            }
+        }
+        __syncwarp();
+        return;
+    }
+
+    // ---- consumers: one warpgroup, 64 query rows
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const uint32_t ring_sm = smem_addr(smem);
+    const long long BH = (long long)gridDim.z;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+    int i = 0;
+#pragma unroll 1
+    for (int gi = 0; gi < groups; ++gi) {
+        // S = Q K^T for the group's two tiles over all of D, in the accumulator
+        float s[2][32];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int e = 0; e < 32; ++e) s[u][e] = 0.f;
+#pragma unroll 1
+        for (int pn = 0; pn < p.panels; ++pn, ++i) {
+            mbar_wait(&full[i % R], (i / R) & 1);
+            const uint32_t st = ring_sm + (i % R) * kWideStage;
+            wgmma_fence();
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+                for (int kk = 0; kk < kPanel / 16; ++kk)
+                    wgmma_ss(s[u], desc_kmajor(st + 32 * kk),
+                             desc_kmajor(st + (1 + u) * kPanelBytes + 32 * kk), pn + kk > 0);
+            wgmma_commit();
+            wgmma_wait0();
+            fence_regs(s[0]);
+            fence_regs(s[1]);
+            mbar_arrive_if(&empty[i % R], tid == 0);
+        }
+
+        // the group's softmax, f32, in the exp2 domain, online across groups;
+        // s[u][4n + 2r + c] is row g + 8r, key 64 (t0 + 2 gi + u) + 8n + 2t + c,
+        // at -inf past N and past the split
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int n = 0; n < kNT; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int key = (t0 + 2 * gi + u) * kTileK + 8 * n + 2 * t + (e & 1);
+                    s[u][4 * n + e] = 2 * gi + u < nt && key < p.n_tokens
+                                          ? s[u][4 * n + e] * p.c2
+                                          : -INFINITY;
+                    mx[e / 2] = fmaxf(mx[e / 2], s[u][4 * n + e]);
+                }
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+            corr[r] = exp2f(m_run[r] - m_new);
+            m_run[r] = m_new;
+            l_run[r] *= corr[r];
+        }
+        uint4 pa[2][kTileK / 16];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+#pragma unroll
+            for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    s[u][4 * n + e] = exp2f(s[u][4 * n + e] - m_run[e / 2]);
+                l_run[0] += s[u][4 * n] + s[u][4 * n + 1];
+                l_run[1] += s[u][4 * n + 2] + s[u][4 * n + 3];
+            }
+            pack_p(s[u], pa[u]);
+        }
+        // the last group of a lone split stores the bf16 result
+        const bool direct = gi == groups - 1 && p.splits == 1;
+        float inv[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) inv[r] = 1.0f / quad_sum(l_run[r]);
+
+        // O, a 256-wide chunk at a time: the earlier groups' sum reloaded from
+        // the scratch and rescaled, plus this group's P V
+#pragma unroll 1
+        for (int c = 0; c < chunks; ++c) {
+            float o[kMaxPanels][32];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int row = q0 + 16 * warp + g + 8 * r;
+                const float* src =
+                    p.opart + (((long long)split * BH + bh) * p.n_tokens + row) * p.d;
+#pragma unroll
+                for (int j = 0; j < kMaxPanels; ++j)
+#pragma unroll
+                    for (int n = 0; n < kNT; ++n) {
+                        const int col = (kMaxPanels * c + j) * kPanel + 8 * n + 2 * t;
+                        float2 x = make_float2(0.f, 0.f);
+                        if (gi > 0 && row < p.n_tokens && col < p.d)
+                            x = *reinterpret_cast<const float2*>(src + col);
+                        o[j][4 * n + 2 * r] = x.x * corr[r];
+                        o[j][4 * n + 2 * r + 1] = x.y * corr[r];
+                    }
+            }
+#pragma unroll
+            for (int u = 0; u < 2; ++u, ++i) {
+                mbar_wait(&full[i % R], (i / R) & 1);
+                const uint32_t st = ring_sm + (i % R) * kWideStage;
+#pragma unroll
+                for (int j = 0; j < kMaxPanels; ++j) fence_regs(o[j]);
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < kTileK / 16; ++kk)
+#pragma unroll
+                    for (int j = 0; j < kMaxPanels; ++j)
+                        wgmma_rs_t(o[j], pa[u][kk],
+                                   desc_mnmajor(st + j * kPanelBytes + 2048 * kk));
+                wgmma_commit();
+                wgmma_wait0();
+#pragma unroll
+                for (int j = 0; j < kMaxPanels; ++j) fence_regs(o[j]);
+                mbar_arrive_if(&empty[i % R], tid == 0);
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int row = q0 + 16 * warp + g + 8 * r;
+                if (row >= p.n_tokens) continue;
+                const long long prow = ((long long)split * BH + bh) * p.n_tokens + row;
+                bf16* out = p.out + (((long long)b * p.n_tokens + row) * p.heads + h) * p.d;
+#pragma unroll
+                for (int j = 0; j < kMaxPanels; ++j)
+#pragma unroll
+                    for (int n = 0; n < kNT; ++n) {
+                        const int col = (kMaxPanels * c + j) * kPanel + 8 * n + 2 * t;
+                        if (col >= p.d) continue;
+                        const float x0 = o[j][4 * n + 2 * r], x1 = o[j][4 * n + 2 * r + 1];
+                        if (direct)
+                            *reinterpret_cast<uint32_t*>(out + col) =
+                                pack_bf16(x0 * inv[r], x1 * inv[r]);
+                        else
+                            *reinterpret_cast<float2*>(p.opart + prow * p.d + col) =
+                                make_float2(x0, x1);
+                    }
+            }
+        }
+    }
+    if (p.splits > 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const float l = quad_sum(l_run[r]);
+            const int row = q0 + 16 * warp + g + 8 * r;
+            if (row >= p.n_tokens) continue;
+            const long long prow = ((long long)split * BH + bh) * p.n_tokens + row;
+            if (nt == 0)  // an empty split: O = 0 for the combine's weight 0
+                for (int col = 2 * t; col < p.d; col += 8)
+                    *reinterpret_cast<float2*>(p.opart + prow * p.d + col) = make_float2(0.f, 0.f);
+            if (t == 0) *reinterpret_cast<float2*>(p.ml + 2 * prow) = make_float2(m_run[r], l);
+        }
+    }
+}
+
+// out = sum_s w_s O_s / sum_s w_s l_s over the splits in split order, w_s =
+// exp2(m_s - max m); a split with no key (m_s = -inf, O_s = 0) has weight 0.
+// A thread takes 8 head dims of a row.
+__global__ void attention_bf16_combine(const float* __restrict__ opart,
+                                       const float* __restrict__ ml, bf16* __restrict__ out,
+                                       int splits, int n_tokens, int heads, int d) {
+    const int bh = blockIdx.y;
+    const int per_row = d / 8;
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    const int row = e / per_row;
+    if (row >= n_tokens) return;
+    const int col = (e % per_row) * 8;
+    const long long BH = (long long)gridDim.y;
+    float m_max = -INFINITY;
+    for (int s = 0; s < splits; ++s)
+        m_max = fmaxf(m_max, ml[2 * ((s * BH + bh) * n_tokens + row)]);
+    float L = 0.f, acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int s = 0; s < splits; ++s) {
+        const long long prow = (s * BH + bh) * n_tokens + row;
+        const float2 m_l = *reinterpret_cast<const float2*>(ml + 2 * prow);
+        const float w = m_l.x == -INFINITY ? 0.f : exp2f(m_l.x - m_max);
+        L = __fmaf_rn(w, m_l.y, L);
+        const float4* src = reinterpret_cast<const float4*>(opart + prow * d + col);
+        const float4 x0 = src[0], x1 = src[1];
+        const float xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] = __fmaf_rn(w, xs[i], acc[i]);
+    }
+    const float inv = 1.0f / L;
+    const int b = bh / heads, h = bh % heads;
+    bf16* dst = out + (((long long)b * n_tokens + row) * heads + h) * d + col;
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(pack_bf16(acc[0] * inv, acc[1] * inv), pack_bf16(acc[2] * inv, acc[3] * inv),
+                   pack_bf16(acc[4] * inv, acc[5] * inv), pack_bf16(acc[6] * inv, acc[7] * inv));
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = [] {
+        void* f = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+        cudaError_t err =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(f)
+                   : nullptr;
+    }();
+    return fn;
+}
+
+// a 4-d map of (D, N, heads, B) bf16 at element strides (sn, sh, sb), boxes
+// of 64 head dims x `rows` rows, 128-byte swizzle, zeros past the extents
+bool encode(CUtensorMap* map, const void* base, int B, int n_tokens, int heads, int d,
+            long long sb, long long sn, long long sh, int rows) {
+    EncodeTiled fn = encode_tiled();
+    if (!fn) return false;
+    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n_tokens, (cuuint64_t)heads,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)sn * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)kPanel, (cuuint32_t)rows, 1, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+           CUDA_SUCCESS;
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, int smem_bytes, const CUtensorMap& tq, const CUtensorMap& tk,
+           const CUtensorMap& tv, const Params& p, int B, cudaStream_t st) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((n_tokens + T::kRows - 1) / T::kRows, B * heads);
-    attention_bf16_kernel<DS, SW><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
-        q, k, v, out, n_tokens, heads, d, sb, sn, sh, scale);
+    const dim3 grid((p.n_tokens + kRows - 1) / kRows, p.splits, B * p.heads);
+    kernel<<<grid, kThreads, smem_bytes, st>>>(tq, tk, tv, p);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v: (B, N, heads, D) bf16 views sharing the element strides (sb, sn,
-// sh) with unit stride on the last dim, strides multiples of 8 and 16-byte
-// aligned rows; out: (B, N, heads, D) contiguous bf16. D a multiple of 8 up to
-// 1024, any N >= 1. Returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// D it does not take.
-extern "C" int attention_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                              int n_tokens, int heads, int d, long long sb, long long sn,
-                              long long sh, float scale, void* stream) {
-    const bf16* qb = static_cast<const bf16*>(q);
-    const bf16* kb = static_cast<const bf16*>(k);
-    const bf16* vb = static_cast<const bf16*>(v);
-    bf16* ob = static_cast<bf16*>(out);
+// sh), unit stride on the last dim, strides multiples of 8, 16-byte aligned;
+// out: (B, N, heads, D) contiguous bf16. D a multiple of 8 up to 1024, any N
+// >= 1. `splits` key splits (1 ... ceil(N / 64)). Scratch: where splits > 1,
+// opart holds splits * B * heads * N * D floats and ml splits * B * heads * N
+// * 2; above D = 256 opart is needed also where a split has more than two key
+// tiles; else both may be null. Returns the first CUDA error of the
+// launches, or cudaErrorInvalidValue for arguments it does not take.
+extern "C" int attention_bf16(const void* q, const void* k, const void* v, void* out, void* opart,
+                              void* ml, int B, int n_tokens, int heads, int d, long long sb,
+                              long long sn, long long sh, float scale, int splits, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (d <= 0 || d > 1024 || d % 8) return (int)cudaErrorInvalidValue;
-#define DSP_BF16_ATTN(DS, SW) \
-    return launch_bf16<DS, SW>(qb, kb, vb, ob, B, n_tokens, heads, d, sb, sn, sh, scale, st)
-    if (d <= 128) {
-        switch ((d + 15) / 16) {
-            case 1: DSP_BF16_ATTN(1, 16);
-            case 2: DSP_BF16_ATTN(1, 32);
-            case 3: DSP_BF16_ATTN(1, 48);
-            case 4: DSP_BF16_ATTN(1, 64);
-            case 5: DSP_BF16_ATTN(1, 80);
-            case 6: DSP_BF16_ATTN(1, 96);
-            case 7: DSP_BF16_ATTN(1, 112);
-            default: DSP_BF16_ATTN(1, 128);
-        }
-    }
-    switch ((d + 127) / 128) {
-        case 2: DSP_BF16_ATTN(2, 128);
-        case 3: DSP_BF16_ATTN(3, 128);
-        case 4: DSP_BF16_ATTN(4, 128);
-        case 5: DSP_BF16_ATTN(5, 128);
-        case 6: DSP_BF16_ATTN(6, 128);
-        case 7: DSP_BF16_ATTN(7, 128);
-        default: DSP_BF16_ATTN(8, 128);
-    }
-#undef DSP_BF16_ATTN
+    const int n_tiles = (n_tokens + kTileK - 1) / kTileK;
+    if (d <= 0 || d > 1024 || d % 8 || n_tokens < 1 || splits < 1 || splits > n_tiles)
+        return (int)cudaErrorInvalidValue;
+    Params p;
+    p.out = static_cast<bf16*>(out);
+    p.opart = static_cast<float*>(opart);
+    p.ml = static_cast<float*>(ml);
+    p.n_tokens = n_tokens;
+    p.heads = heads;
+    p.d = d;
+    p.panels = (d + kPanel - 1) / kPanel;
+    p.splits = splits;
+    p.tps = (n_tiles + splits - 1) / splits;
+    p.c2 = scale * 1.4426950408889634f;  // scores in the exp2 domain
+    const bool wide = p.panels > kMaxPanels;
+    if ((splits > 1 && (!opart || !ml)) || (wide && p.tps > 2 && !opart))
+        return (int)cudaErrorInvalidValue;
+    CUtensorMap tq, tk, tv;
+    if (!encode(&tq, q, B, n_tokens, heads, d, sb, sn, sh, kRows) ||
+        !encode(&tk, k, B, n_tokens, heads, d, sb, sn, sh, kTileK) ||
+        !encode(&tv, v, B, n_tokens, heads, d, sb, sn, sh, kTileK))
+        return (int)cudaErrorInvalidValue;
+    int err;
+    if (wide)
+        err = launch(attention_bf16_wide_kernel, WideSmem::BYTES, tq, tk, tv, p, B, st);
+    else if (p.panels == 1)
+        err = launch(attention_bf16_kernel<1>, Smem<1>::BYTES, tq, tk, tv, p, B, st);
+    else if (p.panels == 2)
+        err = launch(attention_bf16_kernel<2>, Smem<2>::BYTES, tq, tk, tv, p, B, st);
+    else if (p.panels == 3)
+        err = launch(attention_bf16_kernel<3>, Smem<3>::BYTES, tq, tk, tv, p, B, st);
+    else
+        err = launch(attention_bf16_kernel<4>, Smem<4>::BYTES, tq, tk, tv, p, B, st);
+    if (err != 0 || splits == 1) return err;
+    const int threads = 128;
+    const dim3 grid((n_tokens * (d / 8) + threads - 1) / threads, B * heads);
+    attention_bf16_combine<<<grid, threads, 0, st>>>(p.opart, p.ml, p.out, splits, n_tokens,
+                                                     heads, d);
+    return (int)cudaGetLastError();
 }

@@ -3,6 +3,7 @@
     python -m diffsplitting_tpu_torch.kernels.attention_variants [--baseline FILE]
     python -m diffsplitting_tpu_torch.kernels.attention_variants --wide [--baseline FILE]
     python -m diffsplitting_tpu_torch.kernels.attention_variants --narrow [--baseline FILE]
+    python -m diffsplitting_tpu_torch.kernels.attention_variants --bf16 [--baseline FILE] [--json FILE]
 
 Each variant is the shipped source (and csrc/tf32x3.cuh) with text
 substitutions, built by its own `nvcc` into its own library (all started
@@ -17,18 +18,26 @@ narrow kernel (`attention_f32_narrow`: block rows, key tile, ring depth, the
 order of S's sum) at NARROW_SHAPES, and the padded wide kernel at
 PADDED_SHAPES; the baseline is then called through `attention_f32_any_d` (the
 SIMT kernel of the sources before the narrow kernel, e.g. `git show
-694b722:diffsplitting_tpu_torch/csrc/attention.cu`) at every shape. The
-variants are timed in turns (forward, then in reverse order, SDPA among
-them) and each is held against the plain version. Prints the card, each
-variant's registers and spills, its time and its max abs error, and SDPA's
-time; with `--narrow` and `--wide`, device time by CUDA-graph replay. Nothing
+694b722:diffsplitting_tpu_torch/csrc/attention.cu`) at every shape. With
+`--bf16` they are of csrc/attention_bf16.cu (BF16_VARIANTS: the ring depth
+of either of its kernels), each also at other key-split counts than the
+plan's, at BF16_SHAPES (chip_smoke.py's SR512_ATTN_SHAPES); the baseline is
+an earlier attention_bf16.cu, called with its own signature (before the key
+splits: no scratch arguments), e.g. `git show
+0104a7a:diffsplitting_tpu_torch/csrc/attention_bf16.cu`. The variants are
+timed in turns (forward, then in reverse order, SDPA among them) and each is
+held against the plain version. Prints the card, each variant's registers
+and spills, its time and its max abs error, and SDPA's time; with
+`--narrow`, `--wide` and `--bf16`, device time by CUDA-graph replay. Nothing
 here is used by the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
+import json
 import math
 import tempfile
 from pathlib import Path
@@ -157,6 +166,100 @@ NARROW_SHAPES = [(8, n, d) for d in (16, 64) for n in (16, 100, 1024)] + [(8, 40
 PADDED_SHAPES = [(8, 1024, 192), (8, 4096, 192)]
 
 
+BF16_SOURCE = "attention_bf16.cu"
+# name -> (file, old, new) substitutions on csrc/attention_bf16.cu
+BF16_VARIANTS = {
+    "shipped": [],
+    # up to D = 256: a ring of 3 slots (4 shipped)
+    "ring3": [(BF16_SOURCE, "constexpr int kRing = 4;", "constexpr int kRing = 3;")],
+    # the wide kernel: a ring of 4 or 3 slots (6 shipped)
+    "wide_ring4": [(BF16_SOURCE, "constexpr int kWideRing = 6;", "constexpr int kWideRing = 4;")],
+    "wide_ring3": [(BF16_SOURCE, "constexpr int kWideRing = 6;", "constexpr int kWideRing = 3;")],
+}
+# (B, N, D): chip_smoke.py's SR512_ATTN_SHAPES, sr_sr3_64_512's mid block at
+# batch 1 and 2, and other head dims at N = 1024
+BF16_SHAPES = [(1, 1024, 1024), (2, 1024, 1024), (1, 1024, 512), (1, 1024, 128), (1, 1024, 64)]
+# the entry point before the key splits (PR 14's kernel): no scratch arguments
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+BF16_UNSPLIT_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _F, _P]
+
+
+def run_bf16(baseline: Path = None, json_path: Path = None) -> None:
+    """The bf16 kernels' variants (each at the plan's split count and at 1
+    and twice the plan's), the baseline, SDPA in bf16 and the plain version,
+    in turns at BF16_SHAPES by CUDA-graph device time; each held against an
+    f32 reference from the same inputs (at most 2x the plain bf16 version's
+    error) and run twice for the bits."""
+    import torch
+    import torch.nn.functional as F
+
+    from ..ops import attention as A
+
+    sources = variant_sources(BF16_SOURCE, BF16_VARIANTS)
+    if baseline:
+        sources["baseline"] = {BF16_SOURCE: baseline.read_text()}
+    results = []
+    with tempfile.TemporaryDirectory() as work:
+        libs = build_all(sources, BF16_SOURCE, Path(work))
+        base = libs.pop("baseline", None)
+        for lib in libs.values():
+            lib.attention_bf16.argtypes = SIGNATURES["attention_bf16"]
+        if base is not None:
+            unsplit = "opart" not in baseline.read_text()
+            base.attention_bf16.argtypes = (BF16_UNSPLIT_SIGNATURE if unsplit
+                                            else SIGNATURES["attention_bf16"])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for B, N, D in BF16_SHAPES:
+            g = torch.Generator(device="cuda").manual_seed(42)
+            qkv = torch.randn(B, N, 1, 3, D, device="cuda", generator=g).bfloat16()
+            q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+            scale = 1 / math.sqrt(D)
+            ref = A.attention_reference(q.float(), k.float(), v.float(), scale)
+            plain_err = (A.attention_reference(q, k, v, scale).float() - ref).abs().max().item()
+            out = torch.empty_like(q)
+            st = q.stride()
+            planned = A.plan(B, N, D, sms).splits
+            runs = {}
+            for name, lib in libs.items():
+                for sp in sorted({planned, 1, min(2 * planned, -(-N // A.BF16_TILE_KEYS))}):
+                    tag = name if sp == planned else f"{name}/splits{sp}"
+                    runs[tag] = functools.partial(A._launch_bf16, q, k, v, out, scale, sp,
+                                                  lib.attention_bf16)
+            if base is not None and unsplit:
+                runs["baseline"] = lambda: base.attention_bf16(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, 1, D, *st[:3],
+                    scale, torch.cuda.current_stream().cuda_stream)
+            elif base is not None:
+                runs["baseline"] = functools.partial(A._launch_bf16, q, k, v, out, scale, None,
+                                                     base.attention_bf16)
+            qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+            runs["sdpa"] = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+            runs["plain"] = lambda: A.attention_reference(q, k, v, scale)
+            bound = 4 * B * N * N * D / 989e12 * 1e3
+            order = list(runs)
+            for turn, name in enumerate(order + order[::-1]):
+                runs[name]()
+                torch.cuda.synchronize()
+                row = dict(B=B, N=N, D=D, name=name, turn=turn, device_ms=device_ms(runs[name]),
+                           bound_ms=bound, plain_max_abs_err=plain_err)
+                line = f"B={B} N={N} D={D} {name}: {row['device_ms']:.4f} ms device time"
+                if name not in ("sdpa", "plain"):
+                    first = out.clone()
+                    runs[name]()
+                    err = (first.float() - ref).abs().max().item()
+                    row.update(max_abs_err=err, bit_identical=torch.equal(first, out))
+                    line += (f", max abs err {err:.3g} (plain bf16 {plain_err:.3g}), "
+                             f"twice bit-identical {row['bit_identical']}")
+                    if not (err <= 2 * plain_err and row["bit_identical"]):
+                        raise AssertionError(line)
+                print(line + f"; bound {bound:.4f} ms", flush=True)
+                results.append(row)
+            del qkv, q, k, v, ref, out, qh, kh, vh
+            torch.cuda.empty_cache()
+    if json_path:
+        json_path.write_text(json.dumps(dict(card=card(), rows=results), indent=1))
+
+
 def _in_turns(shapes, entries: dict, baseline) -> None:
     """At each (B, N, D): every library's entry (name -> (lib, entry)), the
     baseline's SIMT kernel and SDPA timed in turns by CUDA-graph replay, each
@@ -249,11 +352,16 @@ def main() -> None:
     ap.add_argument("--wide", action="store_true", help="variants of the wide kernel")
     ap.add_argument("--narrow", action="store_true",
                     help="variants of the narrow kernel, and the padded wide kernel")
+    ap.add_argument("--bf16", action="store_true", help="variants of the bf16 kernel")
+    ap.add_argument("--json", type=Path, help="with --bf16: write every timing here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("attention_variants: CUDA is not available")
     print(card())
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.bf16:
+        run_bf16(args.baseline, args.json)
+        return
     if args.wide or args.narrow:
         (run_wide if args.wide else run_narrow)(args.baseline)
         return

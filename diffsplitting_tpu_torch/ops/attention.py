@@ -9,18 +9,26 @@ all three on the tensor cores at f32 accuracy: the D = 128 kernel; the wide
 kernel, in 128-wide head-dim slices (the last one zero-filled past D), at any
 other multiple of 4 above 128 up to 1024; the narrow kernel, at D padded to a
 multiple of 16, at any multiple of 4 below 128. bfloat16 (the UNet at
-`compute_dtype: bfloat16`), csrc/attention_bf16.cu: one bf16 tensor-core
-kernel at any multiple of 8 up to 1024 (f32 scores and softmax, P rounded to
-bf16, f32 sums, a bf16 result). It raises on any other D or dtype. CPU
+`compute_dtype: bfloat16`), csrc/attention_bf16.cu: bf16 `wgmma` kernels at
+any multiple of 8 up to 1024 (f32 scores and softmax, P rounded to bf16, f32
+sums, a bf16 result), 64 queries a block; up to D = 256 a block holds its
+queries' O, above it (the wide kernel) a block sums S over all of D itself
+and takes O in 256-wide chunks one after another. The keys are split across
+blocks: `plan` chooses the split count in plain Python, and a split count
+above 1 adds a second launch that combines the splits' f32 partials (scratch
+allocated here) in split order. It raises on any other D or dtype. CPU
 tensors run the plain version. Backward runs autograd through the plain
 version, as the JAX custom VJP does.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..kernels.build import check, library
+from .groupnorm import _sm_count
 
 D128_HEAD_DIM = 128  # attention_tf32x3_d128_kernel; the narrow kernel below it
 MAX_HEAD_DIM = 1024  # attention_tf32x3_wide_kernel: from 132 up to this
@@ -53,8 +61,87 @@ def head_dim_route(D: int, dtype=torch.float32) -> str:
     return "wide" if D > D128_HEAD_DIM else "narrow"
 
 
-def _launch(q, k, v, scale: float):
-    """Run csrc/attention.cu on CUDA tensors; raises on what it does not take."""
+# the bf16 kernels' tiling (csrc/attention_bf16.cu)
+BF16_ROWS = 64  # queries a block
+BF16_TILE_KEYS = 64  # keys a tile
+BF16_PANEL = 64  # head dims a panel
+BF16_MAX_PANELS = 4  # panels of O a block holds: above, the wide kernel
+BF16_WIDE_GROUP = 2  # key tiles the wide kernel takes a softmax over at once
+
+
+class AttnPlan(NamedTuple):
+    """A bf16 attention launch: `splits` key splits of `tiles_per_split` key
+    tiles each (the last may hold fewer, or none), over a grid of
+    `query_tiles` x splits x B·heads blocks, on the wide kernel (D > 256) or
+    not."""
+
+    splits: int
+    tiles_per_split: int
+    query_tiles: int
+    wide: bool
+
+    @property
+    def blocks(self) -> int:
+        return self.query_tiles * self.splits
+
+
+# The wide kernel stores O's chunks to the scratch and reloads them for each
+# group of two key tiles after a split's first, so its plan takes one group a
+# split (128 keys) where the grid then stays within _WIDE_WAVES blocks an SM
+# (the mid block of sr_sr3_64_512: 16 query tiles x 8 splits)
+_WIDE_WAVES = 4
+
+
+def plan(BH: int, N: int, D: int, sms: int, splits: int = None) -> AttnPlan:
+    """The bf16 kernels' launch for B·heads = BH, N tokens, head dim D on a
+    card of `sms` SMs, each split a whole number of key tiles and none
+    empty: up to D = 256, as many key splits as keep the grid within one
+    block an SM (at most one a key tile); above, one group of two key tiles a
+    split within _WIDE_WAVES blocks an SM, else fewer, longer splits.
+    `splits` forces a count (a split may then hold no key)."""
+    wide = -(-D // BF16_PANEL) > BF16_MAX_PANELS
+    query_tiles = -(-N // BF16_ROWS)
+    tiles = -(-N // BF16_TILE_KEYS)
+    if splits is None:
+        if wide:
+            room = _WIDE_WAVES * sms // (query_tiles * BH)
+            splits = max(1, min(-(-tiles // BF16_WIDE_GROUP), room))
+        else:
+            splits = max(1, min(tiles, sms // (query_tiles * BH)))
+        splits = -(-tiles // -(-tiles // splits))  # no split left empty
+    if not 1 <= splits <= tiles:
+        raise ValueError(f"{splits} key splits of {tiles} key tiles")
+    return AttnPlan(splits, -(-tiles // splits), query_tiles, wide)
+
+
+def _launch_bf16(q, k, v, out, scale: float, splits: int = None, entry=None):
+    """csrc/attention_bf16.cu on (B, N, heads, D) bf16 views into `out`:
+    `splits` forces the plan's split count; `entry` is another library's
+    `attention_bf16` (the variants)."""
+    B, N, H, D = q.shape
+    how = plan(B * H, N, D, _sm_count(q.device.index), splits)
+    f32 = dict(device=q.device, dtype=torch.float32)
+    # the splits' partials: O (the wide kernel's also for a split of more
+    # than one group of key tiles), then each row's m and l
+    several = how.splits > 1
+    opart = ml = None
+    if several or (how.wide and how.tiles_per_split > BF16_WIDE_GROUP):
+        opart = torch.empty(how.splits * B * H * N * D, **f32)
+    if several:
+        ml = torch.empty(how.splits * B * H * N * 2, **f32)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = entry if entry is not None else library().attention_bf16
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             *(0 if t is None else t.data_ptr() for t in (opart, ml)),
+             B, N, H, D, *q.stride()[:3], float(scale), how.splits, stream)
+    check(err, "attention_bf16")
+    return out
+
+
+def _launch(q, k, v, scale: float, splits: int = None):
+    """Run csrc/attention.cu or csrc/attention_bf16.cu on CUDA tensors;
+    raises on what they do not take. `splits` forces the bf16 kernel's key
+    split count (tests)."""
     B, N, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -72,8 +159,7 @@ def _launch(q, k, v, scale: float):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if route == "bf16":
-        err = library().attention_bf16(*ptrs, B, N, H, D, *strides[:3], float(scale), stream)
-        check(err, "attention_bf16")
+        _launch_bf16(q, k, v, out, scale, splits)
         FusedAttention.launches_bf16 += 1
     elif route == "d128":
         err = library().attention_f32_d128(*ptrs, B, N, H, *strides[:3], float(scale), stream)

@@ -255,6 +255,23 @@ ATTN_BF16_CASES = [(1, 1024, 1, 1024, False), (2, 1024, 1, 1024, False),
                    (2, 300, 1, 640, True), (1, 31, 1, 896, False), (1, 100, 1, 1000, True)]
 
 
+def _replays_as_eager(fn, eager) -> None:
+    """A CUDA-graph capture of fn (one call on the current stream), replayed
+    three times, gives the eager call's bits."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fn()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
+
+
 @pytest.mark.parametrize("B,N,heads,D,big", ATTN_BF16_CASES)
 def test_attention_bf16_kernel(cuda, B, N, heads, D, big):
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -272,6 +289,7 @@ def test_attention_bf16_kernel(cuda, B, N, heads, D, big):
     ref = attention_reference(q.float(), k.float(), v.float(), scale)
     plain = attention_reference(q, k, v, scale)
     assert _err(got, ref) <= 2 * _err(plain, ref)
+    _replays_as_eager(lambda: fused_attention(q, k, v, scale), got)
 
 
 def test_attention_bf16_kernel_reads_nothing_past_d_or_n(cuda):
@@ -286,6 +304,65 @@ def test_attention_bf16_kernel_reads_nothing_past_d_or_n(cuda):
     ref = attention_reference(q.float(), k.float(), v.float(), 1 / math.sqrt(136))
     plain = attention_reference(q, k, v, 1 / math.sqrt(136))
     assert _err(got, ref) <= 2 * _err(plain, ref)
+
+
+def _qkv_bf16(cuda, B, N, heads, D, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(B, N, heads, 3, D, device=cuda, generator=g).bfloat16()
+    return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+
+
+# key splits forced so that the last split holds no key (N = 256: 4 key tiles,
+# 3 splits of 2; N = 1024 at 5 splits of 4, two softmax groups each on the
+# wide kernel, which carries O across them through its scratch; N = 300: 5
+# tiles, 4 splits of 2; N = 200 with two heads, 3 splits of 2)
+ATTN_BF16_EMPTY_SPLIT_CASES = [(1, 256, 1, 128, 3), (1, 1024, 1, 1024, 5), (2, 300, 1, 640, 4),
+                               (1, 200, 2, 64, 3)]
+
+
+@pytest.mark.parametrize("B,N,heads,D,splits", ATTN_BF16_EMPTY_SPLIT_CASES)
+def test_attention_bf16_kernel_with_an_empty_split(cuda, B, N, heads, D, splits):
+    from diffsplitting_tpu_torch.ops.attention import _launch, plan
+
+    how = plan(B * heads, N, D, torch.cuda.get_device_properties(cuda).multi_processor_count,
+               splits)
+    assert (how.splits - 1) * how.tiles_per_split >= -(-N // 64)  # the last split: no key
+    q, k, v = _qkv_bf16(cuda, B, N, heads, D, 5)
+    scale = 8 / math.sqrt(D * heads)
+    got = _launch(q, k, v, scale, splits)
+    again = _launch(q, k, v, scale, splits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    ref = attention_reference(q.float(), k.float(), v.float(), scale)
+    plain = attention_reference(q, k, v, scale)
+    assert _err(got, ref) <= 2 * _err(plain, ref)
+
+
+# N below one 64-query tile (and one 64-key tile) with B·heads > 1, in and
+# out of clusters
+@pytest.mark.parametrize("B,N,heads,D", [(3, 40, 2, 1024), (2, 17, 3, 128), (4, 1, 2, 512),
+                                         (2, 63, 2, 64)])
+def test_attention_bf16_kernel_below_one_tile(cuda, B, N, heads, D):
+    q, k, v = _qkv_bf16(cuda, B, N, heads, D, 6)
+    scale = 1 / math.sqrt(D * heads)
+    got = fused_attention(q, k, v, scale)
+    again = fused_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = attention_reference(q.float(), k.float(), v.float(), scale)
+    plain = attention_reference(q, k, v, scale)
+    assert _err(got, ref) <= 2 * _err(plain, ref)
+
+
+# a CUDA-graph replay gives the eager launch's bits: one split, the plan's
+# splits with their combine launch, clusters of head-dim slices
+@pytest.mark.parametrize("B,N,D", [(1, 1024, 1024), (2, 1024, 1024), (1, 1024, 512),
+                                   (1, 1024, 128), (1, 100, 64)])
+def test_attention_bf16_graph_replay_equals_eager(cuda, B, N, D):
+    q, k, v = _qkv_bf16(cuda, B, N, 1, D, 7)
+    scale = 1 / math.sqrt(D)
+    _replays_as_eager(lambda: fused_attention(q, k, v, scale), fused_attention(q, k, v, scale))
 
 
 @pytest.mark.parametrize("D", [12, 1032])
