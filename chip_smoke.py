@@ -21,9 +21,10 @@ conv sites to library ops), and with inner_channel 8 and 8 groups (D = 64,
 the narrow tensor-core kernel), unfused and fused, against the port on the
 CPU. The attention kernels at other head dims are also held against their
 plain version and timed beside it and SDPA, each on its route, at D = 16 ...
-1024 (D = 192 on the wide kernel's padded slices; N = 4096 at D = 64 and 192,
-the Hagen mid block at inner 8 and 24) and at the SR3 / DDPM configs' own
-shapes.
+1024 (D = 192 on the wide kernel with a chunk of O past D; N = 4096 at D = 64
+and 192, the Hagen mid block at inner 8 and 24) and at the SR3 / DDPM
+configs' own shapes; the wide kernel's plan is logged at each, and its
+error against f64 and a CUDA-graph replay's bits are held too.
 
 Then it trains: the joint-InDI train step at full width (patch 512, batch 4,
 the config's) with the kernels against the same step through the plain
@@ -346,23 +347,34 @@ BF16_NONE = {"group_norm_swish_bf16": 0, "attention_bf16": 0, "conv_gn_bf16": 0}
 
 def phase_attention_any_d(dev):
     """Attention at head dims other than 128, at ANY_D_SHAPES and SR3_SHAPES,
-    each on its route (the wide tensor-core kernel above 128, with a padded
-    last slice where D is not a multiple of 128; the narrow one below):
-    against the plain version (two launches must give the same bits), the
-    error of both against f64, and the times of the kernel, the plain version
-    and SDPA through a host loop of calls, with the kernel's and SDPA's device
-    time alone by CUDA-graph replay (the wrapper's host time exceeds a small
-    call's device time). Returns {(B, N, D): results} and the worst error
-    against the plain version, by route."""
+    each on its route (the wide kernel of csrc/attention_wide.cu above 128,
+    its plan logged; the narrow one below): against the plain version (two
+    launches must give the same bits; on the wide route a CUDA-graph replay
+    too, and the error against f64 at most 2e-6 at these unit-scale scores),
+    the error of both against f64, and the times of the kernel, the plain
+    version and SDPA through a host loop of calls, with the kernel's and
+    SDPA's device time alone by CUDA-graph replay (the wrapper's host time
+    exceeds a small call's device time). Returns {(B, N, D): results} and the
+    worst error against the plain version, by route."""
     import torch
     import torch.nn.functional as F
     from diffsplitting_tpu_torch.kernels.variants import device_ms
     from diffsplitting_tpu_torch.ops import attention_reference, fused_attention, head_dim_route
+    from diffsplitting_tpu_torch.ops.attention import wide_plan
 
     g = torch.Generator(device=dev).manual_seed(10)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     res, worst = {}, {"wide": 0.0, "narrow": 0.0}
     for B, N, D in ANY_D_SHAPES + SR3_SHAPES:
         route = head_dim_route(D)
+        plan = None
+        if route == "wide":
+            how = wide_plan(B, N, D, sms)
+            plan = dict(how._asdict(), blocks=how.blocks * B)
+            log(f"attention wide B={B} N={N} D={D}: plan {how.key_tile}-key tiles, {how.splits} "
+                f"key splits of {how.tiles_per_split} tiles, {how.slices} slices of "
+                f"{how.chunks_per_slice} 64-wide chunks of O, {how.blocks * B} blocks on {sms} "
+                f"SMs")
         qkv = torch.randn(B, N, 1, 3, D, device=dev, generator=g)
         q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
         scale = 1.0 / math.sqrt(D)
@@ -385,6 +397,13 @@ def phase_attention_any_d(dev):
         if not err <= tol or not torch.equal(got, again):
             raise AssertionError(f"attention B={B} N={N} D={D}: max abs err {err} (tol {tol}), "
                                  f"two launches equal {torch.equal(got, again)}")
+        if route == "wide":
+            # f32 accuracy against f64 at scores of unit scale
+            if not err64 <= 2e-6:
+                raise AssertionError(f"attention wide B={B} N={N} D={D}: max abs err against "
+                                     f"f64 {err64} > 2e-06")
+            graph_replay_equals_eager(f"attention wide B={B} N={N} D={D}",
+                                      lambda: fused_attention(q, k, v, scale), got)
         worst[route] = max(worst[route], err)
         ms = time_ms(lambda: fused_attention(q, k, v, scale), 20)
         dev_ms = device_ms(lambda: fused_attention(q, k, v, scale))
@@ -400,7 +419,8 @@ def phase_attention_any_d(dev):
         bound = max(ops_ms, bytes_ms)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
         log(f"attention {route} B={B} N={N} D={D} heads=1: err {err:.3g} (tol {tol:.3g}; against "
-            f"f64 {err64:.3g}, the plain version's {plain64:.3g}), two launches bit-identical; "
+            f"f64 {err64:.3g}, the plain version's {plain64:.3g}), two launches bit-identical"
+            f"{' and a graph replay' if route == 'wide' else ''}; "
             f"kernel {ms:.4f} ms (device time {dev_ms:.4f}) plain {plain:.4f} ms SDPA {lib:.4f} "
             f"ms (device time {lib_dev:.4f}; {lib_dev / dev_ms:.2f}x the kernel's) bound "
             f"{bound:.4f} ms ({by}; 3xTF32 tensor-core {ops_ms:.4f}, bytes {bytes_ms:.4f}; "
@@ -408,7 +428,7 @@ def phase_attention_any_d(dev):
             f"TFLOP/s)")
         res[(B, N, D)] = dict(route=route, ms=ms, device_ms=dev_ms, plain_ms=plain,
                               library_ms=lib, library_device_ms=lib_dev, bound_ms=bound,
-                              bound_by=by, max_abs_err=err, err_f64=err64)
+                              bound_by=by, max_abs_err=err, err_f64=err64, plan=plan)
         del qkv, q, k, v, got, again, want, exact
         torch.cuda.empty_cache()
     return res, worst
@@ -3036,7 +3056,7 @@ def main() -> int:
              by_shape={f"B=1 N={ATTN_N} D={ATTN_D}": {k: tp["attn_b1"][k] for k in (
                  "ms", "device_ms", "plain_device_ms", "library_device_ms", "bound_ms")}}),
         dict(name="attention_wide", route="cuda",
-             source="diffsplitting_tpu_torch/csrc/attention.cu",
+             source="diffsplitting_tpu_torch/csrc/attention_wide.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
              launches=wide[0]["attention_wide"] + wide[1]["attention_wide"]
              + sr3["launches"]["attention_wide"],
@@ -3044,7 +3064,8 @@ def main() -> int:
              **{k: any_d[wide_shape][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                   "library_ms", "device_ms")},
              by_shape={"B=%d N=%d D=%d" % key: {k: r[k] for k in (
-                 "device_ms", "library_device_ms", "bound_ms")}
+                 "ms", "device_ms", "library_device_ms", "bound_ms", "max_abs_err", "err_f64",
+                 "plan")}
                  for key, r in any_d.items() if r["route"] == "wide"}),
         dict(name="attention_narrow", route="cuda",
              source="diffsplitting_tpu_torch/csrc/attention.cu",
@@ -3112,7 +3133,8 @@ def main() -> int:
         "one-step inversions', device times by CUDA-graph "
         "replay); "
         "attention_wide times are per call at the inner-32 cifar10 path's mid block "
-        "(its launches, unfused and fused; by_shape: device times at other shapes, with SDPA's), "
+        "(its launches, unfused and fused; by_shape: host-loop and device times at every "
+        "wide-routed shape, with SDPA's, errors and the plan), "
         "attention_narrow times at the inner-8 path's (its launches; by_shape: device times at "
         "every narrow shape and every padded wide one, D = 192), device_ms by CUDA-graph "
         "replay; conv_gn times are per fused UNet forward "

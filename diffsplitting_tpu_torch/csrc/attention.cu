@@ -1,10 +1,8 @@
 // Spatial self-attention softmax(q k^T * scale) v, float32, for sm_90a, on the
-// tensor cores at float32 accuracy (3xTF32, below), in three kernels picked by
-// the head dim D alone: at D = 128 (attention_tf32x3_d128_kernel); at any
-// other D above 128 in 128-wide head-dim slices, the last one zero-filled past
-// D where D is not a multiple of 128 (attention_tf32x3_wide_kernel, after
-// it); below 128 at a head dim padded to a multiple of 16
-// (attention_tf32x3_narrow_kernel, at the end of this file).
+// tensor cores at float32 accuracy (3xTF32, below), in two kernels picked by
+// the head dim D alone: at D = 128 (attention_tf32x3_d128_kernel); below 128
+// at a head dim padded to a multiple of 16 (attention_tf32x3_narrow_kernel,
+// at the end of this file). Above 128: attention_wide.cu.
 //
 // Replaces: diffsplitting_tpu/ops/attention.py:33, `_kernel` (launched by
 //   `_pallas_forward`), which held the whole N x N f32 score matrix of one
@@ -316,399 +314,6 @@ attention_tf32x3_d128_kernel(const float* __restrict__ q, const float* __restric
 
 
 // ---------------------------------------------------------------------------
-// Wide head dims: attention_tf32x3_wide_kernel<DS, kRagged>, D in (128 (DS - 1),
-// 128 DS] for DS = 2 ... 8, D a multiple of 4.
-//
-// Replaces the same Pallas `_kernel` (diffsplitting_tpu/ops/attention.py:33)
-//   at D = 256, 384, ..., 1024: the mid block of a UNet whose last width is
-//   256 (inner 32 x 8; sample_ddpm_128), 512 (sr_sr3_16_128, sr_ddpm_16_128,
-//   also their 16² attention sites) or 1024 (sr_sr3_64_512); and at any other
-//   D above 128 (192 at inner 24 x 8, 320 at inner 40 x 8, ...).
-//
-// Bound: operations, 3 * 4 * N^2 * D TF32 flops a (batch, head) at 495
-//   TFLOP/s (3xTF32, as the D = 128 kernel), against 16 * N * D bytes of q,
-//   k, v and out. Every block reads all of K and V of its (batch, head) from
-//   L2: 8 * N * D bytes for its 16 * kRowGroups queries, so with one row group
-//   (D >= 640) the L2 read rate is the nearer limit.
-//
-// Design: the D = 128 kernel's arithmetic, cut into 128-wide head-dim slices.
-//   * One block of kRowGroups x DS warps per (b * head, 16 * kRowGroups-query
-//     tile). Warp (rg, ds) owns query rows 16 rg .. 16 rg + 15 and head dims
-//     128 ds .. 128 ds + 127, so its O is 16 x 128, 64 floats a thread at any
-//     D, and it reads only its slice of Q, K and V. kRowGroups is 4 at D =
-//     256, 2 at 384, 1 from 512: at D = 512 two row groups (64 blocks at B =
-//     8, N = 256) took 0.068 ms and one 0.046 ms, while at D = 256 one row
-//     group (2 warps a block) took 0.31 ms against 0.19 for four
-//     (kernels/attention_variants.py --wide; PERF.md).
-//   * S = Q K^T by slices: each warp sums its slice's 128 terms of a score in
-//     16-wide head-dim steps, each step's 16 terms from 0 in the MMA
-//     accumulator and the 8 steps added in f32, writes that partial S to
-//     shared memory, and after a barrier each warp of the row group adds the
-//     DS partials of its rows in f32 in the order ds = 0, 1, ... All DS warps
-//     of a row group so hold the same S bits and keep the same running max
-//     and sum; there are no atomics, and two launches give the same bits.
-//     Summing all 128 terms in the accumulator, which rounds toward zero,
-//     erred 2.15e-6 at D = 512 and chained 48 dependent MMAs an n-tile; the
-//     steps from 0 are independent of each other (PERF.md).
-//   * Online softmax in the exp2 domain on the full S; keys past N at -inf.
-//   * O += P V for the warp's own slice. P stays in registers (S's C fragment
-//     is P's A fragment, with the D = 128 kernel's key permutation). Each key
-//     tile's P V is summed from 0 over its kTileK keys and then added to O in
-//     f32 (the accumulator rounds toward zero), 4 n-tiles at a time, so that
-//     only 16 floats of the tile's sum are live.
-//   * Shared memory, dynamic: the block's Q tile (16 x 128 floats a warp, 64
-//     KB at 8 warps), the partial S (16 x kTileK floats a warp), and a ring
-//     of two slots of kTileK rows of D floats. At D = 1024 one 16-key K tile
-//     alone is 64 KB, so K and V take turns in the slots: ring item 2i is K
-//     tile i, item 2i + 1 is V tile i. A tile has two barriers, one before S
-//     (K tile i has landed) and one between S and P V (V tile i has landed,
-//     the partials are written); after each, cp.async loads the next item
-//     into the slot of the item the barrier retired, so each load has half
-//     a tile's work to land behind. Up to four slots, where they fit, bought
-//     nothing (within 1 %; PERF.md). kTileK is 32 up to D = 512 and 16
-//     above, where a 32-key K tile alone is 80-128 KB.
-//   * Fragment loads are 16 bytes and free of bank conflicts: rows of D floats
-//     are whole multiples of 128 bytes, and each slice is swizzled and
-//     consumed as the D = 128 kernel's tiles are.
-//   * Any N >= 1: K and V rows past N are zero-filled, their scores set to
-//     -inf after the partials are added; query rows past N are zero-filled
-//     and not stored, and a row group all past N only helps stage.
-//   * D not a multiple of 128 (kRagged): the kernel runs at DS = ceil(D / 128)
-//     slices, with Q, K and V zero-filled in shared memory past D (cp.async
-//     with a source size of 0) and nothing stored past D. The zeros add
-//     nothing to S, and O's columns past D are dropped. At D = 192 that is the
-//     work of D = 256 (25 % of it on zeros). kRagged = false compiles the
-//     predicates away: D = 256 ... 1024 run the code they ran before it.
-
-template <int DS>
-struct WideTile {
-    static_assert(DS >= 2 && DS <= 8, "the wide kernel takes D = 256 ... 1024");
-    static constexpr int kD = 128 * DS;
-    static constexpr int kChunks = kD / 4;  // 16-byte chunks a row
-    static constexpr int kRowGroups = DS <= 2 ? 4 : DS <= 3 ? 2 : 1;
-    static constexpr int kTileK = DS <= 4 ? 32 : 16;  // keys a tile
-    static constexpr int kSlots = 2;                  // ring slots of K or V tiles
-    static constexpr int kWarps = kRowGroups * DS;
-    static constexpr int kThreads = 32 * kWarps;
-    static constexpr int kRows = 16 * kRowGroups;  // queries a block
-    static constexpr int kNT = kTileK / 8;         // 8-key n-tiles of S a tile
-    static constexpr int kQFloats = kRows * kD;
-    static constexpr int kSFloats = kWarps * 16 * kTileK;
-    static constexpr int kSlotFloats = kTileK * kD;
-    static constexpr size_t kSmemBytes =
-        (size_t)(kQFloats + kSFloats + kSlots * kSlotFloats) * sizeof(float);
-    static_assert(kSmemBytes <= 232448, "227 KB of shared memory a block");
-};
-
-// 16-byte chunk offsets (in floats) of the swizzled tiles, rows of LD floats;
-// chunk counts from the start of the row, and the swizzle stays in its slice
-template <int LD>
-__device__ __forceinline__ int wide_qk_at(int row, int chunk) {
-    return row * LD + ((chunk ^ ((row & 1) << 2)) << 2);
-}
-template <int LD>
-__device__ __forceinline__ int wide_v_at(int key, int chunk) {
-    return key * LD + ((chunk ^ ((key >> 1) & 3)) << 2);
-}
-
-template <int DS, bool kRagged>
-__global__ void __launch_bounds__(WideTile<DS>::kThreads, 1)
-attention_tf32x3_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, float* __restrict__ out,
-                             int n_tokens, int heads, int d, long long sb, long long sn,
-                             long long sh, float scale) {
-    using T = WideTile<DS>;
-    constexpr int D = T::kD, TK = T::kTileK, NT = T::kNT, SLOTS = T::kSlots;
-    extern __shared__ float4 smem4[];
-    float* Qs = reinterpret_cast<float*>(smem4);                   // [kRows][D], swizzled
-    float4* Sp = reinterpret_cast<float4*>(Qs + T::kQFloats);      // [kWarps][NT][32 lanes]
-    float* Ring = Qs + T::kQFloats + T::kSFloats;                  // [SLOTS][TK][D], swizzled
-
-    const int bh = blockIdx.y;
-    const int b = bh / heads;
-    const int h = bh % heads;
-    const int q0 = blockIdx.x * T::kRows;
-    const int tid = threadIdx.x;
-    const int warp = tid / 32;
-    const int lane = tid % 32;
-    const int g = lane / 4;  // mma group: rows g and g + 8
-    const int t = lane % 4;  // thread in group
-    const int rg = warp / DS;
-    const int ds = warp % DS;
-    const int r0 = 16 * rg;
-    const int c0 = 32 * ds;  // the slice's first 16-byte chunk
-    const bool active = q0 + r0 < n_tokens;  // warp-uniform, and uniform over a row group
-    const long long base = (long long)b * sb + (long long)h * sh;
-    const int d4 = kRagged ? d / 4 : T::kChunks;  // 16-byte chunks a row that hold data
-
-    // stage Q; rows past N, and columns past D, are zeros (a source size of 0
-    // reads nothing)
-    for (int c = tid; c < T::kRows * T::kChunks; c += T::kThreads) {
-        const int row = c / T::kChunks, chunk = c % T::kChunks;
-        const bool ok = q0 + row < n_tokens && (!kRagged || chunk < d4);
-        const long long src =
-            base + (long long)(ok ? q0 + row : 0) * sn + (kRagged && !ok ? 0 : chunk * 4);
-        cp_async16_zfill(Qs + wide_qk_at<D>(row, chunk), q + src, ok);
-    }
-    // ring item 2i is K tile i, 2i + 1 is V tile i; keys past N are zeros, and
-    // columns past D
-    const int n_tiles = (n_tokens + TK - 1) / TK;
-    const int n_items = 2 * n_tiles;
-    auto stage = [&](int item) {
-        const int tile = item >> 1;
-        const bool is_v = item & 1;
-        const float* src0 = (is_v ? v : k) + base;
-        float* dst = Ring + (item % SLOTS) * T::kSlotFloats;
-        for (int c = tid; c < TK * T::kChunks; c += T::kThreads) {
-            const int key = c / T::kChunks, chunk = c % T::kChunks;
-            const int kg = tile * TK + key;
-            const bool ok = kg < n_tokens && (!kRagged || chunk < d4);
-            const float* src =
-                src0 + (long long)(ok ? kg : 0) * sn + (kRagged && !ok ? 0 : chunk * 4);
-            cp_async16_zfill(dst + (is_v ? wide_v_at<D>(key, chunk) : wide_qk_at<D>(key, chunk)),
-                             src, ok);
-        }
-    };
-    // one cp.async group per ring item, empty past the last, so that before
-    // the barrier of item p the groups of items 0 .. p are complete when at
-    // most SLOTS - 2 are in flight; Q travels with item 0
-    for (int p = 0; p < SLOTS - 1; ++p) {
-        if (p < n_items) stage(p);
-        cp_async_commit();
-    }
-
-    const float c2 = scale * 1.4426950408889634f;  // scores in the exp2 domain
-    float o[16][4];
-#pragma unroll
-    for (int n = 0; n < 16; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
-    float m_run[2] = {-INFINITY, -INFINITY};
-    float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-    for (int it = 0; it < n_tiles; ++it) {
-        // K tile it (and Q) have landed for every thread, and no warp still
-        // reads V tile it - 1 or the partials of tile it - 1
-        cp_async_wait<SLOTS - 2>();
-        __syncthreads();
-        if (2 * it + SLOTS - 1 < n_items) stage(2 * it + SLOTS - 1);  // into V tile it - 1's slot
-        cp_async_commit();
-
-        if (active) {
-            const float* Kt = Ring + ((2 * it) % SLOTS) * T::kSlotFloats;
-            // this slice's partial S for rows r0+g, r0+g+8 and the tile's
-            // keys: each 16-wide head-dim step summed from 0 in the MMA
-            // accumulator, the 8 steps added in f32; step sp takes
-            // d = 128 ds + 16 sp + 4t + {0, 1}, {2, 3}
-            float s[NT][4];
-#pragma unroll
-            for (int n = 0; n < NT; ++n)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-#pragma unroll
-            for (int sp = 0; sp < 8; ++sp) {
-                const int chunk = c0 + 4 * sp + t;
-                const float4 qa =
-                    *reinterpret_cast<const float4*>(Qs + wide_qk_at<D>(r0 + g, chunk));
-                const float4 qb =
-                    *reinterpret_cast<const float4*>(Qs + wide_qk_at<D>(r0 + g + 8, chunk));
-                uint32_t a0b[4], a0s[4], a1b[4], a1s[4];
-                split(qa.x, a0b[0], a0s[0]);
-                split(qb.x, a0b[1], a0s[1]);
-                split(qa.y, a0b[2], a0s[2]);
-                split(qb.y, a0b[3], a0s[3]);
-                split(qa.z, a1b[0], a1s[0]);
-                split(qb.z, a1b[1], a1s[1]);
-                split(qa.w, a1b[2], a1s[2]);
-                split(qb.w, a1b[3], a1s[3]);
-#pragma unroll
-                for (int n = 0; n < NT; ++n) {
-                    const float4 kv =
-                        *reinterpret_cast<const float4*>(Kt + wide_qk_at<D>(8 * n + g, chunk));
-                    uint32_t xb, xs, yb, ys, zb, zs, wb, ws;
-                    split(kv.x, xb, xs);
-                    split(kv.y, yb, ys);
-                    split(kv.z, zb, zs);
-                    split(kv.w, wb, ws);
-                    float step[4] = {0.f, 0.f, 0.f, 0.f};
-                    mma_3xtf32(step, a0b, a0s, xb, yb, xs, ys);
-                    mma_3xtf32(step, a1b, a1s, zb, wb, zs, ws);
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) s[n][i] += step[i];
-                }
-            }
-#pragma unroll
-            for (int n = 0; n < NT; ++n)
-                Sp[(warp * NT + n) * 32 + lane] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
-        }
-
-        // V tile it has landed and every partial of tile it is written, for
-        // every thread; no warp still reads K tile it
-        cp_async_wait<SLOTS - 2>();
-        __syncthreads();
-        if (2 * it + SLOTS < n_items) stage(2 * it + SLOTS);  // into K tile it's slot
-        cp_async_commit();
-
-        if (active) {
-            // the row group's partials added in f32, ds = 0, 1, ... in order;
-            // s[n] holds rows g (0, 1) and g+8 (2, 3), keys 8n + 2t and
-            // 8n + 2t + 1
-            float s[NT][4];
-#pragma unroll
-            for (int n = 0; n < NT; ++n) {
-                float4 a = Sp[(rg * DS * NT + n) * 32 + lane];
-#pragma unroll
-                for (int e = 1; e < DS; ++e) {
-                    const float4 x = Sp[((rg * DS + e) * NT + n) * 32 + lane];
-                    a.x += x.x;
-                    a.y += x.y;
-                    a.z += x.z;
-                    a.w += x.w;
-                }
-                s[n][0] = a.x;
-                s[n][1] = a.y;
-                s[n][2] = a.z;
-                s[n][3] = a.w;
-            }
-            // keys past N take no weight
-            const int keys_left = n_tokens - it * TK;
-            if (keys_left < TK) {
-#pragma unroll
-                for (int n = 0; n < NT; ++n) {
-                    if (8 * n + 2 * t >= keys_left) s[n][0] = s[n][2] = -INFINITY;
-                    if (8 * n + 2 * t + 1 >= keys_left) s[n][1] = s[n][3] = -INFINITY;
-                }
-            }
-
-            // online softmax
-            float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-            for (int n = 0; n < NT; ++n) {
-#pragma unroll
-                for (int i = 0; i < 4; ++i) s[n][i] *= c2;
-                mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-                mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-            }
-            float corr[2];
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-                const float m_new = fmaxf(m_run[r], mx[r]);
-                corr[r] = exp2f(m_run[r] - m_new);
-                m_run[r] = m_new;
-                l_run[r] *= corr[r];
-            }
-            uint32_t pb[NT][4], ps[NT][4];
-#pragma unroll
-            for (int n = 0; n < NT; ++n) {
-                s[n][0] = exp2f(s[n][0] - m_run[0]);
-                s[n][1] = exp2f(s[n][1] - m_run[0]);
-                s[n][2] = exp2f(s[n][2] - m_run[1]);
-                s[n][3] = exp2f(s[n][3] - m_run[1]);
-                l_run[0] += s[n][0] + s[n][1];
-                l_run[1] += s[n][2] + s[n][3];
-                // P's A fragment: logical k t <-> key 8n + 2t, t + 4 <-> 8n + 2t + 1
-                split(s[n][0], pb[n][0], ps[n][0]);
-                split(s[n][2], pb[n][1], ps[n][1]);
-                split(s[n][1], pb[n][2], ps[n][2]);
-                split(s[n][3], pb[n][3], ps[n][3]);
-            }
-#pragma unroll
-            for (int n = 0; n < 16; ++n) {
-                o[n][0] *= corr[0];
-                o[n][1] *= corr[0];
-                o[n][2] *= corr[1];
-                o[n][3] *= corr[1];
-            }
-
-            // O += P V for this slice, 4 n-tiles at a time: n-tile 4c + e,
-            // column g is d = 128 ds + 16g + 4c + e; the tile's P V is summed
-            // from 0 over its keys, then added to O in f32
-            const float* Vt = Ring + ((2 * it + 1) % SLOTS) * T::kSlotFloats;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                float d[4][4] = {};
-#pragma unroll
-                for (int j = 0; j < NT; ++j) {
-                    const int key = 8 * j + 2 * t;
-                    const int chunk = c0 + 4 * g + c;
-                    const float4 v0 =
-                        *reinterpret_cast<const float4*>(Vt + wide_v_at<D>(key, chunk));
-                    const float4 v1 =
-                        *reinterpret_cast<const float4*>(Vt + wide_v_at<D>(key + 1, chunk));
-                    const float x0[4] = {v0.x, v0.y, v0.z, v0.w};
-                    const float x1[4] = {v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        uint32_t b0b, b0s, b1b, b1s;
-                        split(x0[e], b0b, b0s);
-                        split(x1[e], b1b, b1s);
-                        mma_3xtf32(d[e], pb[j], ps[j], b0b, b1b, b0s, b1s);
-                    }
-                }
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) o[4 * c + e][i] += d[e][i];
-            }
-        }
-    }
-
-    if (!active) return;
-    // out is (B, N, heads, D) contiguous; o[n] holds d = 128 ds + 32t + n
-    // (0, 2) and 128 ds + 32t + 16 + n (1, 3) of rows g (0, 1) and g + 8 (2, 3);
-    // nothing past D is stored
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        float l = l_run[r];
-        l += __shfl_xor_sync(0xffffffffu, l, 1);
-        l += __shfl_xor_sync(0xffffffffu, l, 2);
-        const float inv = 1.0f / l;
-        const int row = q0 + r0 + g + 8 * r;
-        if (row >= n_tokens) continue;
-        float4* dst = reinterpret_cast<float4*>(
-            out + (((long long)b * n_tokens + row) * heads + h) * (kRagged ? d : D) + 128 * ds +
-            32 * t);
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-                if (!kRagged || 128 * ds + 32 * t + 16 * half + 4 * c < d)
-                    dst[4 * half + c] = make_float4(
-                        o[4 * c][2 * r + half] * inv, o[4 * c + 1][2 * r + half] * inv,
-                        o[4 * c + 2][2 * r + half] * inv, o[4 * c + 3][2 * r + half] * inv);
-    }
-}
-
-template <int DS, bool kRagged>
-int launch_wide(const float* q, const float* k, const float* v, float* out, int B, int n_tokens,
-                int heads, int d, long long sb, long long sn, long long sh, float scale,
-                cudaStream_t stream) {
-    using T = WideTile<DS>;
-    cudaError_t err = cudaFuncSetAttribute(attention_tf32x3_wide_kernel<DS, kRagged>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)T::kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((n_tokens + T::kRows - 1) / T::kRows, B * heads);
-    attention_tf32x3_wide_kernel<DS, kRagged><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
-        q, k, v, out, n_tokens, heads, d, sb, sn, sh, scale);
-    return (int)cudaGetLastError();
-}
-
-template <int DS>
-int launch_wide_at(const float* q, const float* k, const float* v, float* out, int B,
-                   int n_tokens, int heads, int d, long long sb, long long sn, long long sh,
-                   float scale, cudaStream_t stream) {
-    return d == 128 * DS
-               ? launch_wide<DS, false>(q, k, v, out, B, n_tokens, heads, d, sb, sn, sh, scale,
-                                        stream)
-               : launch_wide<DS, true>(q, k, v, out, B, n_tokens, heads, d, sb, sn, sh, scale,
-                                       stream);
-}
-
-
-// ---------------------------------------------------------------------------
 // Narrow head dims: attention_tf32x3_narrow_kernel<DP>, D < 128 padded to DP.
 //
 // Replaces the same Pallas `_kernel` (diffsplitting_tpu/ops/attention.py:33)
@@ -745,8 +350,8 @@ int launch_wide_at(const float* q, const float* k, const float* v, float* out, i
 //   * The D = 128 kernel's sums: 3xTF32 mma.sync.m16n8k8 through tf32x3.cuh,
 //     S over all of DP in the MMA accumulator, and, since the accumulator
 //     rounds toward zero, each key tile's P V summed from 0 and added to O in
-//     f32. Summing S a 16-wide head-dim step at a time from 0, as the wide
-//     kernel does, erred less (5.1e-7 against f64 at B = 8, N = 1024, D = 64,
+//     f32. Summing S a 16-wide head-dim step at a time from 0, as the first wide
+//     kernel did, erred less (5.1e-7 against f64 at B = 8, N = 1024, D = 64,
 //     against 8.6e-7) but took 0.0719-0.0722 ms against 0.0524-0.0529 (the
 //     `s_per_step` variant).
 //   * P kept in registers by the key permutation (S's C fragment is P's A
@@ -1068,29 +673,5 @@ extern "C" int attention_f32_narrow(const void* q, const void* k, const void* v,
         case 5: return launch_narrow<80>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
         case 6: return launch_narrow<96>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
         default: return launch_narrow<128>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
-    }
-}
-
-// q, k, v: (B, N, heads, D) f32 views sharing the element strides (sb, sn, sh)
-// with unit stride on the last dim and 16-byte aligned rows; out: (B, N,
-// heads, D) contiguous. D a multiple of 4 in (128, 1024], any N >= 1. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a D it does not take.
-extern "C" int attention_f32_wide(const void* q, const void* k, const void* v, void* out, int B,
-                                  int n_tokens, int heads, int d, long long sb, long long sn,
-                                  long long sh, float scale, void* stream) {
-    const float* qf = static_cast<const float*>(q);
-    const float* kf = static_cast<const float*>(k);
-    const float* vf = static_cast<const float*>(v);
-    float* of = static_cast<float*>(out);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (d <= 128 || d > 1024 || d % 4) return (int)cudaErrorInvalidValue;
-    switch ((d + 127) / 128) {
-        case 2: return launch_wide_at<2>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
-        case 3: return launch_wide_at<3>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
-        case 4: return launch_wide_at<4>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
-        case 5: return launch_wide_at<5>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
-        case 6: return launch_wide_at<6>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
-        case 7: return launch_wide_at<7>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
-        default: return launch_wide_at<8>(qf, kf, vf, of, B, n_tokens, heads, d, sb, sn, sh, scale, st);
     }
 }

@@ -80,11 +80,11 @@
 //   stored, nor head dims past D. No atomics and no state kept between
 //   calls: two launches, and a CUDA-graph replay, give the same bits.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -130,73 +130,9 @@ struct Params {
     float c2;         // scale * log2(e)
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-
-// arrive where `pred` (a predicate inside the asm, so that the compiler sees
-// no divergent branch near the wgmma: it would serialize them)
-__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
-                 "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
-                 ::"r"(smem_addr(bar)), "r"((int)pred) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-                 "r"(bytes) : "memory");
-}
-
-// until the phase of parity `parity` of the barrier has completed (the loop
-// inside the asm: no divergent branch for the compiler)
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    asm volatile(
-        "{\n.reg .pred p;\nWAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-        "@!p bra WAIT;\n}\n"
-        ::"r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// a 64-wide panel box of map at (dim, row, head, batch) into dst, completed
-// on bar; the box is clipped by the map's extents and zero-filled past them
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int dim, int row,
-                                         int head, int batch, uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-        ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(dim), "r"(row),
-          "r"(head), "r"(batch), "r"(smem_addr(bar))
-        : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving accesses of r across a wgmma fence or wait
-__device__ __forceinline__ void fence_regs(float (&r)[32]) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// A shared-memory matrix in the 128-byte swizzle (as TMA lands a box of
-// 64-element rows): 8-row groups 1024 bytes apart (the stride byte offset).
-// For K-major operands (Q, K) the leading byte offset is unused (1); for V,
-// read MN-major, it would step to a second 64-wide MN atom, which an n of 64
-// never reaches, and is set to the same 1024.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
-           (1ull << 62);
-}
+// V read MN-major in the 128-byte swizzle (desc_kmajor in hopper.cuh for Q
+// and K): the leading byte offset would step to a second 64-wide MN atom,
+// which an n of 64 never reaches, and is set to the same 1024 as the stride.
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
     return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
            ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
@@ -249,16 +185,6 @@ __device__ __forceinline__ void pack_p(const float (&s)[32], uint4 (&pa)[kTileK 
                             pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
                             pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
                             pack_bf16(s[8 * kk + 6], s[8 * kk + 7]));
-}
-
-// over the 4 threads of a quad, which hold one accumulator row
-__device__ __forceinline__ float quad_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-__device__ __forceinline__ float quad_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 // ------------------------------------------------------------ D <= 256
@@ -718,47 +644,6 @@ __global__ void attention_bf16_combine(const float* __restrict__ opart,
                    pack_bf16(acc[4] * inv, acc[5] * inv), pack_bf16(acc[6] * inv, acc[7] * inv));
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = [] {
-        void* f = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-        cudaError_t err =
-            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-                   ? reinterpret_cast<EncodeTiled>(f)
-                   : nullptr;
-    }();
-    return fn;
-}
-
-// a 4-d map of (D, N, heads, B) bf16 at element strides (sn, sh, sb), boxes
-// of 64 head dims x `rows` rows, 128-byte swizzle, zeros past the extents
-bool encode(CUtensorMap* map, const void* base, int B, int n_tokens, int heads, int d,
-            long long sb, long long sn, long long sh, int rows) {
-    EncodeTiled fn = encode_tiled();
-    if (!fn) return false;
-    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n_tokens, (cuuint64_t)heads,
-                                (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)sn * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-    const cuuint32_t box[4] = {(cuuint32_t)kPanel, (cuuint32_t)rows, 1, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-           CUDA_SUCCESS;
-}
-
 template <typename Kernel>
 int launch(Kernel kernel, int smem_bytes, const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, const Params& p, int B, cudaStream_t st) {
@@ -802,9 +687,10 @@ extern "C" int attention_bf16(const void* q, const void* k, const void* v, void*
     if ((splits > 1 && (!opart || !ml)) || (wide && p.tps > 2 && !opart))
         return (int)cudaErrorInvalidValue;
     CUtensorMap tq, tk, tv;
-    if (!encode(&tq, q, B, n_tokens, heads, d, sb, sn, sh, kRows) ||
-        !encode(&tk, k, B, n_tokens, heads, d, sb, sn, sh, kTileK) ||
-        !encode(&tv, v, B, n_tokens, heads, d, sb, sn, sh, kTileK))
+    const CUtensorMapDataType t16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if (!encode_qkv(&tq, t16, 2, q, B, n_tokens, heads, d, sb, sn, sh, kRows) ||
+        !encode_qkv(&tk, t16, 2, k, B, n_tokens, heads, d, sb, sn, sh, kTileK) ||
+        !encode_qkv(&tv, t16, 2, v, B, n_tokens, heads, d, sb, sn, sh, kTileK))
         return (int)cudaErrorInvalidValue;
     int err;
     if (wide)

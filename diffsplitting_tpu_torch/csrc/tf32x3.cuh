@@ -1,6 +1,6 @@
 // Float32 products on Hopper's tensor cores from TF32 halves (3xTF32), and
 // the cp.async helpers the kernels stage with, for sm_90a. Included by
-// attention.cu and conv_gn.cu.
+// attention.cu, attention_wide.cu (split) and conv_gn.cu.
 
 #pragma once
 

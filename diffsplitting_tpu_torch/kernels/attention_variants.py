@@ -1,29 +1,34 @@
-"""Time csrc/attention.cu beside variants of itself on one card.
+"""Time the attention kernels beside variants of themselves on one card.
 
     python -m diffsplitting_tpu_torch.kernels.attention_variants [--baseline FILE]
-    python -m diffsplitting_tpu_torch.kernels.attention_variants --wide [--baseline FILE]
+    python -m diffsplitting_tpu_torch.kernels.attention_variants --wide [--baseline FILE [--host]] [--json FILE]
     python -m diffsplitting_tpu_torch.kernels.attention_variants --narrow [--baseline FILE]
     python -m diffsplitting_tpu_torch.kernels.attention_variants --bf16 [--baseline FILE] [--json FILE]
 
-Each variant is the shipped source (and csrc/tf32x3.cuh) with text
-substitutions, built by its own `nvcc` into its own library (all started
-together). By default the variants are of the D = 128 kernel, called through
-`attention_f32_d128` at the mid block's shape (N = 4096, D = 128, one head; q,
-k, v views of one qkv tensor) at B = 8 and B = 2; `--baseline` adds any other
-source with the same entry point (an earlier version of the kernel, say).
-With `--wide` they are of the wide kernel (`attention_f32_wide`: key-tile
-size, row groups a block, ring depth), at WIDE_SHAPES, and the baseline's
-`attention_f32_wide` is timed beside them. With `--narrow` they are of the
-narrow kernel (`attention_f32_narrow`: block rows, key tile, ring depth, the
-order of S's sum) at NARROW_SHAPES, and the padded wide kernel at
-PADDED_SHAPES; the baseline is then called through `attention_f32_any_d` (the
-SIMT kernel of the sources before the narrow kernel, e.g. `git show
-694b722:diffsplitting_tpu_torch/csrc/attention.cu`) at every shape. With
-`--bf16` they are of csrc/attention_bf16.cu (BF16_VARIANTS: the ring depth
-of either of its kernels), each also at other key-split counts than the
-plan's, at BF16_SHAPES (chip_smoke.py's SR512_ATTN_SHAPES); the baseline is
-an earlier attention_bf16.cu, called with its own signature (before the key
-splits: no scratch arguments), e.g. `git show
+Each variant is the shipped source (and csrc/*.cuh) with text substitutions,
+built by its own `nvcc` into its own library (all started together). By
+default the variants are of csrc/attention.cu's D = 128 kernel, called
+through `attention_f32_d128` at the mid block's shape (N = 4096, D = 128, one
+head; q, k, v views of one qkv tensor) at B = 8 and B = 2; `--baseline` adds
+any other source with the same entry point (an earlier version of the
+kernel, say). With `--wide` they are of csrc/attention_wide.cu
+(WIDE_VARIANTS: ring depth, 1xTF32), each at the plan's key-split count and
+at 1 and twice it (the shipped source also at the other key tile), at
+WIDE_SHAPES (every wide-routed shape of chip_smoke.py); the baseline is an
+earlier source's `attention_f32_wide`, called with its own signature (before
+the key splits, e.g. `git show 816dfe4:diffsplitting_tpu_torch/csrc/attention.cu`:
+no scratch, no plan), and each entry reports its device time and its
+host-loop time; `--host` times only the two wrappers' host loops at
+sr_sr3_16_128's serving shapes, in alternating pairs. With `--narrow` they are of the narrow kernel
+(`attention_f32_narrow`: block rows, key tile, ring depth, the order of S's
+sum) at NARROW_SHAPES; the baseline is then called through
+`attention_f32_any_d` (the SIMT kernel of the sources before the narrow
+kernel, e.g. `git show 694b722:diffsplitting_tpu_torch/csrc/attention.cu`) at
+every shape. With `--bf16` they are of csrc/attention_bf16.cu (BF16_VARIANTS:
+the ring depth of either of its kernels), each also at other key-split counts
+than the plan's, at BF16_SHAPES (chip_smoke.py's SR512_ATTN_SHAPES); the
+baseline is an earlier attention_bf16.cu, called with its own signature
+(before the key splits: no scratch arguments), e.g. `git show
 0104a7a:diffsplitting_tpu_torch/csrc/attention_bf16.cu`. The variants are
 timed in turns (forward, then in reverse order, SDPA among them) and each is
 held against the plain version. Prints the card, each variant's registers
@@ -79,62 +84,17 @@ VARIANTS = {
 }
 
 
-# the wide kernel's tiling, by slice count DS (D = 128 DS)
-WIDE_ROWS = "static constexpr int kRowGroups = DS <= 2 ? 4 : DS <= 3 ? 2 : 1;"
-WIDE_TILE_K = "static constexpr int kTileK = DS <= 4 ? 32 : 16;  // keys a tile"
-WIDE_SLOTS = "static constexpr int kSlots = 2;                  // ring slots of K or V tiles"
-WIDE_S_STEP = ("                    float step[4] = {0.f, 0.f, 0.f, 0.f};\n"
-               "                    mma_3xtf32(step, a0b, a0s, xb, yb, xs, ys);\n"
-               "                    mma_3xtf32(step, a1b, a1s, zb, wb, zs, ws);\n"
-               "#pragma unroll\n"
-               "                    for (int i = 0; i < 4; ++i) s[n][i] += step[i];\n")
-WIDE_VARIANTS = {
-    "shipped": [],
-    "1xtf32": [ONE_TF32],
-    # a slice's 128 terms of S summed in the MMA accumulator, as at D = 128
-    "s_in_mma": [(SOURCE, WIDE_S_STEP,
-                  "                    mma_3xtf32(s[n], a0b, a0s, xb, yb, xs, ys);\n"
-                  "                    mma_3xtf32(s[n], a1b, a1s, zb, wb, zs, ws);\n")],
-    # S from 0 an 8-wide k-step; P V from 0 an 8-key k-step
-    "s_per_kstep": [(SOURCE, WIDE_S_STEP,
-                     "                    float step[4] = {0.f, 0.f, 0.f, 0.f};\n"
-                     "                    float step2[4] = {0.f, 0.f, 0.f, 0.f};\n"
-                     "                    mma_3xtf32(step, a0b, a0s, xb, yb, xs, ys);\n"
-                     "                    mma_3xtf32(step2, a1b, a1s, zb, wb, zs, ws);\n"
-                     "#pragma unroll\n"
-                     "                    for (int i = 0; i < 4; ++i) "
-                     "s[n][i] += step[i] + step2[i];\n")],
-    "pv_per_kstep": [(SOURCE, "                        "
-                      "mma_3xtf32(d[e], pb[j], ps[j], b0b, b1b, b0s, b1s);\n",
-                      "                        float t4[4] = {0.f, 0.f, 0.f, 0.f};\n"
-                      "                        mma_3xtf32(t4, pb[j], ps[j], b0b, b1b, b0s, b1s);\n"
-                      "#pragma unroll\n"
-                      "                        for (int i = 0; i < 4; ++i) d[e][i] += t4[i];\n")],
-    # the first design: two row groups and 16-key tiles at D = 512
-    "first": [(SOURCE, WIDE_ROWS,
-               "static constexpr int kRowGroups = DS <= 2 ? 4 : DS <= 4 ? 2 : 1;"),
-              (SOURCE, WIDE_TILE_K, "static constexpr int kTileK = DS <= 3 ? 32 : 16;")],
-    # one row group at every D (two warps a block at D = 256), or two at 256
-    "rg1": [(SOURCE, WIDE_ROWS, "static constexpr int kRowGroups = 1;")],
-    "rg2_at256": [(SOURCE, WIDE_ROWS, "static constexpr int kRowGroups = DS <= 3 ? 2 : 1;")],
-    # 16-key tiles at every D
-    "tk16": [(SOURCE, WIDE_TILE_K, "static constexpr int kTileK = 16;")],
-    # 16-key tiles at D = 512, so that two blocks fit on an SM
-    "two_blocks": [(SOURCE, WIDE_TILE_K, "static constexpr int kTileK = DS <= 3 ? 32 : 16;")],
-    # as many ring slots as fit in 227 KB, up to 4 (3 or 4 from D = 256 to 768)
-    "slots_fit": [(SOURCE, WIDE_SLOTS, "static constexpr int kSlots = (232448 / 4 - 16 * "
-                   "kRowGroups * kD - kRowGroups * DS * 16 * kTileK) / (kTileK * kD) < 4 ? "
-                   "(232448 / 4 - 16 * kRowGroups * kD - kRowGroups * DS * 16 * kTileK) / "
-                   "(kTileK * kD) : 4;")],
-}
-# (B, N, D): the mid block of sr_sr3_64_512, the 16² attention sites of
-# sr_sr3_16_128 at batch 8 and at its batch 4, and D = 256 at N = 1024
-WIDE_SHAPES = [(2, 1024, 1024), (8, 256, 512), (4, 256, 512), (8, 1024, 256)]
-
 # the narrow kernel's tiling, by padded head dim DP
 NARROW_WARPS = "static constexpr int kWarps = 4;                   // 16 query rows a warp"
 NARROW_TILE_K = "static constexpr int kTileK = DP <= 64 ? 64 : 32;  // keys a stage"
 NARROW_STAGES = "2 * (narrow_smem_bytes(DP, kRows, kTileK, 3) + 1024) <= 233472 ? 3 : 2;"
+# a 16-wide head-dim step of S summed from 0 and added in f32 (as the first
+# wide kernel summed S)
+S_STEP_FROM_0 = ("                    float step[4] = {0.f, 0.f, 0.f, 0.f};\n"
+                 "                    mma_3xtf32(step, a0b, a0s, xb, yb, xs, ys);\n"
+                 "                    mma_3xtf32(step, a1b, a1s, zb, wb, zs, ws);\n"
+                 "#pragma unroll\n"
+                 "                    for (int i = 0; i < 4; ++i) s[n][i] += step[i];\n")
 # the narrow kernel's S loop, which sums S over all of DP in the MMA accumulator
 S_IN_MMA = ("                    mma_3xtf32(s[n], a0b, a0s, xb, yb, xs, ys);\n"
             "                    mma_3xtf32(s[n], a1b, a1s, zb, wb, zs, ws);\n")
@@ -148,8 +108,8 @@ NARROW_S_IN_MMA = ("                    split(kv.w, wb, ws);\n" + S_IN_MMA +
 NARROW_VARIANTS = {
     "shipped": [],
     "1xtf32": [ONE_TF32],
-    # S summed a 16-wide head-dim step at a time from 0, as the wide kernel does
-    "s_per_step": [(SOURCE, NARROW_S_IN_MMA, NARROW_S_IN_MMA.replace(S_IN_MMA, WIDE_S_STEP))],
+    # S summed a 16-wide head-dim step at a time from 0
+    "s_per_step": [(SOURCE, NARROW_S_IN_MMA, NARROW_S_IN_MMA.replace(S_IN_MMA, S_STEP_FROM_0))],
     # 128-query blocks (8 warps; 64 blocks at B = 8, N = 1024) or 32 (2 warps)
     "rows128": [(SOURCE, NARROW_WARPS, NARROW_WARPS.replace("= 4;", "= 8;"))],
     "rows32": [(SOURCE, NARROW_WARPS, NARROW_WARPS.replace("= 4;", "= 2;"))],
@@ -160,10 +120,46 @@ NARROW_VARIANTS = {
     "stages3": [(SOURCE, NARROW_STAGES, "3;")],
 }
 # (B, N, D): the narrow shapes of chip_smoke.py's ANY_D_SHAPES (D = 16 and 64
-# at N = 16, 100 and 1024; the Hagen mid block at inner 8, N = 4096), and its
-# padded wide ones (D = 192, the Hagen mid block at inner 24)
+# at N = 16, 100 and 1024; the Hagen mid block at inner 8, N = 4096)
 NARROW_SHAPES = [(8, n, d) for d in (16, 64) for n in (16, 100, 1024)] + [(8, 4096, 64)]
-PADDED_SHAPES = [(8, 1024, 192), (8, 4096, 192)]
+
+
+WIDE_SOURCE = "attention_wide.cu"
+_S_CHAIN = ("                wgmma_tf32(acc, qs[P][kk], desc_kmajor(kr + 32 * kk), kk > 0);\n"
+            "                wgmma_tf32(acc, qb[P][kk], desc_kmajor(ks + 32 * kk), 1);\n"
+            "                wgmma_tf32(acc, qb[P][kk], desc_kmajor(kr + 32 * kk), 1);\n")
+_PV_CHAIN = ("                wgmma_tf32(pv, ps[kk], desc_kmajor(vr), kk > 0);\n"
+             "                wgmma_tf32(pv, pb[kk], desc_kmajor(vr + L::VT_PLANE), 1);\n"
+             "                wgmma_tf32(pv, pb[kk], desc_kmajor(vr), 1);\n")
+# name -> (file, old, new) substitutions on csrc/attention_wide.cu
+WIDE_VARIANTS = {
+    "shipped": [],
+    # a ring of at most 3 stages (up to 6 shipped, where they fit)
+    "ring3": [(WIDE_SOURCE, "constexpr int kMaxRing = 6;", "constexpr int kMaxRing = 3;")],
+    # big * big only: plain TF32, to record what the two small products cost
+    "1xtf32": [(WIDE_SOURCE, _S_CHAIN, "                wgmma_tf32(acc, qb[P][kk], "
+                "desc_kmajor(kr + 32 * kk), kk > 0);\n"),
+               (WIDE_SOURCE, _PV_CHAIN, "                wgmma_tf32(pv, pb[kk], desc_kmajor(vr), "
+                "kk > 0);\n")],
+}
+# (B, N, D): every wide-routed shape of chip_smoke.py: its ANY_D_SHAPES above
+# D = 128 (D = 256 at N = 16, 100 and 1024, D = 512 at N = 256, the mid block
+# of sr_sr3_64_512 in f32 at batch 2, the Hagen mid block at inner 24, D =
+# 192, at N = 1024 and 4096) and its SR3_SHAPES (sr_sr3_16_128's 16² sites
+# and 8² mid block at D = 512, at its serving batch 1 and train batch 4;
+# sample_ddpm_128's mid block)
+WIDE_SHAPES = [(1, 256, 512), (1, 64, 512), (4, 256, 512), (4, 64, 512), (12, 16, 256),
+               (8, 16, 256), (8, 100, 256), (8, 1024, 256), (8, 256, 512), (2, 1024, 1024),
+               (8, 1024, 192), (8, 4096, 192)]
+# the wide entry before the key splits (attention.cu's, before the kernel
+# moved to attention_wide.cu): no scratch, no plan
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+WIDE_UNSPLIT_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _F, _P]
+HOST_LOOPS, HOST_ITERS = 5, 40  # host-loop timing: the least of 5 loops of 40 calls (the
+# host's time swings from call to call: the least is the wrapper's own cost)
+# --host: sr_sr3_16_128's two serving shapes, 20 pairs of loops
+HOST_SHAPES = [(1, 256, 512), (1, 64, 512)]
+HOST_PAIRS = 20
 
 
 BF16_SOURCE = "attention_bf16.cu"
@@ -180,7 +176,6 @@ BF16_VARIANTS = {
 # batch 1 and 2, and other head dims at N = 1024
 BF16_SHAPES = [(1, 1024, 1024), (2, 1024, 1024), (1, 1024, 512), (1, 1024, 128), (1, 1024, 64)]
 # the entry point before the key splits (PR 14's kernel): no scratch arguments
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 BF16_UNSPLIT_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _F, _P]
 
 
@@ -311,34 +306,206 @@ def _build(variants: dict, baseline: Path, work: Path):
     if baseline:
         sources["baseline"] = {SOURCE: baseline.read_text()}
     libs = build_all(sources, SOURCE, work)
-    # the three entries take the same arguments (the baseline's any-D SIMT one too)
+    # the two entries take the same arguments (the baseline's any-D SIMT one too)
     for lib in libs.values():
-        for entry in ("attention_f32_wide", "attention_f32_narrow", "attention_f32_any_d"):
+        for entry in ("attention_f32_narrow", "attention_f32_any_d"):
             if hasattr(lib, entry):
-                getattr(lib, entry).argtypes = SIGNATURES["attention_f32_wide"]
+                getattr(lib, entry).argtypes = SIGNATURES["attention_f32_narrow"]
     return libs, libs.pop("baseline", None)
 
 
-def run_wide(baseline: Path = None) -> None:
-    """The wide kernel's variants, the baseline's wide kernel and SDPA in
-    turns at WIDE_SHAPES."""
+def run_wide(baseline: Path = None, json_path: Path = None, host: bool = False) -> None:
+    """The wide kernel's variants (each at the plan's split count and at 1
+    and twice the plan's, the shipped source also at the other key tile),
+    the baseline (an earlier source's `attention_f32_wide`, called with its
+    own signature), SDPA and the plain version, in turns at WIDE_SHAPES: each
+    entry's device time by CUDA-graph replay and its host-loop time (the
+    least of HOST_LOOPS loops of HOST_ITERS calls; the shipped source
+    through `fused_attention`, the baseline through `fused_attention` with
+    its own wrapper, the `_launch` of the sources before the key splits,
+    where it is unsplit; the others
+    through `_launch_wide`); each kernel held against the plain version and
+    f64, and run twice for the bits. With `host`, only the host-loop times
+    of the shipped wrapper and the baseline's at HOST_SHAPES: HOST_PAIRS
+    pairs of loops of HOST_ITERS calls in alternating order, with their
+    medians and quartiles."""
+    import torch
+    import torch.nn.functional as F
+
+    from ..ops import attention as A
+
+    sources = variant_sources(WIDE_SOURCE, {"shipped": []} if host else WIDE_VARIANTS)
+    if baseline:
+        sources["baseline"] = {WIDE_SOURCE: baseline.read_text()}
+    elif host:
+        raise SystemExit("attention_variants --wide --host needs --baseline")
+    results = []
+    launch_wide = A._launch_wide
     with tempfile.TemporaryDirectory() as work:
-        libs, base = _build(WIDE_VARIANTS, baseline, Path(work))
-        entries = {name: (lib, "attention_f32_wide") for name, lib in libs.items()}
+        libs = build_all(sources, WIDE_SOURCE, Path(work))
+        base = libs.pop("baseline", None)
+        for lib in libs.values():
+            lib.attention_f32_wide.argtypes = SIGNATURES["attention_f32_wide"]
+        unsplit = base is not None and "opart" not in baseline.read_text()
         if base is not None:
-            entries["baseline"] = (base, "attention_f32_wide")
-        _in_turns(WIDE_SHAPES, entries, None)
+            base.attention_f32_wide.argtypes = (WIDE_UNSPLIT_SIGNATURE if unsplit
+                                                else SIGNATURES["attention_f32_wide"])
+
+        def base_launch(q, k, v, out, scale, splits=None):
+            if not unsplit:
+                return launch_wide(q, k, v, out, scale, splits, entry=base.attention_f32_wide)
+            B, N, H, D = q.shape
+            A.check(base.attention_f32_wide(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, D,
+                *q.stride()[:3], float(scale), torch.cuda.current_stream(q.device).cuda_stream),
+                "attention_f32_wide")
+            return out
+
+        def unsplit_launch(q, k, v, scale, splits=None):
+            """`ops.attention._launch` on the wide route as it was before the
+            key splits, with the unsplit baseline's entry: the baseline's
+            host path."""
+            B, N, H, D = q.shape
+            if k.shape != q.shape or v.shape != q.shape:
+                raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
+            if k.dtype != q.dtype or v.dtype != q.dtype:
+                raise TypeError(f"q, k, v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+            A.head_dim_route(D, q.dtype)
+            strides = q.stride()
+            if k.stride() != strides or v.stride() != strides or strides[3] != 1:
+                raise ValueError("attention kernel takes q, k, v with one set of strides "
+                                 "and a unit stride on the head dim")
+            per_16_bytes = 16 // q.element_size()
+            if (any(s % per_16_bytes for s in strides[:3])
+                    or any(t.data_ptr() % 16 for t in (q, k, v))):
+                raise ValueError("attention kernel needs 16-byte aligned rows")
+            out = torch.empty((B, N, H, D), device=q.device, dtype=q.dtype)
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+            A.check(base.attention_f32_wide(*ptrs, B, N, H, D, *strides[:3], float(scale),
+                                            stream), "attention_f32_wide")
+            A.FusedAttention.launches_wide += 1
+            return out
+
+        def public(name, launch):
+            """fused_attention's host loop with `launch` as its `_launch_wide`,
+            or, for an unsplit baseline, `unsplit_launch` (the earlier
+            `_launch`) as its `_launch`."""
+            attr, fn = (("_launch", unsplit_launch) if name == "baseline" and unsplit
+                        else ("_launch_wide", launch))
+            old = getattr(A, attr)
+
+            def run():
+                setattr(A, attr, fn)
+                try:
+                    return A.fused_attention(q, k, v, scale)
+                finally:
+                    setattr(A, attr, old)
+            return run
+
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for B, N, D in HOST_SHAPES if host else []:
+            g = torch.Generator(device="cuda").manual_seed(2)
+            qkv = torch.randn(B, N, 1, 3, D, device="cuda", generator=g)
+            q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+            scale = 1 / math.sqrt(D)
+            hosts = {"shipped": public("shipped", functools.partial(
+                launch_wide, entry=libs["shipped"].attention_f32_wide)),
+                "baseline": public("baseline", base_launch)}
+            times = {name: [] for name in hosts}
+            for pair in range(HOST_PAIRS):
+                for name in (("shipped", "baseline") if pair % 2 == 0
+                             else ("baseline", "shipped")):
+                    times[name].append(time_ms(hosts[name], HOST_ITERS))
+            med = {}
+            for name, t in times.items():
+                t = sorted(t)
+                med[name] = t[len(t) // 2]
+                print(f"B={B} N={N} D={D} {name}: host loop a call, median {med[name]:.4f} ms "
+                      f"(quartiles {t[len(t) // 4]:.4f}, {t[3 * len(t) // 4]:.4f}) over "
+                      f"{len(t)} loops of {HOST_ITERS} calls", flush=True)
+                results.append(dict(B=B, N=N, D=D, name=name, host_ms=times[name]))
+            wins = sum(a < b for a, b in zip(times["shipped"], times["baseline"]))
+            print(f"B={B} N={N} D={D}: shipped / baseline medians "
+                  f"{med['shipped'] / med['baseline']:.3f}; the shipped loop faster in {wins} of "
+                  f"{HOST_PAIRS} pairs", flush=True)
+            del qkv, q, k, v
+        for B, N, D in [] if host else WIDE_SHAPES:
+            g = torch.Generator(device="cuda").manual_seed(2)
+            qkv = torch.randn(B, N, 1, 3, D, device="cuda", generator=g)
+            q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+            scale = 1 / math.sqrt(D)
+            want = A.attention_reference(q, k, v, scale)
+            exact = A.attention_reference(q.double(), k.double(), v.double(), scale).float()
+            tol = 1e-4 * (1 + want.abs().max().item())
+            out = torch.empty_like(want)
+            how = A.wide_plan(B, N, D, sms)
+            runs, hosts, plans = {}, {}, {}
+            for name, lib in libs.items():
+                tiles = -(-N // how.key_tile)
+                for sp in sorted({how.splits, 1, min(2 * how.splits, tiles)}):
+                    tag = name if sp == how.splits else f"{name}/splits{sp}"
+                    runs[tag] = functools.partial(launch_wide, q, k, v, out, scale, sp,
+                                                  entry=lib.attention_f32_wide)
+                    plans[tag] = A.wide_plan(B, N, D, sms, sp)
+            other = 64 if how.key_tile == 32 else 32  # the next key tile to the plan's
+            runs[f"shipped/key_tile{other}"] = functools.partial(
+                launch_wide, q, k, v, out, scale, key_tile=other,
+                entry=libs["shipped"].attention_f32_wide)
+            plans[f"shipped/key_tile{other}"] = A.wide_plan(B, N, D, sms, key_tile=other)
+            hosts["shipped"] = public("shipped", functools.partial(
+                launch_wide, entry=libs["shipped"].attention_f32_wide))
+            if base is not None:
+                runs["baseline"] = functools.partial(base_launch, q, k, v, out, scale)
+                hosts["baseline"] = public("baseline", base_launch)
+            qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+            runs["sdpa"] = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+            runs["plain"] = lambda: A.attention_reference(q, k, v, scale)
+            bound = max(3 * 4 * B * N * N * D / 495e12, 16 * B * N * D / 3.35e12) * 1e3
+            order = list(runs)
+            for turn, name in enumerate(order + order[::-1]):
+                runs[name]()
+                torch.cuda.synchronize()
+                row = dict(B=B, N=N, D=D, name=name, turn=turn, device_ms=device_ms(runs[name]),
+                           host_ms=min(time_ms(hosts.get(name, runs[name]), HOST_ITERS)
+                                       for _ in range(HOST_LOOPS)),
+                           bound_ms=bound)
+                line = (f"B={B} N={N} D={D} {name}: {row['device_ms']:.4f} ms device time, "
+                        f"{row['host_ms']:.4f} ms host loop")
+                if name in plans:
+                    how_n = plans[name]
+                    row.update(how_n._asdict(), blocks=how_n.blocks * B)
+                    line += (f" (key tile {how_n.key_tile}, {how_n.splits} splits, "
+                             f"{how_n.slices} slices, {how_n.blocks * B} blocks)")
+                if name not in ("sdpa", "plain"):
+                    first = out.clone()
+                    runs[name]()
+                    torch.cuda.synchronize()
+                    err = (first - want).abs().max().item()
+                    err64 = (first - exact).abs().max().item()
+                    row.update(max_abs_err=err, err_f64=err64,
+                               bit_identical=torch.equal(first, out))
+                    line += (f", max abs err {err:.3g} (tol {tol:.3g}; against f64 "
+                             f"{err64:.3g}), twice bit-identical {row['bit_identical']}")
+                    exact_entry = name.split("/")[0] in ("shipped", "ring3", "baseline")
+                    if exact_entry and not (err <= tol and err64 <= 2e-6
+                                            and row["bit_identical"]):
+                        raise AssertionError(line)
+                print(line + f"; bound {bound:.4f} ms", flush=True)
+                results.append(row)
+            del qkv, q, k, v, want, exact, out, qh, kh, vh
+            torch.cuda.empty_cache()
+    if json_path:
+        json_path.write_text(json.dumps(dict(card=card(), rows=results), indent=1))
 
 
 def run_narrow(baseline: Path = None) -> None:
-    """The narrow kernel's variants at NARROW_SHAPES and the shipped wide
-    kernel at PADDED_SHAPES, each beside the baseline's SIMT kernel and SDPA,
-    in turns."""
+    """The narrow kernel's variants at NARROW_SHAPES, each beside the
+    baseline's SIMT kernel and SDPA, in turns."""
     with tempfile.TemporaryDirectory() as work:
         libs, base = _build(NARROW_VARIANTS, baseline, Path(work))
         _in_turns(NARROW_SHAPES, {name: (lib, "attention_f32_narrow")
                                   for name, lib in libs.items()}, base)
-        _in_turns(PADDED_SHAPES, {"wide": (libs["shipped"], "attention_f32_wide")}, base)
 
 
 def main() -> None:
@@ -353,7 +520,10 @@ def main() -> None:
     ap.add_argument("--narrow", action="store_true",
                     help="variants of the narrow kernel, and the padded wide kernel")
     ap.add_argument("--bf16", action="store_true", help="variants of the bf16 kernel")
-    ap.add_argument("--json", type=Path, help="with --bf16: write every timing here")
+    ap.add_argument("--host", action="store_true",
+                    help="with --wide and --baseline: only the wrappers' host-loop times, in "
+                         "alternating pairs")
+    ap.add_argument("--json", type=Path, help="with --bf16 or --wide: write every timing here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("attention_variants: CUDA is not available")
@@ -362,8 +532,11 @@ def main() -> None:
     if args.bf16:
         run_bf16(args.baseline, args.json)
         return
-    if args.wide or args.narrow:
-        (run_wide if args.wide else run_narrow)(args.baseline)
+    if args.wide:
+        run_wide(args.baseline, args.json, args.host)
+        return
+    if args.narrow:
+        run_narrow(args.baseline)
         return
     sources = variant_sources(SOURCE, VARIANTS)
     if args.baseline:

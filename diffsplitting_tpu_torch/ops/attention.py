@@ -4,11 +4,13 @@ Counterpart: diffsplitting_tpu/ops/attention.py (`attention_reference`,
 `fused_attention` with its custom VJP; the Pallas `_kernel`).
 
 `fused_attention` launches a CUDA kernel for CUDA tensors, picked by the
-dtype and then by the head dim D (`head_dim_route`). float32, csrc/attention.cu,
-all three on the tensor cores at f32 accuracy: the D = 128 kernel; the wide
-kernel, in 128-wide head-dim slices (the last one zero-filled past D), at any
-other multiple of 4 above 128 up to 1024; the narrow kernel, at D padded to a
-multiple of 16, at any multiple of 4 below 128. bfloat16 (the UNet at
+dtype and then by the head dim D (`head_dim_route`). float32, all three on the
+tensor cores at f32 accuracy (3xTF32): in csrc/attention.cu the D = 128 kernel
+and, at D padded to a multiple of 16, the narrow kernel at any multiple of 4
+below 128; in csrc/attention_wide.cu the wide kernel at any multiple of 4
+above 128 up to 1024 (tf32 `wgmma` fed by TMA, 64 queries a block, its keys
+split across blocks and O's head dims sliced across them by `wide_plan`, the
+splits combined by a second launch in split order). bfloat16 (the UNet at
 `compute_dtype: bfloat16`), csrc/attention_bf16.cu: bf16 `wgmma` kernels at
 any multiple of 8 up to 1024 (f32 scores and softmax, P rounded to bf16, f32
 sums, a bf16 result), 64 queries a block; up to D = 256 a block holds its
@@ -23,6 +25,7 @@ version, as the JAX custom VJP does.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -31,7 +34,7 @@ from ..kernels.build import check, library
 from .groupnorm import _sm_count
 
 D128_HEAD_DIM = 128  # attention_tf32x3_d128_kernel; the narrow kernel below it
-MAX_HEAD_DIM = 1024  # attention_tf32x3_wide_kernel: from 132 up to this
+MAX_HEAD_DIM = 1024  # attention_wide_kernel: from 132 up to this
 
 
 def attention_reference(q, k, v, scale: float):
@@ -138,10 +141,104 @@ def _launch_bf16(q, k, v, out, scale: float, splits: int = None, entry=None):
     return out
 
 
+# the f32 wide kernel's tiling (csrc/attention_wide.cu)
+WIDE_ROWS = 64  # queries a block
+WIDE_CHUNK = 64  # head dims a chunk of O
+WIDE_MAX_CHUNKS = 8  # chunks of O a block holds in shared memory
+WIDE_KEY_TILES = (16, 32, 64)  # keys a tile
+# 64-key tiles where one 64-key tile a split, with the fewest slices, gives at
+# least a quarter of the SMs blocks; else 32-key tiles, whose more, shorter
+# splits fill the card better (16 up to N = 16). By attention_variants --wide
+# on the H100: N = 256 at B·heads 1 32-key tiles (0.0147 ms against 0.0168),
+# at 4 and 8 64-key tiles (0.0226 against 0.0249, 0.0316 against 0.0371); N =
+# 100 at 8, 32 (0.0113 against 0.0125); N = 64, 32
+_WIDE_LONG_SHARE = 4
+
+
+class WidePlan(NamedTuple):
+    """A wide f32 attention launch: keys in tiles of `key_tile`, `splits`
+    key splits of `tiles_per_split` tiles (the last may hold fewer, or
+    none), O's head dims in `slices` slices of `chunks_per_slice` 64-wide
+    chunks, over a grid of slices x `query_tiles` x B·heads·splits blocks."""
+
+    key_tile: int
+    splits: int
+    tiles_per_split: int
+    slices: int
+    chunks_per_slice: int
+    query_tiles: int
+
+    @property
+    def blocks(self) -> int:
+        """Blocks a (batch, head)."""
+        return self.query_tiles * self.splits * self.slices
+
+
+@functools.lru_cache(maxsize=256)
+def wide_plan(BH: int, N: int, D: int, sms: int, splits: int = None, slices: int = None,
+              key_tile: int = None) -> WidePlan:
+    """The wide f32 kernel's launch for B·heads = BH, N tokens, head dim D
+    on a card of `sms` SMs (memoised). 16-key tiles up to N = 16; above, 64
+    where the 64-key splits alone give a quarter of the SMs blocks, else 32.
+    The fewest slices that hold O (8 chunks of 64 head dims a block), then
+    as many key splits as keep the grid within one block an SM (at most one
+    a key tile, none empty), then more slices, each recomputing S over all of
+    D, while the grid stays within one block an SM (at most one a chunk,
+    none empty). `splits`, `slices` and `key_tile` force those."""
+    query_tiles = -(-N // WIDE_ROWS)
+    chunks = -(-D // WIDE_CHUNK)
+    least = -(-chunks // WIDE_MAX_CHUNKS)
+    base = query_tiles * BH
+    if key_tile is None:
+        long_splits = -(-N // WIDE_KEY_TILES[2])
+        key_tile = (WIDE_KEY_TILES[0] if N <= WIDE_KEY_TILES[0] else
+                    WIDE_KEY_TILES[2] if base * long_splits * least >= sms // _WIDE_LONG_SHARE
+                    else WIDE_KEY_TILES[1])
+    if key_tile not in WIDE_KEY_TILES:
+        raise ValueError(f"the wide attention kernel takes key tiles of {WIDE_KEY_TILES}, "
+                         f"got {key_tile}")
+    tiles = -(-N // key_tile)
+    if splits is None:
+        splits = max(1, min(tiles, sms // (base * least)))
+        splits = -(-tiles // -(-tiles // splits))  # no split left empty
+    if not 1 <= splits <= tiles:
+        raise ValueError(f"{splits} key splits of {tiles} key tiles")
+    if slices is None:
+        slices = max(least, min(chunks, sms // (base * splits)))
+    if not least <= slices <= chunks:
+        raise ValueError(f"{slices} slices of {chunks} head-dim chunks")
+    per_slice = -(-chunks // slices)
+    return WidePlan(key_tile, splits, -(-tiles // splits), -(-chunks // per_slice), per_slice,
+                    query_tiles)
+
+
+def _launch_wide(q, k, v, out, scale: float, splits: int = None, slices: int = None,
+                 key_tile: int = None, entry=None):
+    """csrc/attention_wide.cu on (B, N, heads, D) f32 views into `out`:
+    `splits`, `slices` and `key_tile` force the plan's; `entry` is another
+    library's `attention_f32_wide` (the variants)."""
+    B, N, H, D = q.shape
+    how = wide_plan(B * H, N, D, _sm_count(q.device.index), splits, slices, key_tile)
+    opart = ml = 0
+    if how.splits > 1:  # the splits' unnormalised O, then each row's m and l
+        rows = how.splits * B * H * N
+        scratch = torch.empty(rows * (D + 2), device=q.device, dtype=torch.float32)
+        opart = scratch.data_ptr()
+        ml = opart + rows * D * 4
+    fn = entry if entry is not None else library().attention_f32_wide
+    # the current stream's handle (torch.cuda.current_stream(...).cuda_stream
+    # builds a Stream object: 5 us of host time a call on the H100's host)
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), opart, ml, B, N, H, D,
+             *q.stride()[:3], float(scale), how.key_tile, how.splits, how.slices, stream)
+    check(err, "attention_f32_wide")
+    return out
+
+
 def _launch(q, k, v, scale: float, splits: int = None):
-    """Run csrc/attention.cu or csrc/attention_bf16.cu on CUDA tensors;
-    raises on what they do not take. `splits` forces the bf16 kernel's key
-    split count (tests)."""
+    """Run csrc/attention.cu, csrc/attention_wide.cu or
+    csrc/attention_bf16.cu on CUDA tensors; raises on what they do not take.
+    `splits` forces the bf16 or the wide kernel's key split count (tests)."""
     B, N, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -152,23 +249,25 @@ def _launch(q, k, v, scale: float, splits: int = None):
     if k.stride() != strides or v.stride() != strides or strides[3] != 1:
         raise ValueError("attention kernel takes q, k, v with one set of strides "
                          "and a unit stride on the head dim")
-    per_16_bytes = 16 // q.element_size()
-    if any(s % per_16_bytes for s in strides[:3]) or any(t.data_ptr() % 16 for t in (q, k, v)):
+    # both divisors are powers of two: one test on the or of the values
+    if ((strides[0] | strides[1] | strides[2]) % (16 // q.element_size())
+            or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16):
         raise ValueError("attention kernel needs 16-byte aligned rows")
     out = torch.empty((B, N, H, D), device=q.device, dtype=q.dtype)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if route == "bf16":
         _launch_bf16(q, k, v, out, scale, splits)
         FusedAttention.launches_bf16 += 1
-    elif route == "d128":
+        return out
+    if route == "wide":
+        _launch_wide(q, k, v, out, scale, splits)
+        FusedAttention.launches_wide += 1
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if route == "d128":
         err = library().attention_f32_d128(*ptrs, B, N, H, *strides[:3], float(scale), stream)
         check(err, "attention_f32_d128")
         FusedAttention.launches += 1
-    elif route == "wide":
-        err = library().attention_f32_wide(*ptrs, B, N, H, D, *strides[:3], float(scale), stream)
-        check(err, "attention_f32_wide")
-        FusedAttention.launches_wide += 1
     else:
         err = library().attention_f32_narrow(*ptrs, B, N, H, D, *strides[:3], float(scale),
                                              stream)
@@ -182,7 +281,7 @@ class FusedAttention(torch.autograd.Function):
     tensors. Backward: autograd through the plain version."""
 
     launches = 0  # D = 128 kernel launches, counted by _launch
-    launches_wide = 0  # wide kernel launches (D above 128), counted by _launch
+    launches_wide = 0  # wide kernel launches (D above 128, with its combine), by _launch
     launches_narrow = 0  # narrow kernel launches (D below 128), counted by _launch
     launches_bf16 = 0  # bf16 kernel launches (any D), counted by _launch
 

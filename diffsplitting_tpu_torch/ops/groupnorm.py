@@ -107,6 +107,7 @@ class Plan(NamedTuple):
 
 
 @functools.cache
+@functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 

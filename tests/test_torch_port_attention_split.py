@@ -13,23 +13,42 @@ and the port's within the chip check's tolerance 1e-4 * (1 + max|ref|). A
 1xTF32 emulation (big*big only) is printed beside it to record what the split
 buys.
 
-The wide kernel (D above 128) is emulated in its own order of sums, with the
-accumulator rounding toward zero after every MMA: each 128-wide slice's
-partial S in 16-wide head-dim steps from 0, added in f32; the partials added
-in f32 in slice order; each key tile's P V from 0. Where D is not a multiple
-of 128 its last slice is zero-filled past D. The narrow kernel (D below 128)
+The wide kernel (D above 128, tf32 wgmma) is emulated in its own order of
+sums and its own split of the operands, with the accumulator rounding toward
+zero after every product: Q and P split in registers (big = rna(x)), K and V
+read as their raw tiles (truncated by the tensor core) beside a plane of
+remainders x - trunc(x); S a chain from 0 a 32-wide panel of D, the panels
+added in f32; each key tile's P V a chain from 0, added to O with the
+rescale; the keys split by `ops.attention.wide_plan` and the splits combined
+in split order. It is held against JAX's Pallas kernel (interpret mode), the
+port's plain version and f64, with the plan. The narrow kernel (D below 128)
 is emulated at its padded head dim DP and key tile, with the same model of
 the accumulator and the D = 128 kernel's sums: S over all of DP in it, each
 key tile's P V from 0.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from diffsplitting_tpu.ops.attention import _pallas_forward as jax_pallas_attention
 from diffsplitting_tpu.ops.attention import attention_reference as jax_attention
+from diffsplitting_tpu_torch.ops import attention as A
 from diffsplitting_tpu_torch.ops import attention_reference
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The emulations run many small f64 products: with torch's one thread a
+    core in each of a suite's worker processes they wait on descheduled
+    threads; one thread a worker keeps them fast. Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TILE = 32  # keys a stage of the kernel
 STEP = 16  # head dims of S a step, where S is summed from 0 a step
@@ -220,14 +239,234 @@ def test_truncating_accumulator_error_comes_from_the_sum_over_keys():
     assert err[True, True] > 2 * err[True, False]
 
 
-# The wide kernel (attention_tf32x3_wide_kernel, D in (128·(DS − 1), 128·DS]):
-# head dims a warp owns, and keys a tile by DS, as WideTile's kTileK in
-# csrc/attention.cu
-SLICE = 128
+# The wide kernel (csrc/attention_wide.cu, D above 128): tf32 wgmma, an
+# operand in registers (Q, P) split as big = rna(x), small = x - big; an
+# operand in shared memory (K, V) read as its raw tile (the tensor core reads
+# it truncated) beside a plane of remainders x - trunc(x); S a chain from 0
+# over each 32-wide panel of D (4 k8 steps of three products), the panels
+# added in f32; a tile's P V a chain from 0 over its keys, added to O with
+# the rescale in one rounding; the keys split by `wide_plan` and the splits
+# combined in split order with fused multiply-adds
+PANEL = 32  # head dims of S a chain
 
 
-def wide_tile(D: int) -> int:
-    return 32 if -(-D // SLICE) <= 4 else 16
+def split_trunc(x):
+    """A shared-memory operand as the tensor core reads it: its truncation
+    and the truncation of its remainder x - trunc(x)."""
+    big = tf32_trunc(x)
+    return big, tf32_trunc(x - big)
+
+
+def _chain(a, b, acc=None, chain=8):
+    """a (rows, K) registers, b (K, cols) shared memory, f64 tensors of f32
+    values: acc + a @ b in k8 steps of three products (small·big, big·small,
+    big·big, each exact), the accumulator rounded toward zero after each; a
+    chain from 0 (acc None) every `chain` head dims or keys, the chains added
+    in f32."""
+    total = None
+    for c0 in range(0, a.shape[1], chain):
+        run = acc
+        for k0 in range(c0, min(c0 + chain, a.shape[1]), 8):
+            ab, as_ = split(a[:, k0:k0 + 8].float())
+            bb, bs = split_trunc(b[k0:k0 + 8].float())
+            for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+                step = x.double() @ y.double()
+                run = _round_toward_zero(step if run is None else run + step)
+        total = run if total is None else (total + run).float().double()
+    return total
+
+
+def emulate_wide(q, k, v, scale: float, splits: int = None, slices: int = None,
+                 key_tile: int = None, s_chain: int = PANEL, o_in_acc: bool = False):
+    """(N, D) q, k, v of one (batch, head): the wide kernel's result (f32
+    values as f64) and each split's running max. `s_chain` head dims of S a
+    chain from 0 (the kernel: a panel); `o_in_acc` carries O in the
+    accumulator across a split's key tiles, rescaled there, where the kernel
+    starts each tile's P V from 0 and adds it to O in f32."""
+    f32 = lambda x: x.float().double()  # noqa: E731
+    n, width = q.shape
+    how = A.wide_plan(1, n, width, 132, splits, slices, key_tile)
+    tk = how.key_tile
+    d = -(-width // (2 * PANEL)) * 2 * PANEL  # the even count of panels, zero past D
+    keys = -(-n // tk) * tk
+    zq = torch.nn.functional.pad(q.double(), (0, d - width))
+    zk = torch.nn.functional.pad(k.double(), (0, d - width, 0, keys - n))
+    zv = torch.nn.functional.pad(v.double(), (0, d - width, 0, keys - n))
+    # S of every key at once: a key's S is summed alike in any tile or split
+    scores = _chain(zq, zk.T, chain=s_chain)
+    c2 = f32(torch.tensor(np.float32(scale) * np.float32(LOG2E), dtype=torch.float64))
+    parts = []
+    for sp in range(how.splits):
+        m = torch.full((n, 1), -torch.inf, dtype=torch.float64)
+        l = torch.zeros(n, 1, dtype=torch.float64)
+        o = torch.zeros(n, d, dtype=torch.float64)
+        first = sp * how.tiles_per_split
+        for t in range(first, min(first + how.tiles_per_split, keys // tk)):
+            s = f32(scores[:, t * tk:(t + 1) * tk] * c2)
+            s[:, max(0, n - t * tk):] = -torch.inf  # keys past N
+            m_new = torch.maximum(m, s.max(1, keepdim=True).values)
+            corr = f32(torch.exp2(m - m_new))
+            p = f32(torch.exp2(s - m_new))
+            l = f32(l * corr + p.sum(1, keepdim=True))
+            vt = zv[t * tk:(t + 1) * tk]
+            if o_in_acc:
+                o = _chain(p, vt, acc=f32(o * corr), chain=tk)
+            else:
+                o = f32(o * corr + _chain(p, vt, chain=tk))
+            m = m_new
+        parts.append((m, l, o[:, :width]))
+    if how.splits == 1:
+        m, l, o = parts[0]
+        return f32(o * f32(1 / l)).float(), [m]
+    m_max = torch.stack([m for m, _, _ in parts]).max(0).values
+    big_l = torch.zeros_like(m_max)
+    acc = torch.zeros(n, width, dtype=torch.float64)
+    for m, l, o in parts:
+        w = torch.where(m == -torch.inf, torch.zeros_like(m), f32(torch.exp2(m - m_max)))
+        big_l = f32(w * l + big_l)  # one rounding: a fused multiply-add
+        acc = f32(w * o + acc)
+    return f32(acc * f32(1 / big_l)).float(), [m for m, _, _ in parts]
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_case(N: int, D: int, gain: float):
+    """Seeded q, k, v (1, N, 1, D), JAX's Pallas kernel (interpret mode),
+    the port's plain version and f64 on them."""
+    rng = np.random.default_rng(N * 13 + D)
+    q, k, v = (rng.normal(size=(1, N, 1, D)).astype(np.float32) for _ in range(3))
+    scale = gain / np.sqrt(D)
+    pallas = np.asarray(jax_pallas_attention(*(jnp.asarray(a) for a in (q, k, v)), scale,
+                                             interpret=True))[0, :, 0]
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    plain = attention_reference(tq, tk, tv, scale).numpy()[0, :, 0]
+    t3 = [t[0, :, 0] for t in (tq, tk, tv)]
+    exact = (torch.softmax(t3[0].double() @ t3[1].double().T * scale, dim=1)
+             @ t3[2].double()).numpy()
+    return t3, scale, pallas, plain, exact
+
+
+# (N, D, forced (splits, slices, key tile) or None for the plan, score gain):
+# D = 192 and 1020 with a panel and a chunk past D zero-filled; N = 40 ends in
+# a tile of 8 of 32 keys, N = 100 in one of 4 of 32 or 36 of 64; forced splits
+# at N = 100 (4 tiles of 32: 3 splits of 2) leave the last split with no key;
+# one split of two 64-key tiles carries O across them; N = 16 takes one
+# 16-key tile, and N = 40 three forced ones (the last of 8 keys)
+WIDE_EMULATION_CASES = [
+    (40, 192, None, 1), (100, 192, (3, 1, 32), 8), (40, 256, None, 8), (100, 256, None, 1),
+    (40, 512, None, 1), (100, 512, (3, 2, 32), 1), (40, 1020, None, 8), (100, 1020, (2, 3, 32), 1),
+    (40, 1024, None, 1), (100, 1024, (1, 2, 64), 8), (16, 256, None, 8), (40, 512, (3, 2, 16), 1),
+]
+
+
+@pytest.mark.parametrize("N,D,forced,score_gain", WIDE_EMULATION_CASES,
+                         ids=[f"N{c[0]}-D{c[1]}-{'plan' if c[2] is None else 'forced'}-gain{c[3]}"
+                              for c in WIDE_EMULATION_CASES])
+def test_wide_kernel_emulation_matches_references(N, D, forced, score_gain):
+    (tq, tk, tv), scale, pallas, plain, exact = _wide_case(N, D, score_gain)
+    got, ms = emulate_wide(tq, tk, tv, scale, *(forced or ()))
+    got = got.double().numpy()
+    tol = 1e-4 * (1 + np.abs(plain).max())
+    err_jax, err_port = np.abs(got - pallas).max(), np.abs(got - plain).max()
+    err_exact = np.abs(got - exact).max()
+    print(f"D={D} N={N} splits {len(ms)} score gain {score_gain}: against JAX's Pallas kernel "
+          f"{err_jax:.3g}, the port's reference {err_port:.3g}, f64 {err_exact:.3g} (the plain "
+          f"version {np.abs(plain - exact).max():.3g})")
+    assert got.shape == (N, D) and np.isfinite(got).all()
+    assert err_jax <= tol
+    assert err_port <= tol
+    # the error the kernel is held to on the card at scores of unit scale;
+    # scores x8 carry 8x the absolute score error into exp
+    assert err_exact <= 2e-6 * score_gain
+
+
+def test_wide_kernel_split_with_no_key_adds_nothing():
+    """Three splits of N = 100 at 32-key tiles (two tiles each) leave the
+    last with no key: its m stays -inf, the combine gives it weight 0, and
+    the result equals the two-split one bit for bit."""
+    (tq, tk, tv), scale, _, _, _ = _wide_case(100, 256, 1)
+    assert A.wide_plan(1, 100, 256, 132, 3, key_tile=32).tiles_per_split == 2
+    three, ms = emulate_wide(tq, tk, tv, scale, 3, key_tile=32)
+    two, _ = emulate_wide(tq, tk, tv, scale, 2, key_tile=32)
+    assert torch.isinf(ms[2]).all() and (ms[2] < 0).all()
+    assert torch.isfinite(three).all()
+    assert torch.equal(three, two)
+
+
+def test_wide_kernel_chains_start_from_zero():
+    """Why the wide kernel starts a chain of wgmma from 0 every 32-wide panel
+    of S and every key tile of P V: with an accumulator that rounds toward
+    zero, S over all of D in one chain, or O carried in the accumulator over
+    all of a split's key tiles, err more against f64 than the kernel's chains
+    added in f32."""
+    N, D = 256, 512
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)) for _ in range(3))
+    scale = 1 / np.sqrt(D)
+    exact = torch.softmax((q.double() @ k.double().T) * scale, dim=1) @ v.double()
+    err = {}
+    for name, s_chain, o_in_acc in (("kernel", PANEL, False), ("S in one chain", D, False),
+                                    ("O in the accumulator", PANEL, True)):
+        got, _ = emulate_wide(q, k, v, scale, 1, 1, 64, s_chain, o_in_acc)
+        err[name] = (got.double() - exact).abs().max().item()
+    print(f"N={N} D={D}, one split: max abs err against f64, " +
+          ", ".join(f"{k} {e:.3g}" for k, e in err.items()))
+    assert 2 * err["kernel"] < err["S in one chain"]
+    assert err["kernel"] < err["O in the accumulator"]
+
+
+# the plan
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("BH,N,D", [(1, 256, 512), (1, 64, 512), (4, 256, 512), (12, 16, 256),
+                                    (8, 100, 256), (8, 1024, 256), (2, 1024, 1024),
+                                    (8, 4096, 192), (1, 1, 132), (3, 257, 1020), (2, 1023, 896)])
+def test_wide_plan_walks_every_key_tile_and_chunk_once(sms, BH, N, D):
+    """Every key tile in exactly one split and every 64-wide chunk of O in
+    exactly one slice, none empty, at most 8 chunks a slice; more than one
+    split or more slices than O needs only where the grid stays within one
+    block an SM; the key tile by N and the 64-key plan's blocks."""
+    how = A.wide_plan(BH, N, D, sms)
+    tiles, chunks = -(-N // how.key_tile), -(-D // A.WIDE_CHUNK)
+    least = -(-chunks // A.WIDE_MAX_CHUNKS)
+    # 64-key tiles where one a split gives a quarter of the SMs blocks
+    long_blocks = how.query_tiles * BH * -(-N // 64) * least
+    assert how.key_tile == (16 if N <= 16 else 64 if long_blocks >= sms // 4 else 32)
+    assert how.splits * how.tiles_per_split >= tiles > (how.splits - 1) * how.tiles_per_split
+    assert how.slices * how.chunks_per_slice >= chunks > (how.slices - 1) * how.chunks_per_slice
+    assert how.chunks_per_slice <= A.WIDE_MAX_CHUNKS
+    if how.splits > 1 or how.slices > least:
+        assert how.blocks * BH <= sms
+
+
+def test_wide_plan_at_the_served_shapes():
+    """On 132 SMs, at least four times the blocks of the kernel it replaced
+    (one a 64-, 32- or 16-query row group by B·heads: 16, 4, 16 and 12) at
+    sr_sr3_16_128's serving shapes (N = 256 and 64 at D = 512, batch 1),
+    B = 8, N = 100, D = 256 and sample_ddpm_128's mid block; one split where
+    the query tiles fill the card."""
+    assert A.wide_plan(1, 256, 512, 132) == A.WidePlan(32, 8, 1, 4, 2, 4)  # 128 blocks
+    assert A.wide_plan(1, 64, 512, 132) == A.WidePlan(32, 2, 1, 8, 1, 1)  # 16
+    assert A.wide_plan(8, 100, 256, 132).blocks * 8 == 128
+    assert A.wide_plan(12, 16, 256, 132).blocks * 12 == 48
+    assert A.wide_plan(8, 4096, 192, 132) == A.WidePlan(64, 1, 64, 1, 3, 64)
+
+
+def test_wide_plan_forced_counts():
+    """A forced count may leave the last split with no key; counts of 0,
+    more than one split a key tile, fewer slices than O needs or more than
+    one a chunk, and other key tiles are refused."""
+    how = A.wide_plan(1, 256, 512, 132, splits=3, slices=2, key_tile=64)
+    assert (how.splits, how.tiles_per_split, how.slices, how.chunks_per_slice) == (3, 2, 2, 4)
+    assert (how.splits - 1) * how.tiles_per_split >= 4  # the last split: no key
+    for bad in (dict(splits=0), dict(splits=9), dict(slices=0), dict(slices=9),
+                dict(splits=5, key_tile=64)):
+        with pytest.raises(ValueError, match="splits|slices"):
+            A.wide_plan(1, 256, 512, 132, **bad)
+    with pytest.raises(ValueError, match="slices"):
+        A.wide_plan(1, 256, 1024, 132, slices=1)
+    with pytest.raises(ValueError, match="key tiles"):
+        A.wide_plan(1, 256, 512, 132, key_tile=8)
 
 
 def _mma3(a, b, acc):
@@ -240,86 +479,6 @@ def _mma3(a, b, acc):
         for x, y in ((as_, bb), (ab, bs), (ab, bb)):
             acc = _round_toward_zero(acc + x.double() @ y.double())
     return acc
-
-
-def emulate_wide(q, k, v, scale: float, tile: int, s_step: int = STEP):
-    """(N, D) q, k, v of one (batch, head): the wide kernel's tile loop. Each
-    128-wide slice's partial S is summed in `s_step`-wide head-dim steps,
-    each from 0 in the accumulator, the steps added in f32; the partials are
-    added in f32 in slice order; each tile's P V is summed from 0 in the
-    accumulator and added to O in f32. Keys past N are zeros, their scores
-    -inf; columns past D up to a whole slice are zeros, and dropped from O."""
-    f32 = lambda x: x.float().double()  # noqa: E731
-    n, width = q.shape
-    d = width + -width % SLICE
-    pad = -n % tile
-    q = torch.nn.functional.pad(q.double(), (0, d - width))
-    k = torch.nn.functional.pad(k.double(), (0, d - width, 0, pad))
-    v = torch.nn.functional.pad(v.double(), (0, d - width, 0, pad))
-    c2 = scale * LOG2E
-    o = torch.zeros(n, d, dtype=torch.float64)
-    m = torch.full((n, 1), -torch.inf, dtype=torch.float64)
-    l = torch.zeros(n, 1, dtype=torch.float64)
-    for k0 in range(0, n, tile):
-        kt, vt = k[k0:k0 + tile], v[k0:k0 + tile]
-        zeros = torch.zeros(n, tile, dtype=torch.float64)
-        s = None
-        for s0 in range(0, d, SLICE):
-            part = zeros
-            for d0 in range(s0, s0 + SLICE, s_step):
-                part = f32(part + _mma3(q[:, d0:d0 + s_step], kt[:, d0:d0 + s_step].T, zeros))
-            s = part if s is None else f32(s + part)
-        s = f32(s * c2)
-        s[:, n - k0:] = -torch.inf  # keys past N take no weight
-        m_new = torch.maximum(m, s.max(dim=1, keepdim=True).values)
-        corr = f32(torch.exp2(m - m_new))
-        p = f32(torch.exp2(s - m_new))
-        l = f32(l * corr + p.sum(dim=1, keepdim=True))
-        o = f32(f32(o * corr) + _mma3(p, vt, torch.zeros_like(o)))
-        m = m_new
-    return (o / l)[:, :width].float()
-
-
-# N = 40: a full tile and a masked one (8 of 32 keys, or 8 of 16 at D = 1024);
-# D = 192 and 1020 with the last slice zero-filled past D
-@pytest.mark.parametrize("D,score_gain", [(256, 1), (256, 8), (512, 8), (1024, 1), (192, 1),
-                                          (192, 8), (1020, 1)])
-def test_wide_kernel_emulation_matches_references(D, score_gain):
-    N = 40
-    rng = np.random.default_rng(5)
-    q, k, v = (rng.normal(size=(1, N, 1, D)).astype(np.float32) for _ in range(3))
-    scale = score_gain / np.sqrt(D)
-    want_jax = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale))
-    want = attention_reference(*map(torch.from_numpy, (q, k, v)), scale).numpy()
-    tq, tk, tv = (torch.from_numpy(a[0, :, 0]) for a in (q, k, v))
-    exact = (torch.softmax(tq.double() @ tk.double().T * scale, dim=1) @ tv.double()).numpy()
-    got = emulate_wide(tq, tk, tv, scale, wide_tile(D)).numpy()
-    tol = 1e-4 * (1 + np.abs(want).max())
-    err_jax = np.abs(got - want_jax[0, :, 0]).max()
-    err_exact = np.abs(got - exact).max()
-    print(f"D={D} N={N} score gain {score_gain}: against JAX {err_jax:.3g}, the port's "
-          f"reference {np.abs(got - want[0, :, 0]).max():.3g}, f64 {err_exact:.3g}")
-    assert err_jax <= tol
-    assert np.abs(got - want[0, :, 0]).max() <= tol
-    # the error the kernel is held to on the card at scores of unit scale;
-    # scores x8 carry 8x the absolute score error into exp
-    assert err_exact <= 2e-6 * score_gain
-
-
-def test_wide_kernel_sums_s_per_step():
-    """Why the wide kernel sums S a 16-wide head-dim step at a time: with an
-    accumulator that rounds toward zero, a slice's 128 terms summed in it
-    err more than the same terms in steps from 0 added in f32."""
-    N, D = 64, 512
-    rng = np.random.default_rng(6)
-    q, k, v = (torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)) for _ in range(3))
-    scale = 1 / np.sqrt(D)
-    exact = torch.softmax((q.double() @ k.double().T) * scale, dim=1) @ v.double()
-    err = {step: (emulate_wide(q, k, v, scale, wide_tile(D), s_step=step).double() - exact)
-           .abs().max().item() for step in (STEP, SLICE)}
-    print(f"N={N} D={D}: max abs err, S in 16-wide steps {err[STEP]:.3g}, a slice in the "
-          f"accumulator {err[SLICE]:.3g}")
-    assert 2 * err[STEP] < err[SLICE]
 
 
 # The narrow kernel (attention_tf32x3_narrow_kernel<DP>, D below 128): the

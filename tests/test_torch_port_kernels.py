@@ -183,16 +183,21 @@ def test_attention_kernel_at_any_head_dim(cuda, B, N, heads, D, big):
 
 
 # the wide tensor-core kernel at every head dim it takes: D = 256, 384, 512,
-# 768 and 1024 at N = 1 (one key, 15 rows of a row group empty), 17 (a last
-# key tile of one or two keys, at 16- and 32-key tiles), 100 and 1023
-# (a key slot of the last tile empty), with 640 and 896 at two N; 1-2 heads
-# as strided views of one qkv tensor, and scores x8 so that the running max
-# moves across key tiles; sr_sr3_16_128's two sites at its serving batch 1
-# (the 16² maps, N = 256, and the 8² mid block, N = 64, at D = 512)
+# 768 and 1024 at N = 1 (one key, 63 query rows of the tile empty), 17 (a
+# last key tile of 17 keys), 100 and 1023 (a key slot of the last tile
+# empty), with 640 and 896 at two N; ragged D (192, 320 and 1020: a panel or
+# chunk past D zero-filled), at N = 1 too; 1-2 heads as strided views of one
+# qkv tensor, and scores x8 so that the running max moves across key tiles;
+# sr_sr3_16_128's two sites at its serving batch 1 (the 16² maps, N = 256,
+# and the 8² mid block, N = 64, at D = 512) and sample_ddpm_128's mid block
+# (B = 12, N = 16, D = 256)
 WIDE_CASES = ([(2, n, 1 + i % 2, d, bool(i % 2)) for d in (256, 384, 512, 768, 1024)
                for i, n in enumerate((1, 17, 100, 1023))]
               + [(2, 100, 1, 640, True), (1, 1023, 2, 640, False), (1, 17, 2, 896, False),
-                 (2, 1023, 1, 896, True), (1, 256, 1, 512, False), (1, 64, 1, 512, False)])
+                 (2, 1023, 1, 896, True), (1, 256, 1, 512, False), (1, 64, 1, 512, False),
+                 (12, 16, 1, 256, False), (8, 100, 1, 192, True), (1, 1, 1, 192, False),
+                 (2, 300, 1, 320, False), (1, 1, 2, 320, True), (1, 257, 1, 1020, True),
+                 (3, 1, 1, 1020, False)])
 
 
 @pytest.mark.parametrize("B,N,heads,D,big", WIDE_CASES)
@@ -207,10 +212,68 @@ def test_attention_wide_kernel(cuda, B, N, heads, D, big):
     torch.cuda.synchronize()
     assert _counts() == (before[0], before[1] + 2, before[2])
     want = attention_reference(q, k, v, scale)
-    # 3xTF32 keeps f32 accuracy; S is added across 128-wide slices and the
+    # 3xTF32 keeps f32 accuracy; S is added across 32-wide panels and the
     # sums run in another order than cuBLAS's; the chip check's tolerance
     assert (got - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
     assert torch.equal(got, again)
+
+
+# the plan forced: key splits that leave the last split with no key (N = 256
+# at 64-key tiles: 4 tiles, 3 splits of 2; N = 1023: 16 tiles, 5 splits of
+# 4), one split and one slice (a split of 4 or 16 key tiles), every key tile
+# its own split at 32-key tiles, one chunk a slice, slices of 2 chunks;
+# 16-key tiles (N = 100: 7 of them in 4 splits; N = 9 below one tile)
+WIDE_FORCED_CASES = [(1, 256, 1, 512, 3, 1, 64), (1, 256, 1, 512, 1, 1, 64),
+                     (1, 256, 1, 512, 8, 8, 32), (1, 256, 1, 512, 2, 3, 32),
+                     (2, 1023, 1, 896, 5, 2, 64), (2, 1023, 1, 896, 1, 2, 64),
+                     (2, 1023, 1, 896, 32, 7, 32), (1, 100, 2, 1020, 3, 16, 32),
+                     (1, 100, 1, 512, 4, 2, 16), (3, 9, 2, 256, 1, 4, 16)]
+
+
+@pytest.mark.parametrize("B,N,heads,D,splits,slices,key_tile", WIDE_FORCED_CASES)
+def test_attention_wide_kernel_forced_plan(cuda, B, N, heads, D, splits, slices, key_tile):
+    from diffsplitting_tpu_torch.ops.attention import _launch_wide, wide_plan
+
+    how = wide_plan(B * heads, N, D, torch.cuda.get_device_properties(cuda).multi_processor_count,
+                    splits, slices, key_tile)
+    assert (how.splits, how.key_tile) == (splits, key_tile)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    qkv = torch.randn(B, N, heads, 3, D, device=cuda, generator=g)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    scale = 8 / math.sqrt(D * heads)
+    got = _launch_wide(q, k, v, torch.empty(B, N, heads, D, device=cuda), scale, splits, slices,
+                       key_tile)
+    again = _launch_wide(q, k, v, torch.empty(B, N, heads, D, device=cuda), scale, splits,
+                         slices, key_tile)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    want = attention_reference(q, k, v, scale)
+    assert (got - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
+
+
+# a CUDA-graph replay gives the eager launch's bits: the plan's splits with
+# their combine launch (N = 256, 64, 100), one split (N = 16, 1024)
+@pytest.mark.parametrize("B,N,D", [(1, 256, 512), (1, 64, 512), (12, 16, 256), (8, 100, 256),
+                                   (2, 1024, 1024), (8, 1024, 192)])
+def test_attention_wide_graph_replay_equals_eager(cuda, B, N, D):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    qkv = torch.randn(B, N, 1, 3, D, device=cuda, generator=g)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    scale = 1 / math.sqrt(D)
+    eager = fused_attention(q, k, v, scale)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_attention(q, k, v, scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fused_attention(q, k, v, scale)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
 
 
 def test_attention_routes_by_head_dim(cuda):
