@@ -70,11 +70,12 @@ each site of its fused walk, the port's infer.py over the full 2000-step
 schedule unfused and fused with the launches of every forward asserted,
 seconds a chain, forwards/s, peak memory and the device-idle share of those
 chains, DDPM through infer.py and an unconditional sample through sample.py
-(each cut to 50 steps, logged), one sr3 train step at
+(each cut to 50 steps, logged; sample.py again with `--ddim 10`), one sr3
+train step at
 batch 4 against the plain versions and 10 timed steps, and eval.py on the
 written PNGs.
 
-Last, SR3 at bf16 (`phase_sr3_512`): configs/sr_sr3_64_512.json (infer.py's
+Then SR3 at bf16 (`phase_sr3_512`): configs/sr_sr3_64_512.json (infer.py's
 default config) at its full width (155,334,339 parameters, seeded weights),
 in its compute dtype bfloat16 with remat, on synthetic 64 -> 512 triples:
 infer.py's full 2000-step chain unfused (35 bf16 GN+Swish and 1 bf16
@@ -92,6 +93,20 @@ one bf16 step of its plain version, bit-identical twice, timed beside the
 plain version, cuDNN in bf16 and the bound), and the sr3 train step at batch
 2, 512², with remat on and off (launches, gradients against each other, ms a
 step, peak memory, remat's peak the lower).
+
+Last, the DDPM / SR3 serving accelerators (`phase_sr_accelerators`) on the
+same config and triple through infer.py: `--ddim 250,1` unfused and with
+DSP_FUSED=1, `--deepcache 5,1` over the 2000 steps, `--ddim 250,1
+--deepcache 5,1`, and `--sliding_window 8,0.1` on the schedule cut to 50
+steps, each with its launches asserted (DeepCache's full and shallow passes
+counted from `CachedUNet`'s split and seen on the card), seconds a chain,
+passes, sweeps, peak memory and idle share beside the exact chain's; a
+20-step DDIM chain with the kernels and through the plain versions against
+an f32 one, DDIM at steps = T and eta 1 and the window at tau 0 against the
+exact cut chains, DeepCache at interval 1 bit for bit against the uncached
+chains (DDIM and a cut chain); and `ddpm_sample_parallel` on
+configs/sr_sr3_16_128.json at full width after T sweeps against the exact
+chain cut to 20 steps.
 
 Every phase raises on failure, so the script exits non-zero with no result
 line. It prints the card's name and power limit, per-kernel times beside
@@ -1944,6 +1959,7 @@ SR3_CUT_STEPS = 20  # the val schedule cut for the kernels-vs-plain chain and th
 # the two 2000-step sr3 chains alone fill the phase's 120 s budget (host-bound
 # at batch 1), and a fixed cut keeps forwards/s comparable between runs
 SR3_SERVE_CUT_STEPS = 50
+SAMPLE_DDIM_STEPS = 10  # sample.py's --ddim run, respaced from SR3_SERVE_CUT_STEPS
 SR3_TRAIN_BATCH, SR3_TRAIN_WARMUP, SR3_TRAIN_TIMED = 4, 2, 10
 
 
@@ -2030,30 +2046,39 @@ def fused_env(on: bool):
             os.environ["DSP_FUSED"] = old
 
 
-def serve_cli(label: str, cli, argv: list, per_forward: dict, steps: int) -> dict:
+def serve_cli(label: str, cli, argv: list, per_forward: dict, steps: int, want=None) -> dict:
     """One run of a CLI's `main(argv)` (one item, one chain of `steps`
     steps) with every launch count set to 0 just before and read just after:
-    the launches must be `per_forward` × steps. Returns the CLI's result
-    with the launches, seconds a chain, forwards/s and peak memory."""
+    the launches must be `per_forward` × steps, or `want` (a dict, or a
+    function of the CLI's result giving one) where a step's passes differ.
+    Returns the CLI's result with the launches, seconds a chain, steps (one
+    UNet call each) a second and peak memory."""
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    t0 = time.perf_counter()
     out = cli.main(argv)
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    want = {k: v * steps for k, v in per_forward.items()}
+    if want is None:
+        want = {k: v * steps for k, v in per_forward.items()}
+    elif callable(want):
+        want = want(out)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     secs = out["seconds"][0]
     log(f"{label}: one {steps}-step chain at batch 1 in {secs:.3f} s ({steps / secs:.1f} "
-        f"forwards/s), peak memory {peak / 2**30:.2f} GiB ({peak} bytes), launches {launches}")
+        f"forwards/s; the CLI's run {wall:.1f} s), peak memory {peak / 2**30:.2f} GiB ({peak} "
+        f"bytes), launches {launches}")
     return dict(out, launches=launches, chain_s=secs, forwards_per_s=steps / secs, peak=peak)
 
 
-def chain_profile(model, steps: int, fused: bool, full_steps: int, full_chain_s: float) -> dict:
+def chain_profile(model, steps: int, fused: bool, full_steps: int, full_chain_s: float,
+                  label: str = "sr3 profile") -> dict:
     """The device's busy time a step of one conditional chain of `steps`
     steps on the fed input, unfused or fused, under torch.profiler, and the
     idle share of an unprofiled chain of `full_steps` steps that took
@@ -2073,10 +2098,10 @@ def chain_profile(model, steps: int, fused: bool, full_steps: int, full_chain_s:
     busy = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
                if e.device_type == DeviceType.CUDA)
     if not busy:
-        log("sr3 profile: no device events recorded; idle share not measured")
+        log(f"{label}: no device events recorded; idle share not measured")
         return dict(wall_ms=wall_ms, busy_ms=None, idle=None, idle_profiled=None)
     idle = 1 - busy / steps * full_steps / (full_chain_s * 1e3)
-    log(f"sr3 profile ({steps}-step chain, batch 1, fused={fused}): device busy {busy:.1f} ms "
+    log(f"{label} ({steps}-step chain, batch 1, fused={fused}): device busy {busy:.1f} ms "
         f"({busy / steps:.4f} ms a step); idle share of the unprofiled {full_steps}-step chain "
         f"({full_chain_s:.3f} s) {idle:.2%}; with the profiler on, wall {wall_ms:.1f} ms, idle "
         f"share {1 - busy / wall_ms:.2%}")
@@ -2108,8 +2133,8 @@ def phase_sr3(dev, work: str) -> dict:
         versions, and fused against unfused, from the same noise;
       * DDPM (configs/sr_ddpm_16_128.json) through infer.py, one chain,
         unfused; sample.py (configs/sample_sr3_128.json) in the val phase,
-        one unconditional sample; each cut to SR3_SERVE_CUT_STEPS steps
-        (logged);
+        one unconditional sample, and one with `--ddim 10` (10 forwards, the
+        final frame only); each cut to SR3_SERVE_CUT_STEPS steps (logged);
       * one sr3 train step at batch 4, 128², dropout 0.2, kernels against
         the plain versions with the same draws and dropout masks
         (compare_steps), then 10 timed steps (ms, samples/s, peak);
@@ -2246,6 +2271,16 @@ def phase_sr3(dev, work: str) -> dict:
     if final.shape != (size, size, 3) or gen["model"].process.conditional:
         raise AssertionError(f"sample.py wrote a {final.shape} sample")
     del gen["model"]
+    # respaced DDIM through sample.py: 10 forwards, the final frame only
+    gen_ddim = serve_cli(f"sample.py val phase --ddim {SAMPLE_DDIM_STEPS} (of {steps} steps)",
+                         sample, ["-c", sr_config(work, SAMPLE_CONFIG, root, 1, steps),
+                                  "-p", "val", "-rootdir", str(Path(work) / "sample_ddim"),
+                                  "--ddim", str(SAMPLE_DDIM_STEPS)],
+                         per_forward, SAMPLE_DDIM_STEPS)
+    written = sorted(p.name for p in Path(gen_ddim["results"]).glob("*.png"))
+    if written != ["0_1_sample.png"] or gen_ddim["model"].ddim != (SAMPLE_DDIM_STEPS, 0.0):
+        raise AssertionError(f"sample.py --ddim wrote {written}")
+    del gen_ddim["model"]
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ the train step
@@ -2312,14 +2347,15 @@ def phase_sr3(dev, work: str) -> dict:
     secs = time.perf_counter() - t_phase
     log(f"sr3 phase: {secs:.1f} s")
     counted = (unfused["launches"], fused_run["launches"], ddpm["launches"], gen["launches"],
-               launches)
+               gen_ddim["launches"], launches)
     return dict(launches={k: sum(c[k] for c in counted) for k in
                           ("group_norm_swish", "attention_wide", "conv_gn")},
                 gn=gn, gn_err=max(gn_err, gn_err4), conv_err=conv_err, checks=checks,
                 cut_errs=cut_errs, profile=prof, seconds=secs,
                 chains={k: {f: r[f] for f in ("chain_s", "forwards_per_s", "peak")}
                         for k, r in (("sr3 unfused", unfused), ("sr3 fused", fused_run),
-                                     ("ddpm unfused", ddpm), ("sample", gen))},
+                                     ("ddpm unfused", ddpm), ("sample", gen),
+                                     ("sample ddim", gen_ddim))},
                 train=dict(ms=train_ms, samples_per_s=SR3_TRAIN_BATCH / train_ms * 1e3,
                            peak=peak))
 
@@ -2876,7 +2912,369 @@ def phase_sr3_512(dev, work: str) -> dict:
                 fused_chain=dict(chain_s=fused_served["chain_s"],
                                  forwards_per_s=fused_served["forwards_per_s"],
                                  peak=fused_served["peak"], steps=steps, **fused_prof),
-                chain_err=chain_err, forward=fwd, train=train, seconds=secs)
+                chain_err=chain_err, forward=fwd, train=train, seconds=secs, root=root)
+
+
+SRA_DDIM = "250,1"  # infer.py's --ddim: 250 respaced steps at eta 1
+SRA_DEEPCACHE = "5,1"  # --deepcache: a full pass every 5th step, the cache at depth 1
+SRA_WINDOW = "8,0.1"  # --sliding_window: 8 steps a sweep, tau 0.1
+SRA_WINDOW_STEPS = 50  # the val schedule cut for the window (its frozen noise: 50 draws)
+SRA_CHECK_STEPS = 20  # the cut of the exactness checks and of the profiled chains
+SR3_PARALLEL_STEPS = 20  # sr_sr3_16_128's schedule cut for ddpm_sample_parallel
+
+
+def pass_launches(unet, depth: int) -> tuple:
+    """(full, shallow) bf16 kernel launches of one `CachedUNet` pass at
+    `depth`, from the modules each pass runs: one GN+Swish launch a
+    `GroupNormSwish`, one attention launch a `SelfAttention`."""
+    from diffsplitting_tpu_torch.models.blocks import GroupNormSwish, SelfAttention
+    from diffsplitting_tpu_torch.models.deepcache import CachedUNet
+
+    cnet = CachedUNet(unet, depth)
+
+    def count(layers):
+        mods = [m for layer in layers for m in layer.modules()]
+        return dict(group_norm_swish_bf16=sum(isinstance(m, GroupNormSwish) for m in mods),
+                    attention_bf16=sum(isinstance(m, SelfAttention) for m in mods))
+
+    shallow = count(cnet.shallow_down + cnet.shallow_up + [unet.final_conv])
+    deep = count(cnet.deep_down + list(unet.mid) + cnet.deep_up)
+    return {k: shallow[k] + deep[k] for k in shallow}, shallow
+
+
+def phase_sr_accelerators(dev, work: str, sr512: dict) -> dict:
+    """The DDPM / SR3 serving accelerators through the port's infer.py on
+    configs/sr_sr3_64_512.json at full width (155,334,339 parameters, seeded
+    weights, bf16 with remat), on phase_sr3_512's first synthetic 64 -> 512
+    triple at batch 1:
+      * `--ddim 250,1` unfused and with DSP_FUSED=1 (250 full passes);
+        `--deepcache 5,1` over the full 2000-step val schedule (400 full
+        passes, 1600 shallow); `--ddim 250,1 --deepcache 5,1` (50 and 200);
+        `--sliding_window 8,0.1` over the val schedule cut to
+        SRA_WINDOW_STEPS steps (one batch-8 pass a sweep): each run's
+        launches asserted, seconds a chain, passes, sweeps, peak memory, and
+        the idle share from a profiled cut chain of the same pattern, beside
+        phase_sr3_512's exact chains: DDIM's a step from phase_sr3_512's
+        profiled cut chains (each step one full forward), DeepCache's and
+        DDIM x DeepCache's from a SRA_CHECK_STEPS-step cut chain at the same
+        share of full passes, the window's a sweep from the window at
+        tau 0 on that cut (one batch-8 pass a sweep);
+      * a full and a shallow pass on the card: their launches against the
+        counts `pass_launches` derives from `CachedUNet`'s split (full: the
+        forward's 35 GN+Swish and 1 attention; shallow at depth 1: the 512²
+        level's, no attention);
+      * a 20-step DDIM chain (respaced from 2000) with the kernels and
+        through the plain versions, each against the same chain through an
+        f32 copy of the UNet: the kernels' error within twice the plain
+        version's (a respaced step carries ε̂'s bf16 rounding into x at
+        √(1/ᾱ − 1), so no fixed bound fits both ends of the schedule);
+        DDIM at steps = T, eta = 1 on the 20-step cut against the exact cut
+        chain from one generator; DeepCache at interval 1 against the
+        uncached chain, bit for bit, for DDIM and for the ancestral chain on
+        the 20-step cut (the same loop and modules, so the 2000-step chain's
+        bits follow; running it would take the exact chain's ~40 s again);
+        the window at tau = 0 on the 50-step cut against the exact cut chain
+        (batch 8 against batch 1: other cuDNN algorithms);
+      * `ddpm_sample_parallel` on configs/sr_sr3_16_128.json at full width
+        (f32), batch 1, on its val schedule cut to SR3_PARALLEL_STEPS steps:
+        after T sweeps (each one batch-T forward) against the exact cut
+        chain."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from diffsplitting_tpu_torch import infer
+    from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
+    from diffsplitting_tpu_torch.data.lrhr_dataset import LRHRDataset
+    from diffsplitting_tpu_torch.diffusion.ddim import ddim_sample_loop, ddim_timesteps
+    from diffsplitting_tpu_torch.diffusion.parallel_sampling import ddpm_sample_parallel
+    from diffsplitting_tpu_torch.models import UNet, apply_unet
+    from diffsplitting_tpu_torch.models.deepcache import CachedUNet
+    from diffsplitting_tpu_torch.serving import unet_kwargs
+    from diffsplitting_tpu_torch.train import DiffusionModel
+    from diffsplitting_tpu_torch.utils.cli import parse_accel_flag
+
+    t_phase = time.perf_counter()
+    model_opt = dict_to_nonedict(load_json(SR512_CONFIG))["model"]
+    val = model_opt["beta_schedule"]["val"]
+    T, size = int(val["n_timestep"]), int(model_opt["diffusion"]["image_size"])
+    root = sr512["root"]
+    cfg = sr_config(work, SR512_CONFIG, root, 1)
+    window_cfg = sr_config(work, SR512_CONFIG, root, 1, SRA_WINDOW_STEPS)
+    log(f"sr_accel phase: the window's chain is cut to {SRA_WINDOW_STEPS} of {T} steps")
+    ddim = parse_accel_flag(SRA_DDIM, 0.0)
+    S = len(ddim_timesteps(T, ddim[0]))
+    interval, depth = parse_accel_flag(SRA_DEEPCACHE, 1, second_cast=int)
+    W, _ = parse_accel_flag(SRA_WINDOW, 0.1)
+    per_forward = dict(GN_ATTN_ONLY, group_norm_swish=0, attention=0,
+                       group_norm_swish_bf16=SR512_GN_FWD, attention_bf16=SR512_ATTN_FWD)
+    fused_per_forward = dict(per_forward, group_norm_swish_bf16=1, conv_gn_bf16=SR512_CONV_FWD[0],
+                             sites_kernel=SR512_CONV_FWD[0], sites_library=SR512_CONV_FWD[1])
+
+    def argv(name, *flags, config=cfg):
+        return ["-c", config, "-rootdir", str(Path(work) / f"sra_{name}")] + list(flags)
+
+    def split(n_steps):
+        """(full, shallow) passes of an n-step cached chain: a full pass every
+        `interval`-th step from the first, shallow passes between."""
+        F = len(range(0, n_steps, interval))
+        return F, n_steps - F
+
+    def cached(n_steps, full, shallow):
+        F, rest = split(n_steps)
+        return dict(per_forward, **{k: full[k] * F + shallow[k] * rest for k in full})
+
+    # ------------------------------------------------ infer.py: DDIM, unfused and fused
+    runs = {}
+    runs["ddim"] = serve_cli(f"sr_accel infer.py --ddim {SRA_DDIM}", infer,
+                             argv("ddim", "--ddim", SRA_DDIM), per_forward, S)
+    model = runs["ddim"]["model"]
+    net = model.nets.denoise_fn
+    if sum(p.numel() for p in net.parameters()) != SR512_PARAMS or model.ddim != ddim:
+        raise AssertionError(f"sr_accel: the DDIM run served {model.ddim}")
+    full, shallow = pass_launches(net, depth)
+    if full != {k: per_forward[k] for k in full}:
+        raise AssertionError(f"sr_accel: CachedUNet's full pass runs {full}, the forward "
+                             f"{per_forward}")
+    with fused_env(True):
+        runs["ddim_fused"] = serve_cli(f"sr_accel infer.py --ddim {SRA_DDIM} (DSP_FUSED=1)",
+                                       infer, argv("ddim_fused", "--ddim", SRA_DDIM),
+                                       fused_per_forward, S)
+    del runs["ddim_fused"]["model"]
+
+    # ------------------------------------------------ infer.py: DeepCache, DDIM x DeepCache
+    runs["deepcache"] = serve_cli(f"sr_accel infer.py --deepcache {SRA_DEEPCACHE} ({T} steps)",
+                                  infer, argv("dc", "--deepcache", SRA_DEEPCACHE), per_forward,
+                                  T, want=cached(T, full, shallow))
+    del runs["deepcache"]["model"]
+    runs["ddim_deepcache"] = serve_cli(
+        f"sr_accel infer.py --ddim {SRA_DDIM} --deepcache {SRA_DEEPCACHE}", infer,
+        argv("ddim_dc", "--ddim", SRA_DDIM, "--deepcache", SRA_DEEPCACHE), per_forward, S,
+        want=cached(S, full, shallow))
+    del runs["ddim_deepcache"]["model"]
+
+    # ------------------------------------------------ infer.py: the sliding window, cut
+    def window_launches(out):
+        sweeps = out["model"].last_sliding_sweeps
+        return dict(per_forward, **{k: per_forward[k] * sweeps for k in full})
+
+    runs["window"] = serve_cli(
+        f"sr_accel infer.py --sliding_window {SRA_WINDOW} ({SRA_WINDOW_STEPS} steps)", infer,
+        argv("window", "--sliding_window", SRA_WINDOW, config=window_cfg), per_forward,
+        SRA_WINDOW_STEPS, want=window_launches)
+    runs["window"]["sweeps"] = runs["window"]["model"].last_sliding_sweeps
+    del runs["window"]["model"]
+    for name, run in runs.items():
+        pngs = sorted(p.name for p in Path(run["results"]).glob("*.png"))
+        if pngs != ["0_1_hr.png", "0_1_inf.png", "0_1_sr.png"]:
+            raise AssertionError(f"sr_accel {name}: infer.py wrote {pngs}")
+        sr = np.asarray(Image.open(Path(run["results"]) / "0_1_sr.png"))
+        if sr.shape != (size, size, 3):
+            raise AssertionError(f"sr_accel {name}: infer.py's SR image is {sr.shape}")
+    torch.cuda.empty_cache()
+
+    cli_s = time.perf_counter() - t_phase
+
+    # ------------------------------------------------ a full and a shallow pass on the card
+    g = torch.Generator(device=dev).manual_seed(45)
+    x = torch.randn(1, size, size, net.in_channel, device=dev, generator=g)
+    level = torch.rand(1, device=dev, generator=g)
+    cnet = CachedUNet(net, depth)
+    with torch.inference_mode():
+        net.eval()
+        reset_launches()
+        got_full, deep = cnet(x, level)
+        seen_full = read_launches()
+        reset_launches()
+        got_shallow, _ = cnet(x, level, deep)
+        seen_shallow = read_launches()
+        want_full = net(x, level)
+    for what, seen, want in (("full", seen_full, full), ("shallow", seen_shallow, shallow)):
+        if {k: seen[k] for k in want} != want or seen["conv_gn_bf16"]:
+            raise AssertionError(f"sr_accel {what} pass at depth {depth}: launches {seen}, "
+                                 f"expected {want}")
+    if not (torch.equal(got_full, want_full) and torch.equal(got_shallow, want_full)):
+        raise AssertionError("sr_accel: CachedUNet's passes are not the forward's bits")
+    log(f"sr_accel passes at depth {depth}: full {full}, shallow {shallow} (from CachedUNet's "
+        "split), seen on the card; both the forward's output bit for bit")
+    del x, deep, got_full, got_shallow, want_full
+
+    # ------------------------------------------------ exactness on one model, one generator
+    item = LRHRDataset(root, "img", size // 8, size, split="val", need_LR=False)[0]
+    model.feed_data({"input": item["SR"][None], "target": item["HR"][None]})
+    model.set_ddim(None)
+
+    def chain(fused=False, plain=False):
+        model.sample_generator.manual_seed(0)
+        with plain_versions() if plain else contextlib.nullcontext():
+            return model.test(fused=fused).clone()
+
+    def rel_err(what, got, want, tol):
+        scale = want.abs().max().item()
+        err = max_err(got, want) / scale
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise AssertionError(f"sr_accel {what}: max abs err {err} of max|want| > {tol}")
+        log(f"sr_accel {what}: max abs err {err:.3g} of max|want| (tol {tol:g})")
+        return err
+
+    def bit_equal(what, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"sr_accel {what}: not bit-equal (max abs err "
+                                 f"{max_err(got, want)})")
+        log(f"sr_accel {what}: bit-equal")
+
+    checks, prof = {}, {}
+    cut = SRA_CHECK_STEPS
+    model.set_ddim(cut, 1.0)  # respaced from the 2000-step schedule
+    ddim_k = chain()
+    ddim_p = chain(plain=True)
+    f32_net = UNet(**dict(unet_kwargs(model_opt, "noise_level"), dtype=None)).to(dev).eval()
+    f32_net.load_state_dict(net.state_dict())
+    model.sample_generator.manual_seed(0)
+    with torch.inference_mode():
+        ddim_f32 = ddim_sample_loop(model.process, f32_net, model.current_sched,
+                                    model.data["input"], cut, 1.0,
+                                    generator=model.sample_generator)
+    del f32_net
+    plain_err = rel_err(f"{cut}-step DDIM (of {T}), plain versions (bf16) vs f32", ddim_p,
+                        ddim_f32, 1.0)
+    checks["ddim kernels vs f32"] = rel_err(
+        f"{cut}-step DDIM (of {T}), kernels (bf16) vs f32 (tol: twice the plain versions')",
+        ddim_k, ddim_f32, 2 * plain_err)
+    checks["ddim kernels vs plain"] = max_err(ddim_k, ddim_p) / ddim_p.abs().max().item()
+    log(f"sr_accel {cut}-step DDIM (of {T}), kernels vs plain versions: max abs err "
+        f"{checks['ddim kernels vs plain']:.3g} of max|plain|")
+    del ddim_p, ddim_f32
+    model.set_deepcache(1, depth)
+    bit_equal(f"{cut}-step DDIM, DeepCache at interval 1 vs uncached", chain(), ddim_k)
+    model.set_deepcache(None)
+    model.set_ddim(None)
+
+    model.set_new_noise_schedule(dict(val, n_timestep=cut), "cut")
+    exact = chain()
+    model.set_ddim(cut, 1.0)
+    checks["ddim T eta 1 vs exact"] = rel_err(
+        f"DDIM at steps = T = {cut}, eta 1, vs the exact {cut}-step chain", chain(), exact, 5e-2)
+    model.set_ddim(None)
+    model.set_deepcache(1, depth)
+    bit_equal(f"exact {cut}-step chain, DeepCache at interval 1 vs uncached", chain(), exact)
+    model.set_deepcache(interval, depth)  # 4 full passes in 20, as 400 in 2000 and 50 in 250
+    prof["deepcache"] = chain_profile(model, cut, False, T, runs["deepcache"]["chain_s"],
+                                      label="sr_accel profile, DeepCache")
+    model.set_deepcache(None)
+    model.set_sliding_window(W, 0.0)  # one batch-W pass a sweep, one sweep a step at tau 0
+    prof["window"] = chain_profile(model, cut, False, runs["window"]["sweeps"],
+                                   runs["window"]["chain_s"], label="sr_accel profile, window")
+    if model.last_sliding_sweeps != cut:
+        raise AssertionError(f"sr_accel: the window at tau 0 took {model.last_sliding_sweeps} "
+                             f"sweeps over {cut} steps")
+    model.set_sliding_window(None)
+
+    # the device time a step of the chains profiled above (DDIM: phase_sr3_512's
+    # cut chains, each step one full forward; DDIM x DeepCache: the cached
+    # chain's, the same share of full passes) over each run's own seconds
+    for name, busy_ms, profiled, n_steps in (
+            ("ddim", sr512["chain"].get("busy_ms"), SR512_CUT_STEPS, S),
+            ("ddim_fused", sr512["fused_chain"].get("busy_ms"), SR512_CUT_STEPS, S),
+            ("ddim_deepcache", prof["deepcache"]["busy_ms"], cut, S)):
+        if busy_ms is None:
+            prof[name] = dict(idle=None)
+            continue
+        step_ms = busy_ms / profiled
+        prof[name] = dict(idle=1 - step_ms * n_steps / (runs[name]["chain_s"] * 1e3))
+        log(f"sr_accel {name}: {step_ms:.4f} ms of device time a step (profiled above) x "
+            f"{n_steps} steps in {runs[name]['chain_s']:.3f} s: idle share {prof[name]['idle']:.2%}")
+
+    model.set_new_noise_schedule(dict(val, n_timestep=SRA_WINDOW_STEPS), "window cut")
+    exact = chain()
+    model.set_sliding_window(W, 0.0)
+    windowed = chain()
+    tau0_sweeps = model.last_sliding_sweeps
+    checks["window tau 0 vs exact"] = rel_err(
+        f"window W={W} at tau 0 ({tau0_sweeps} sweeps) vs the exact {SRA_WINDOW_STEPS}-step "
+        "chain", windowed, exact, 5e-2)
+    model.set_sliding_window(None)
+    del exact, ddim_k, windowed, model, runs["ddim"]["model"], net, cnet
+    torch.cuda.empty_cache()
+
+    checks_s = time.perf_counter() - t_phase - cli_s
+
+    # ------------------------------------------------ ddpm_sample_parallel, sr_sr3_16_128
+    t_parallel = time.perf_counter()
+    opt = dict_to_nonedict(load_json(SR3_CONFIG))
+    sr3_size = int(opt["model"]["diffusion"]["image_size"])
+    # phase_sr3's triples (the same images again: its root, when it ran in this work directory)
+    sr3_item = LRHRDataset(write_lrhr_root(work, SR3_IMAGES, sr3_size, seed=30), "img",
+                           sr3_size // 8, sr3_size, split="val", need_LR=False)[0]
+    sr3 = DiffusionModel(opt, device=dev, seed=0)
+    sr3.set_new_noise_schedule(dict(opt["model"]["beta_schedule"]["val"],
+                                    n_timestep=SR3_PARALLEL_STEPS), "cut")
+    sr3.feed_data({"input": sr3_item["SR"][None]})
+    sr3.sample_generator.manual_seed(0)
+    sr3_exact = sr3.test()
+    sr3.sample_generator.manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        unet = sr3.nets.denoise_fn.eval()  # as test() serves it: eval mode, no dropout
+        parallel = ddpm_sample_parallel(sr3.process, functools.partial(apply_unet, unet),
+                                        sr3.current_sched, sr3.data["input"],
+                                        num_sweeps=SR3_PARALLEL_STEPS,
+                                        generator=sr3.sample_generator)
+    torch.cuda.synchronize()
+    parallel_s = time.perf_counter() - t0
+    parallel_launches = read_launches()
+    want = dict(GN_ATTN_ONLY, group_norm_swish=SR3_GN_FWD * SR3_PARALLEL_STEPS, attention=0,
+                attention_wide=SR3_ATTN_FWD * SR3_PARALLEL_STEPS)
+    if parallel_launches != want:
+        raise AssertionError(f"sr_accel ddpm_sample_parallel: launches {parallel_launches}, "
+                             f"expected {want}")
+    checks["parallel vs exact"] = check_close(
+        f"sr3 ddpm_sample_parallel, {SR3_PARALLEL_STEPS} sweeps of a batch-{SR3_PARALLEL_STEPS} "
+        f"forward, vs the exact {SR3_PARALLEL_STEPS}-step chain", parallel, sr3_exact)
+    log(f"sr3 ddpm_sample_parallel ({SR3_PARALLEL_STEPS} steps, batch 1, {sr3_size}²): "
+        f"{parallel_s:.3f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches {parallel_launches}")
+    del sr3, sr3_exact, parallel
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ the table
+    exact_runs = {"exact": sr512["chain"], "exact_fused": sr512["fused_chain"]}
+    passes = {"ddim": (S, 0), "ddim_fused": (S, 0), "deepcache": split(T),
+              "ddim_deepcache": split(S), "window": (runs["window"]["sweeps"], 0)}
+    noise_gib = T * 3 * size * size * 4 / 2**30
+    log(f"sr_accel: the window's frozen noise is {SRA_WINDOW_STEPS} x 1 x {size}² x 3 float32 "
+        f"here; at the full {T} steps it would be {noise_gib:.2f} GiB a sample")
+    def exact_s(name):
+        """The exact unfused chain's seconds over the run's schedule (the
+        window's is cut), at the 2000-step chain's rate."""
+        steps = SRA_WINDOW_STEPS if name == "window" else T
+        return sr512["chain"]["chain_s"] * steps / T
+
+    log(f"sr_accel: the five infer.py runs took {cli_s:.1f} s (each builds and seeds the "
+        f"model), the checks and profiles {checks_s:.1f} s, the sr3 parallel part "
+        f"{time.perf_counter() - t_parallel:.1f} s")
+    for name, r in list(exact_runs.items()) + list(runs.items()):
+        p = prof.get(name) or r
+        log(f"sr_accel {name}: {r['chain_s']:.3f} s a chain"
+            + (f" (passes full/shallow {passes[name][0]}/{passes[name][1]})" if name in passes
+               else f" ({r['steps']} steps)")
+            + (f", {r['sweeps']} sweeps of batch {W}" if name == "window" else "")
+            + f", peak {r['peak'] / 2**30:.2f} GiB ({r['peak']} bytes), idle share "
+            + ("not measured" if p.get("idle") is None else f"{p['idle']:.2%}")
+            + (f", {exact_s(name) / r['chain_s']:.2f}x the exact unfused chain's speed over "
+               f"the same schedule ({exact_s(name):.3f} s)" if name not in exact_runs else ""))
+    secs = time.perf_counter() - t_phase
+    log(f"sr_accel phase: {secs:.1f} s")
+    counted = [r["launches"] for r in runs.values()] + [seen_full, seen_shallow]
+    return dict(launches={k: sum(c[k] for c in counted)
+                          for k in ("group_norm_swish_bf16", "attention_bf16", "conv_gn_bf16")},
+                parallel_launches=parallel_launches, checks=checks, seconds=secs,
+                tau0_sweeps=tau0_sweeps,
+                chains={k: dict(chain_s=r["chain_s"], peak=r["peak"], passes=passes[k],
+                                idle=prof[k]["idle"], sweeps=r.get("sweeps"))
+                        for k, r in runs.items()})
 
 
 def main() -> int:
@@ -3024,6 +3422,7 @@ def main() -> int:
         window = phase_sliding_window(dev, tref["joint"])
         sr3 = phase_sr3(dev, work)
         sr512 = phase_sr3_512(dev, work)
+        sra = phase_sr_accelerators(dev, work, sr512)
     wide_shape = (BATCH, 16, 256)  # the mid block of the inner-32 path
     narrow_shape = (BATCH, 16, 64)  # the mid block of the inner-8 path
 
@@ -3034,7 +3433,8 @@ def main() -> int:
              launches=launches["group_norm_swish"] + train["launches"]["group_norm_swish"]
              + loop["launches"]["group_norm_swish"] + tp["launches"]["group_norm_swish"]
              + tref["launches"]["group_norm_swish"] + dcache["launches"]["group_norm_swish"]
-             + window["launches"]["group_norm_swish"] + sr3["launches"]["group_norm_swish"],
+             + window["launches"]["group_norm_swish"] + sr3["launches"]["group_norm_swish"]
+             + sra["parallel_launches"]["group_norm_swish"],
              max_abs_err=max(gn_err, sr3["gn_err"]), ms=gn["ms"],
              plain_ms=gn["plain_ms"], bound_ms=gn["bound_ms"], bound_by="bytes",
              library_ms=gn["library_ms"], device_ms=gn["device_ms"],
@@ -3059,7 +3459,7 @@ def main() -> int:
              source="diffsplitting_tpu_torch/csrc/attention_wide.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
              launches=wide[0]["attention_wide"] + wide[1]["attention_wide"]
-             + sr3["launches"]["attention_wide"],
+             + sr3["launches"]["attention_wide"] + sra["parallel_launches"]["attention_wide"],
              max_abs_err=any_d_err["wide"], at="B=%d N=%d D=%d" % wide_shape,
              **{k: any_d[wide_shape][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                   "library_ms", "device_ms")},
@@ -3089,7 +3489,8 @@ def main() -> int:
         dict(name="group_norm_swish_bf16", route="cuda",
              source="diffsplitting_tpu_torch/csrc/groupnorm_swish.cu",
              replaces="diffsplitting_tpu/experimental/groupnorm_pallas.py:21,58",
-             launches=sr512["launches"]["group_norm_swish_bf16"],
+             launches=sr512["launches"]["group_norm_swish_bf16"]
+             + sra["launches"]["group_norm_swish_bf16"],
              max_abs_err=sr512["gn_worst"]["kernel"],
              plain_max_abs_err=sr512["gn_worst"]["plain"],
              **{k: sr512["gn"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
@@ -3099,7 +3500,7 @@ def main() -> int:
              source="diffsplitting_tpu_torch/csrc/attention_bf16.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
              design=ATTN_BF16_DESIGN, registers=attn_bf16_regs,
-             launches=sr512["launches"]["attention_bf16"],
+             launches=sr512["launches"]["attention_bf16"] + sra["launches"]["attention_bf16"],
              max_abs_err=sr512["attn_worst"]["kernel"],
              plain_max_abs_err=sr512["attn_worst"]["plain"], at="B=1 N=1024 D=1024",
              **{k: sr512["attn"][(1, 1024, 1024)][k] for k in (
@@ -3116,7 +3517,8 @@ def main() -> int:
                     "warpgroup (setmaxnreg 40 / 232); two consumer warpgroups, each with its own "
                     "halo window (cp.async, activated in place) and taking turns to issue",
              registers=conv_bf16_regs,
-             launches=sr512["launches"]["conv_gn_bf16"], max_abs_err=sr512["conv_worst"],
+             launches=sr512["launches"]["conv_gn_bf16"] + sra["launches"]["conv_gn_bf16"],
+             max_abs_err=sr512["conv_worst"],
              **{k: sr512["conv"][k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
                                               "bound_ms", "bound_by")},
              by_site={k: {f: r[f] for f in ("calls", "device_ms", "plain_ms", "library_ms",
@@ -3140,8 +3542,10 @@ def main() -> int:
         "replay; conv_gn times are per fused UNet forward "
         "(31 calls at batch 8) and its launches are the fused slice's and the DeepCache "
         "phase's fused exact chain's; each kernel's launches also count the SR3 phase's "
-        "(infer.py's 2000-step chains unfused and fused, DDPM's chain, sample.py's, one train "
-        "step), attention_wide's its 6 a forward at D = 512, and group_norm_swish's "
+        "(infer.py's 2000-step chains unfused and fused, DDPM's chain, sample.py's two, one train "
+        "step) and, for group_norm_swish and attention_wide, the accelerator phase's "
+        "ddpm_sample_parallel run, attention_wide's its 6 a forward at D = 512, and "
+        "group_norm_swish's "
         "sr3_forward_b1 holds its times a forward of sr_sr3_16_128 at batch 1 (55 calls), "
         "by_shape and sr3_by_shape each shape's route, device time, library device time and "
         "bound (ms a call); "
@@ -3149,7 +3553,9 @@ def main() -> int:
         "device_ms and library_device_ms by CUDA-graph replay; plain and library "
         "(F.silu(F.group_norm) in bf16) through a host loop; by_shape per call, with its route) "
         "and its launches are that phase's infer.py chain and its two "
-        "train steps (remat on and off); attention_bf16 times are at its mid block (B=1, "
+        "train steps (remat on and off) plus the accelerator phase's infer.py runs (DDIM unfused "
+        "and fused, DeepCache, DDIM x DeepCache, the window) and its full and shallow pass; "
+        "attention_bf16 times are at its mid block (B=1, "
         "N=1024, D=1024; plain_ms and library_ms (SDPA in bf16) by CUDA-graph replay), its "
         "launches likewise; each bf16 max_abs_err is against an f32 reference from the same "
         "bf16 inputs, beside the plain bf16 version's (plain_max_abs_err); conv_gn_bf16 times "
@@ -3157,7 +3563,7 @@ def main() -> int:
         "device_ms, plain_ms and library_ms (cuDNN F.conv2d in bf16 on the activated input, + "
         "the residual or its 1x1 skip conv) by CUDA-graph replay; by_site per call), its "
         "max_abs_err against its plain version (bf16 operands, f32 sums, y rounded to bf16), "
-        "its launches the phase's fused infer.py chain's (11 a forward)")
+        "its launches the phase's fused infer.py chain's (11 a forward) and the fused DDIM run's")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

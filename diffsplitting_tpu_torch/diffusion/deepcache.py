@@ -1,16 +1,23 @@
-"""Deep-feature-cached InDI and joint-InDI reverse chains (DeepCache).
+"""Deep-feature-cached reverse chains (DeepCache): InDI, joint-InDI, and the
+DDPM / SR3 ancestral and respaced DDIM chains.
 
-Counterpart: the InDI part of diffsplitting_tpu/diffusion/deepcache.py
+Counterpart: diffsplitting_tpu/diffusion/deepcache.py
 (`make_cached_denoisers`, `_refresh_flags`, `cached_indi_inference`,
-`cached_joint_indi_inference`). The chain carries, besides x, the UNet's deep
+`cached_joint_indi_inference`, `cached_p_sample_loop`,
+`cached_ddim_sample_loop`). The chain carries, besides x, the UNet's deep
 feature from `models.deepcache.CachedUNet`: every `interval`-th step runs the
 full UNet and refreshes it, the steps in between run only the shallow levels.
+The first step must refresh: there is no cache before it (JAX would start
+from zeros).
 
-The noise is drawn exactly as `InDIProcess.inference` draws it (the initial
-draw, then one draw a step, from the generator or from N + 1 injected
-tensors), and each step does its arithmetic, so at interval 1 the cached chain
-is the exact chain for the same generator state, bit for bit. The DDPM / SR3
-cached loops are not ported.
+The noise is drawn exactly as the exact chain draws it (the initial draw,
+then one draw a step, from the generator or from injected tensors), and each
+step does its arithmetic: the DDPM / SR3 loops run the exact chain's own loop
+(`ddpm.reverse_chain`, `ddim.ddim_sample_loop`) with a denoiser that keeps
+the cache between its calls. So at interval 1 a cached chain is the exact
+chain for the same generator state, bit for bit. JAX's `_chunked` forms
+split one `lax.scan` only to bound the TPU compiler's program and have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import numpy as np
 import torch
 
 from ..models.deepcache import CachedUNet
+from .ddim import ddim_sample_loop, ddim_timesteps
+from .ddpm import reverse_chain
 from .indi import InDIProcess, noise_source
 from .joint_indi import JointInDIProcess
 
@@ -31,7 +40,8 @@ ShallowFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
 
 def make_cached_denoisers(net, cache_depth: int) -> Tuple[FullFn, ShallowFn]:
     """(apply_full, apply_shallow) over a port UNet: apply_full(x, t) ->
-    (x̂0, deep); apply_shallow(x, t, deep) -> (x̂0, deep)."""
+    (out, deep); apply_shallow(x, t, deep) -> (out, deep), out the UNet's
+    output (x̂0 for InDI, ε̂ for DDPM / SR3)."""
     cnet = CachedUNet(net, cache_depth)
 
     def apply_full(x, t):
@@ -53,6 +63,35 @@ def _refresh_flags(N: int, interval: int, refresh_override=None) -> np.ndarray:
     return refresh
 
 
+def _checked_flags(N: int, interval: int, refresh_override=None) -> np.ndarray:
+    refresh = _refresh_flags(N, interval, refresh_override)
+    if refresh.shape != (N,) or not refresh[0]:
+        raise ValueError(f"need {N} refresh flags starting with a refresh, got {refresh}")
+    return refresh
+
+
+class _CachingDenoiser:
+    """A (net_in, conditioning) -> ε̂ denoiser for a chain that calls it once
+    a step, in order: the full UNet where the step's flag is set (keeping its
+    deep feature), the shallow levels on the kept one elsewhere."""
+
+    def __init__(self, apply_full: FullFn, apply_shallow: ShallowFn, refresh: np.ndarray):
+        self.apply_full, self.apply_shallow = apply_full, apply_shallow
+        self.refresh, self.step, self.deep = refresh, 0, None
+
+    def __call__(self, net_in, level):
+        if self.refresh[self.step]:
+            eps, self.deep = self.apply_full(net_in, level)
+        else:
+            eps, self.deep = self.apply_shallow(net_in, level, self.deep)
+        self.step += 1
+        return eps
+
+    def check_done(self):
+        if self.step != len(self.refresh):
+            raise AssertionError(f"the chain made {self.step} of {len(self.refresh)} steps")
+
+
 @torch.no_grad()
 def cached_indi_inference(process: InDIProcess, x_in, apply_full: FullFn,
                           apply_shallow: ShallowFn, interval: int = 1,
@@ -63,9 +102,7 @@ def cached_indi_inference(process: InDIProcess, x_in, apply_full: FullFn,
     between refreshes; returns (B, H, W, C·out_channel). The first step must
     refresh: there is no cache before it (JAX would start from zeros)."""
     N = int(num_timesteps if num_timesteps is not None else process.num_timesteps)
-    refresh = _refresh_flags(N, interval, refresh_override)
-    if refresh.shape != (N,) or not refresh[0]:
-        raise ValueError(f"need {N} refresh flags starting with a refresh, got {refresh}")
+    refresh = _checked_flags(N, interval, refresh_override)
     x_in = process.tile_input(x_in)
     draw = noise_source(x_in, N, generator, noise)
     x, delta, cur_ts = process.start(x_in, draw(0), t_float_start, N)
@@ -97,3 +134,41 @@ def cached_joint_indi_inference(joint_process: JointInDIProcess, x_in, ch1_appli
                                 num_timesteps=num_timesteps, t_float_start=1 - t_float_start,
                                 generator=generator, noise=n2)
     return torch.cat([ch1, ch2], dim=-1)
+
+
+@torch.no_grad()
+def cached_p_sample_loop(process, sched, x_in, apply_full: FullFn, apply_shallow: ShallowFn,
+                         interval: int = 1, clip_denoised: bool = True, refresh_override=None,
+                         generator: Optional[torch.Generator] = None,
+                         noise: Optional[Sequence[torch.Tensor]] = None,
+                         device=None) -> torch.Tensor:
+    """The T-step reverse chain of a DDPM or SR3 `process` (`p_sample_loop`,
+    continuous=False) with the deep feature cached between refreshes. x_in:
+    the NHWC condition when the process is conditional, else the shape
+    (B, H, W, C) of the sample (on `device`). The appliers take the net's
+    input (the condition and x on channels) and conditioning, and return
+    (ε̂, deep). Returns the final image."""
+    fn = _CachingDenoiser(apply_full, apply_shallow,
+                          _checked_flags(sched.num_timesteps, interval, refresh_override))
+    out = reverse_chain(process, fn, sched, x_in, clip_denoised, generator=generator,
+                        noise=noise, device=device)
+    fn.check_done()
+    return out
+
+
+@torch.no_grad()
+def cached_ddim_sample_loop(process, sched, x_in, apply_full: FullFn, apply_shallow: ShallowFn,
+                            steps: int, eta: float = 0.0, interval: int = 1,
+                            clip_denoised: bool = True, refresh_override=None,
+                            generator: Optional[torch.Generator] = None,
+                            noise: Optional[Sequence[torch.Tensor]] = None,
+                            device=None) -> torch.Tensor:
+    """The respaced DDIM chain (`ddim.ddim_sample_loop`) with the deep
+    feature cached between refreshes, `interval` counted over its S steps.
+    Same x_in and appliers as `cached_p_sample_loop`."""
+    S = len(ddim_timesteps(sched.num_timesteps, steps))
+    fn = _CachingDenoiser(apply_full, apply_shallow, _checked_flags(S, interval, refresh_override))
+    out = ddim_sample_loop(process, fn, sched, x_in, steps, eta, clip_denoised,
+                           generator=generator, noise=noise, device=device)
+    fn.check_done()
+    return out

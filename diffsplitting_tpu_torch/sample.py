@@ -10,10 +10,12 @@ log every `print_freq`, every `val_freq` switch to the val schedule and
 write `datasets.val.data_len` samples as `<step>_<idx>_sr.png` under
 `path.results/<epoch>`, save a checkpoint pair every `save_checkpoint_freq`.
 Val: `datasets.val.data_len` samples, each written as its trajectory grid
-`<step>_<idx>_sample_process.png` and its last frame `_sample.png`.
+`<step>_<idx>_sample_process.png` and its last frame `_sample.png`; with a
+serving accelerator on, the final frame `_sample.png` only.
 
-The device, `-gpu`, the refused accelerator flags and the compute dtype
-are as in `infer.py`.
+The device, `-gpu`, the accelerator flags (`--ddim`, `--deepcache`,
+`--sliding_window`; `--w8a8` raises) and the compute dtype are as in
+`infer.py`.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from . import config as Logger
 from . import data as Data
 from .device import resolve_device
-from .infer import add_accelerator_flags, hwc, refuse_accelerators, run_logging
+from .infer import add_accelerator_flags, apply_accelerator_flags, hwc, refuse_w8a8, run_logging
 from .serving import check_compute_dtype
 from .train import create_model
 from .utils.metrics import save_img, tensor2img
@@ -50,7 +52,7 @@ def main(argv: Optional[list] = None) -> dict:
     parser.add_argument("--device", default=None, help="default: cuda")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
-    refuse_accelerators(args)
+    refuse_w8a8(args)
     check_compute_dtype(Logger.load_json(args.config)["model"])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -73,6 +75,7 @@ def main(argv: Optional[list] = None) -> dict:
 
         diffusion = create_model(opt, device=device)
         logger.info("Initial Model Finished")
+        accel = apply_accelerator_flags(diffusion, args)
 
         current_step = diffusion.begin_step
         current_epoch = diffusion.begin_epoch
@@ -130,14 +133,19 @@ def main(argv: Optional[list] = None) -> dict:
             sample_imgs = []
             for idx in range(1, sample_sum + 1):
                 t0 = time.perf_counter()
-                diffusion.sample(continuous=True)
+                diffusion.sample(continuous=not accel)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 seconds.append(time.perf_counter() - t0)
-                frames = diffusion.get_current_visuals(sample=True)["SAM"]  # (n_frames, B, ...)
-                grid = tensor2img(frames.reshape((-1,) + frames.shape[2:]))
-                save_img(hwc(grid), f"{result_path}/{current_step}_{idx}_sample_process.png")
-                final = tensor2img(frames[-1])
+                sam = diffusion.get_current_visuals(sample=True)["SAM"]
+                if accel:
+                    final = tensor2img(sam)
+                else:
+                    frames = sam  # (n_frames, B, H, W, C)
+                    grid = tensor2img(frames.reshape((-1,) + frames.shape[2:]))
+                    save_img(hwc(grid),
+                             f"{result_path}/{current_step}_{idx}_sample_process.png")
+                    final = tensor2img(frames[-1])
                 save_img(hwc(final), f"{result_path}/{current_step}_{idx}_sample.png")
                 sample_imgs.append(final)
             if wandb_logger:

@@ -14,9 +14,11 @@ The denoisers go through `models.apply_unet`: the UNet's own forward, or the
 stat-carried fused forward when `fused` is True (None: as DSP_FUSED says,
 the switch the JAX package reads).
 
-Two opt-in serving accelerators, as the JAX `DiffusionModel` offers them
-(`set_deepcache`, `set_sliding_window`, the config keys `model.deepcache
-{interval, depth}` and `model.sliding_window {window, tau}`):
+Two opt-in serving accelerators for InDI, as the JAX `DiffusionModel` offers
+them (`AcceleratorSwitches`: `set_deepcache`, `set_sliding_window`, the config
+keys `model.deepcache {interval, depth}` and `model.sliding_window {window,
+tau}`; `model.ddim` is read and, as in JAX, ignored: InDI respaces through
+`num_timesteps`):
   * DeepCache (diffusion/deepcache.py): the full UNet every `interval`-th
     step, the shallow levels in between; 'auto' picks the interval from the
     chain length. The cached walk runs the UNet's unfused modules whatever
@@ -159,30 +161,27 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 p.zero_()
 
 
-class SplittingModel:
-    """Builds the nets from a config (random weights from `seed` until a state
-    dict is loaded) and serves `test`. `fused` picks the UNet forward (see
-    `models.apply_unet`); a call's own `fused` overrides it. `nets`, when
-    given, is a nets module already on the device that is served as it is
-    (the trainer's, or its EMA copy)."""
+class AcceleratorSwitches:
+    """The opt-in serving accelerators of a model, switched as JAX's
+    `DiffusionModel` switches them: `set_deepcache(interval, depth)`,
+    `set_sliding_window(window, tau)`, `set_ddim(steps, eta)` (None or 0
+    restores the exact chain), or the config keys `model.deepcache {interval,
+    depth}`, `model.sliding_window {window, tau}` and `model.ddim {steps,
+    eta}`. DDIM respaces only a DDPM / SR3 chain (InDI takes its step count
+    from `num_timesteps`) and composes with DeepCache; the sliding window
+    excludes both. A trajectory request (`continuous`) serves the exact
+    chain, with one warning for each accelerator that is on.
+    `last_sliding_sweeps` holds the last windowed chain's sweeps."""
 
-    def __init__(self, opt: Mapping, device=None, seed: int = 0,
-                 fused: Optional[bool] = None, nets: Optional[nn.Module] = None):
-        self.device = resolve_device(device)
-        self.fused = fused
-        self.which = opt["model"]["which_model_G"]
-        self.process, built = define_generator(opt)
-        if nets is None:
-            init_weights(built, torch.Generator().manual_seed(seed))
-            nets = built.to(self.device).eval()
-        self.nets = nets
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.t_float_start = 0.5 if self.which == "joint_indi" else 1.0
-        dc_opt = opt["model"].get("deepcache") or {}
+    def __init__(self, model_opt: Mapping):
+        dc_opt = model_opt.get("deepcache") or {}
         self.set_deepcache(dc_opt.get("interval"), dc_opt.get("depth") or 1)
-        sw_opt = opt["model"].get("sliding_window") or {}
+        sw_opt = model_opt.get("sliding_window") or {}
         tau = sw_opt.get("tau")
         self.set_sliding_window(sw_opt.get("window"), 0.1 if tau is None else tau)
+        dd_opt = model_opt.get("ddim") or {}
+        eta = dd_opt.get("eta")
+        self.set_ddim(dd_opt.get("steps"), 0.0 if eta is None else eta)
         self.last_sliding_sweeps = None
         self._warned_continuous = set()
 
@@ -201,26 +200,57 @@ class SplittingModel:
         restores the exact chain."""
         self.sliding_window = (int(window), float(tau)) if window else None
 
+    def set_ddim(self, steps, eta: float = 0.0):
+        """Respaced DDIM serving of a DDPM / SR3 chain in `steps` steps at
+        `eta`; None or 0 restores the exact chain."""
+        self.ddim = (int(steps), float(eta)) if steps else None
+
     def dc_interval(self, T: int) -> int:
         """The refresh interval of a T-step chain: 'auto' is
         clamp(round(0.4·T), 1, 5), as JAX's `_dc_interval` resolves it."""
         iv = self.deepcache[0]
         return max(1, min(5, round(0.4 * T))) if iv == "auto" else iv
 
-    def _accelerator(self, continuous: bool) -> Optional[str]:
-        """'deepcache', 'sliding_window' or None (the exact chain) for a call."""
-        on = [name for name in ("deepcache", "sliding_window") if getattr(self, name)]
+    def accelerators(self, continuous: bool, respaces: bool) -> frozenset:
+        """The accelerators a call runs: a subset of {'ddim', 'deepcache',
+        'sliding_window'}, empty for the exact chain; 'ddim' only where the
+        chain `respaces`."""
+        on = [name for name in ("ddim", "deepcache", "sliding_window")
+              if getattr(self, name) and (respaces or name != "ddim")]
         if on and continuous:
             for name in set(on) - self._warned_continuous:
                 logger.warning("%s ignores continuous=True sampling; running the exact chain "
                                "for trajectory requests", name)
                 self._warned_continuous.add(name)
-            return None
-        if len(on) > 1:
-            raise ValueError("model.sliding_window is mutually exclusive with model.deepcache "
-                             "(different chain semantics): unset one (set_deepcache(None) / "
-                             "set_sliding_window(None))")
-        return on[0] if on else None
+            return frozenset()
+        if "sliding_window" in on and len(on) > 1:
+            raise ValueError("model.sliding_window is mutually exclusive with model.deepcache / "
+                             "model.ddim (different chain semantics): unset all but one "
+                             "(set_deepcache(None) / set_sliding_window(None) / set_ddim(None)); "
+                             "DeepCache and DDIM do compose")
+        return frozenset(on)
+
+
+class SplittingModel(AcceleratorSwitches):
+    """Builds the nets from a config (random weights from `seed` until a state
+    dict is loaded) and serves `test`. `fused` picks the UNet forward (see
+    `models.apply_unet`); a call's own `fused` overrides it. `nets`, when
+    given, is a nets module already on the device that is served as it is
+    (the trainer's, or its EMA copy)."""
+
+    def __init__(self, opt: Mapping, device=None, seed: int = 0,
+                 fused: Optional[bool] = None, nets: Optional[nn.Module] = None):
+        self.device = resolve_device(device)
+        self.fused = fused
+        self.which = opt["model"]["which_model_G"]
+        self.process, built = define_generator(opt)
+        if nets is None:
+            init_weights(built, torch.Generator().manual_seed(seed))
+            nets = built.to(self.device).eval()
+        self.nets = nets
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.t_float_start = 0.5 if self.which == "joint_indi" else 1.0
+        super().__init__(opt["model"])
 
     def unets(self):
         if self.which == "joint_indi":
@@ -246,7 +276,8 @@ class SplittingModel:
         x = torch.as_tensor(x_nhwc, dtype=torch.float32).to(self.device)
         t0 = self.t_float_start if t_float_start is None else t_float_start
         n = self.process.val_num_timesteps if num_timesteps is None else num_timesteps
-        accelerator = self._accelerator(continuous)
+        on = self.accelerators(continuous, respaces=False)
+        accelerator = next(iter(on)) if on else None
         joint = self.which == "joint_indi"
         was_training = self.nets.training
         self.nets.eval()

@@ -35,14 +35,23 @@ weights are read.
 Serving (`test`, `inference`, `get_current_visuals`): the reverse process on
 the fed input, with the trajectory when `continuous`; visuals are NHWC
 numpy, as JAX gives them. indi and joint_indi serve through
-`SplittingModel.test`; DeepCache and the sliding window switch as in JAX:
-the config keys `model.deepcache` and `model.sliding_window`, or
-`set_deepcache` / `set_sliding_window`; the EMA nets, when on, serve
-through them too. Conditional ddpm and sr3 serve `test` through their
+`SplittingModel.test`. Conditional ddpm and sr3 serve `test` through their
 process's `p_sample_loop` over the current phase's schedule, unconditional
 ones `sample`; the nets serve in eval mode (no dropout), through
 `models.apply_unet` (DSP_FUSED=1 or `fused=True`: the fused walk), with
 noise from a generator of their own seeded by `seed`.
+
+The serving accelerators switch as in JAX (`serving.AcceleratorSwitches`:
+the config keys `model.deepcache`, `model.sliding_window`, `model.ddim`, or
+`set_deepcache` / `set_sliding_window` / `set_ddim`), and the EMA nets, when
+on, serve through them too. For ddpm / sr3 (`_sr_chain`): respaced DDIM
+(diffusion/ddim.py), DeepCache over the T-step chain or over DDIM's S steps
+('auto' resolved over that length), the sliding window
+(diffusion/parallel_sampling.py; `last_sliding_sweeps`). DDIM and the window
+go through `models.apply_unet`, so `fused` and DSP_FUSED apply; the cached
+walks run the UNet's own unfused modules, as JAX's `_cached_apply` does.
+DDIM is ignored for indi / joint_indi, which respace through
+`num_timesteps`.
 
 Compute dtype and remat (`model.compute_dtype`, `model.remat`,
 `model.remat_min_res`): the UNet computes in bf16 where the config says so,
@@ -56,9 +65,8 @@ call (`_inference_nets`, JAX's `_inference_params`).
 On one device, `train.optimizer.zero` and `model.param_sharding` (JAX's
 ZeRO-1 Adam moments and FSDP parameters over the 'data' mesh axis) are the
 no-ops they are on a one-device mesh and are not read; sharding across cards
-is ROADMAP item 1h. Not ported: for ddpm / sr3 the accelerated samplers
-(DDIM, DeepCache, the sliding window, W8A8: ROADMAP item 1f), which raise
-NotImplementedError.
+is ROADMAP item 1h. Not ported: W8A8 quantized serving (`model.quant`,
+ROADMAP item 1g), which raises NotImplementedError for every family.
 """
 
 from __future__ import annotations
@@ -75,10 +83,14 @@ import torch
 
 from ..device import resolve_device
 from ..diffusion import JointInDIProcess, build_ddpm_schedule
+from ..diffusion.ddim import ddim_sample_loop, ddim_timesteps
+from ..diffusion.deepcache import (cached_ddim_sample_loop, cached_p_sample_loop,
+                                   make_cached_denoisers)
+from ..diffusion.parallel_sampling import ddpm_sample_sliding_window
 from ..models import apply_unet
 from ..models.blocks import set_dropout_generator
 from ..models.precision import cast_unet_params_for_inference, precast_enabled
-from ..serving import SplittingModel, define_generator, init_weights
+from ..serving import AcceleratorSwitches, SplittingModel, define_generator, init_weights
 from ..utils.weights import load_reference_checkpoint
 from .checkpoints import load_trainer_state, resolve_checkpoint, save_checkpoint
 from .clipping import global_norm, make_clip
@@ -87,15 +99,11 @@ from .optim import make_lr, optax_adam
 logger = logging.getLogger("base")
 
 SR_FAMILIES = ("ddpm", "sr3")
-# the config key of each serving accelerator JAX offers ddpm / sr3 -> the
-# field that switches it on
-ACCELERATOR_KEYS = {"deepcache": "interval", "sliding_window": "window", "ddim": "steps",
-                    "quant": "bits"}
 
 
-def not_ported_1f(what: str, which: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} serving of {which} is not ported (ROADMAP item 1f); "
-                               "the port serves the exact chain")
+def not_ported_1g(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what}: W8A8 quantized serving is not ported (ROADMAP item "
+                               "1g); the port serves the float32 / bfloat16 forward")
 
 
 def create_model(opt: Mapping, **kwargs) -> "DiffusionModel":
@@ -118,10 +126,8 @@ class DiffusionModel:
         self.which = model_opt["which_model_G"]
         if self.which not in ("indi", "joint_indi") + SR_FAMILIES:
             raise NotImplementedError(f"which_model_G={self.which!r} is not recognized")
-        if self.which in SR_FAMILIES:
-            for key, field in ACCELERATOR_KEYS.items():
-                if (model_opt.get(key) or {}).get(field):
-                    raise not_ported_1f(f"model.{key}", self.which)
+        if (model_opt.get("quant") or {}).get("bits"):
+            raise not_ported_1g("model.quant")
         if model_opt.get("finetune_norm"):
             # the JAX package trains only the parameters whose path holds
             # 'transformer' and raises when none does; no UNet has one
@@ -172,8 +178,10 @@ class DiffusionModel:
         if self.which in SR_FAMILIES:
             self._server = None
             self.sample_generator = torch.Generator(device=self.device).manual_seed(seed)
+            self.switches = AcceleratorSwitches(model_opt)
         else:
             self._server = SplittingModel(opt, self.device, seed, nets=self.nets)
+            self.switches = self._server
         self.load_network()
 
     def set_new_noise_schedule(self, schedule_opt: Mapping, schedule_phase: str = "train"):
@@ -273,34 +281,63 @@ class DiffusionModel:
         return nets
 
     def set_deepcache(self, interval, depth: int = 1):
-        """DeepCache serving for `test` (`SplittingModel.set_deepcache`)."""
-        if self._server is None:
-            raise not_ported_1f("DeepCache", self.which)
-        self._server.set_deepcache(interval, depth)
+        """DeepCache serving (`AcceleratorSwitches.set_deepcache`)."""
+        self.switches.set_deepcache(interval, depth)
 
     def set_sliding_window(self, window, tau: float = 0.1):
-        """Sliding-window serving for `test` (`SplittingModel.set_sliding_window`)."""
-        if self._server is None:
-            raise not_ported_1f("Sliding-window", self.which)
-        self._server.set_sliding_window(window, tau)
+        """Sliding-window serving (`AcceleratorSwitches.set_sliding_window`)."""
+        self.switches.set_sliding_window(window, tau)
+
+    def set_ddim(self, steps, eta: float = 0.0):
+        """Respaced DDIM serving of ddpm / sr3 (`AcceleratorSwitches.set_ddim`);
+        indi / joint_indi ignore it."""
+        self.switches.set_ddim(steps, eta)
+
+    deepcache = property(lambda self: self.switches.deepcache)
+    sliding_window = property(lambda self: self.switches.sliding_window)
+    ddim = property(lambda self: self.switches.ddim)
+    last_sliding_sweeps = property(lambda self: self.switches.last_sliding_sweeps,
+                                   doc="The sweeps of the last sliding-window chain.")
 
     @contextlib.contextmanager
-    def _serving_fn(self, fused: Optional[bool] = None):
-        """The (x, t) denoiser of a ddpm / sr3 chain: the inference nets in
-        eval mode, under inference_mode, their mode restored after."""
+    def _serving_unet(self):
+        """The UNet of a ddpm / sr3 chain: the inference nets' in eval mode,
+        under inference_mode, their mode restored after."""
         nets = self._inference_nets()
         was_training = nets.training
         nets.eval()
         try:
             with torch.inference_mode():
-                yield functools.partial(apply_unet, nets.denoise_fn, fused=fused)
+                yield nets.denoise_fn
         finally:
             nets.train(was_training)
 
-    @property
-    def last_sliding_sweeps(self) -> Optional[int]:
-        """The sweeps of the last sliding-window `test`."""
-        return None if self._server is None else self._server.last_sliding_sweeps
+    def _sr_chain(self, x_in, continuous: bool, fused: Optional[bool]):
+        """The ddpm / sr3 reverse chain over the current phase's schedule, by
+        the accelerators switched on: x_in the condition, or the sample's
+        shape (unconditional)."""
+        sw = self.switches
+        on = sw.accelerators(continuous, respaces=True)
+        sched = self.current_sched
+        kw = dict(generator=self.sample_generator, device=self.device)
+        with self._serving_unet() as unet:
+            fn = functools.partial(apply_unet, unet, fused=fused)
+            if "sliding_window" in on:
+                img, sw.last_sliding_sweeps = ddpm_sample_sliding_window(
+                    self.process, fn, sched, x_in, *sw.sliding_window, **kw)
+                return img
+            if "deepcache" in on:
+                appliers = make_cached_denoisers(unet, sw.deepcache[1])
+                if "ddim" in on:
+                    steps, eta = sw.ddim
+                    interval = sw.dc_interval(len(ddim_timesteps(sched.num_timesteps, steps)))
+                    return cached_ddim_sample_loop(self.process, sched, x_in, *appliers, steps,
+                                                   eta, interval, **kw)
+                return cached_p_sample_loop(self.process, sched, x_in, *appliers,
+                                            sw.dc_interval(sched.num_timesteps), **kw)
+            if "ddim" in on:
+                return ddim_sample_loop(self.process, fn, sched, x_in, *sw.ddim, **kw)
+            return self.process.p_sample_loop(fn, sched, x_in, continuous=continuous, **kw)
 
     def test(self, continuous: bool = False, t_float_start: Optional[float] = None,
              fused: Optional[bool] = None):
@@ -308,17 +345,14 @@ class DiffusionModel:
         phase's T steps, from the EMA weights when the EMA is on; with
         `continuous` the trajectory (n_frames, B, H, W, C). indi / joint_indi
         through `SplittingModel.test`; conditional ddpm / sr3 through
-        `p_sample_loop`, over the phase's whole schedule."""
+        `_sr_chain`, over the phase's whole schedule."""
         if self.which in SR_FAMILIES:
             if t_float_start is not None:
                 raise ValueError(f"{self.which} has no t_float_start: its chain runs the "
                                  "phase's whole schedule")
             if not self.process.conditional:
                 raise ValueError(f"an unconditional {self.which} model serves through sample()")
-            with self._serving_fn(fused) as fn:
-                self.prediction = self.process.p_sample_loop(
-                    fn, self.current_sched, self.data["input"], continuous=continuous,
-                    generator=self.sample_generator)
+            self.prediction = self._sr_chain(self.data["input"], continuous, fused)
             return self.prediction
         self._server.nets = self._inference_nets()
         self.prediction = self._server.test(self.data["input"], t_float_start,
@@ -345,13 +379,13 @@ class DiffusionModel:
     def sample(self, batch_size: int = 1, continuous: bool = False,
                fused: Optional[bool] = None):
         """An unconditional ddpm / sr3 sample of `batch_size` images over the
-        current phase's schedule; with `continuous` the trajectory."""
+        current phase's schedule (`_sr_chain`); with `continuous` the
+        trajectory."""
         if self.which not in SR_FAMILIES or self.process.conditional:
             raise ValueError("sample() generates with an unconditional ddpm / sr3 model")
-        with self._serving_fn(fused) as fn:
-            self.prediction = self.process.sample(fn, self.current_sched, batch_size, continuous,
-                                                  generator=self.sample_generator,
-                                                  device=self.device)
+        p = self.process
+        self.prediction = self._sr_chain((batch_size, p.image_size, p.image_size, p.channels),
+                                         continuous, fused)
         return self.prediction
 
     def get_current_visuals(self, sample: bool = False) -> OrderedDict:

@@ -1,5 +1,5 @@
 """The port stands alone: it imports and runs (the fused forward, a train
-step, the DeepCache and sliding-window chains, an SR3 forward and chain, and
+step, the DeepCache and sliding-window chains, an SR3 forward, chain and DDIM chain, and
 a bf16 UNet with remat included) with jax and the JAX package blocked, its sources import neither, and its entry points refuse
 to run without CUDA unless the caller asks for the CPU."""
 
@@ -95,6 +95,11 @@ sched = build_ddpm_schedule({"schedule": "linear", "n_timestep": 2, "linear_star
 chain = SR3Process(16).p_sample_loop(sr3, sched, cond, continuous=True,
                                      generator=torch.Generator().manual_seed(0))
 assert chain.shape == (3, 1, 16, 16, 3) and torch.isfinite(chain).all()
+# respaced DDIM (diffusion/ddim.py): one step of the 2-step schedule
+from diffsplitting_tpu_torch.diffusion.ddim import ddim_sample_loop
+respaced = ddim_sample_loop(SR3Process(16), sr3, sched, cond, 1, 1.0,
+                            generator=torch.Generator().manual_seed(0))
+assert respaced.shape == (1, 16, 16, 3) and torch.isfinite(respaced).all()
 # bf16 and remat (models/precision.py): a remat backward at dropout 0.2, and
 # the precast copy's forward
 from diffsplitting_tpu_torch.models.precision import cast_unet_params_for_inference

@@ -184,12 +184,13 @@ def test_sample_val_phase_writes_what_jax_writes(lrhr_root, tmp_path, monkeypatc
         assert got[k].shape == want[k].shape, k
 
 
-@pytest.mark.parametrize("flag", [["--deepcache", "auto"], ["--sliding_window", "4"],
-                                  ["--ddim", "10"], ["--w8a8"], ["--w8a8_sites", "all"]])
+@pytest.mark.parametrize("flag", [["--w8a8"], ["--w8a8_sites", "all"]])
 def test_cli_accelerator_flags_are_refused(flag, lrhr_root, tmp_path):
+    """W8A8 (ROADMAP item 1g) is refused; --ddim, --deepcache and
+    --sliding_window serve (tests/test_torch_port_sr_accelerators.py)."""
     cfg = sr_config(tmp_path, lrhr_root / "root", "sr3", True)
     for cli in (port_infer, port_sample):
-        with pytest.raises(NotImplementedError, match="item 1f"):
+        with pytest.raises(NotImplementedError, match="item 1g"):
             cli.main(["-c", cfg, "-p", "val", "-rootdir", str(tmp_path / "exp"), "--device",
                       "cpu"] + flag)
     assert not (tmp_path / "exp").exists()  # refused before any directory is made

@@ -140,8 +140,9 @@ def test_one_and_three_steps_match_jax(which):
 
 
 def test_unconditional_sample_and_refusals():
-    """sample() serves an unconditional model ('SAM' visuals); test() on it,
-    sample() on a conditional one and the accelerators of item 1f raise."""
+    """sample() serves an unconditional model ('SAM' visuals); test() on it
+    and sample() on a conditional one raise; the accelerators of item 1f
+    switch on by setter and by config key and route `sample` / `test`."""
     opt = tiny_opt("sr3", conditional=False, in_ch=2, out_ch=2, channels=2)
     port = DiffusionModel(opt, device="cpu", seed=0)
     port.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"], "val")
@@ -159,10 +160,23 @@ def test_unconditional_sample_and_refusals():
         cond_sr3.inference(x, num_timesteps=3)
     with pytest.raises(ValueError, match="t_float_start"):
         cond_sr3.inference(x, t_float_start=0.5)
-    for call in (lambda: port.set_deepcache(2), lambda: port.set_sliding_window(4)):
-        with pytest.raises(NotImplementedError, match="item 1f"):
-            call()
+
+    def seeded_sample():
+        port.sample_generator.manual_seed(0)
+        return port.sample(batch_size=1)
+
+    exact = seeded_sample()
+    port.set_deepcache(2)  # shallow passes on the odd steps: another chain
+    assert not torch.equal(seeded_sample(), exact)
+    port.set_deepcache(None)
+    port.set_sliding_window(4, 0.0)  # τ = 0: the exact chain in 4 sweeps of 4 steps
+    np.testing.assert_allclose(seeded_sample().numpy(), exact.numpy(), rtol=1e-5, atol=1e-6)
+    assert port.last_sliding_sweeps == 4
+    port.set_sliding_window(None)
+    assert torch.equal(seeded_sample(), exact)
     cond = opt_for("ddpm")
     cond["model"]["ddim"] = {"steps": 10}
-    with pytest.raises(NotImplementedError, match="item 1f"):
-        DiffusionModel(cond, device="cpu")
+    ddim_model = DiffusionModel(cond, device="cpu")
+    assert ddim_model.ddim == (10, 0.0)
+    ddim_model.feed_data({"input": x})
+    assert ddim_model.test().shape == (1, 16, 16, 2)

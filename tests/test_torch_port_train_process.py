@@ -122,9 +122,8 @@ def test_indi_refuses_a_conditional_bridge():
     # not take is refused
     (lambda o: o["model"].update(compute_dtype="float16"), NotImplementedError,
      "compute_dtype"),
-    # sr3 trains since its port; the DDIM serving of ROADMAP item 1f is refused
-    (lambda o: o["model"].update(which_model_G="sr3", ddim={"steps": 10}), NotImplementedError,
-     "sr3"),
+    # W8A8 serving (ROADMAP item 1g) is refused for every family, indi too
+    (lambda o: o["model"].update(quant={"bits": 8}), NotImplementedError, "item 1g"),
 ])
 def test_trainer_refusals(edit, error, match):
     opt = tiny_opt("indi", in_ch=2, out_ch=2)
