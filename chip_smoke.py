@@ -108,6 +108,20 @@ chains (DDIM and a cut chain); and `ddpm_sample_parallel` on
 configs/sr_sr3_16_128.json at full width after T sweeps against the exact
 chain cut to 20 steps.
 
+Then W8A8 quantized serving (`phase_w8a8`): every int8 site of the Hagen
+joint UNets (batch 8) and of sr_sr3_64_512 (batch 1), default and 'all'
+sites, the card's int8 conv (im2col + torch._int_mm) int32 bit for bit
+against its plain version on the same operands, each 'all' site's W8A8 call
+timed beside cuDNN's conv; the Hagen slice with W8A8 (launches and 28 int8
+products a forward asserted, tiles/s, peak, calibration seconds, PSNR
+against the exact chain, DSP_FUSED=1 serving the W8A8 forward); infer.py's
+`--w8a8 --ddim 250,1`, `--w8a8_sites all --ddim 250,1` and `--w8a8 --ddim
+250,1 --deepcache 5,1` on sr_sr3_64_512 (launches, 34 int8 sites a forward,
+seconds, peak, idle share beside the unquantized DDIM chains, one forward's
+rel-L2); the peak memory of a calibration and of single W8A8 and float
+forwards, each alone; MFU of the sr_sr3_64_512 exact step and the Hagen train step from
+the UNet FLOP count; LPIPS with random weights on the card against the CPU.
+
 Every phase raises on failure, so the script exits non-zero with no result
 line. It prints the card's name and power limit, per-kernel times beside
 their bounds, each slice's tiles/s and peak memory, the train step's time and
@@ -773,11 +787,13 @@ def phase_profile(model, frames, fused: bool) -> None:
 
 
 def reset_launches() -> None:
-    """Every launch count to 0, and the fused walk's conv-site plan counts."""
+    """Every launch count to 0, the int8 conv's product count
+    (`int8_launches`), and the fused walk's conv-site plan counts."""
     from diffsplitting_tpu_torch.models.fused_forward import ConvSitePlan
     from diffsplitting_tpu_torch.ops import FusedAttention, FusedConvGN, FusedGroupNormSwish
+    from diffsplitting_tpu_torch.ops.quant import Int8Conv
 
-    for k in (FusedGroupNormSwish, FusedAttention, FusedConvGN):
+    for k in (FusedGroupNormSwish, FusedAttention, FusedConvGN, Int8Conv):
         k.launches = 0
     FusedAttention.launches_wide = FusedAttention.launches_narrow = 0
     FusedGroupNormSwish.launches_bf16 = FusedAttention.launches_bf16 = 0
@@ -796,6 +812,15 @@ def read_launches() -> dict:
             "group_norm_swish_bf16": FusedGroupNormSwish.launches_bf16,
             "attention_bf16": FusedAttention.launches_bf16,
             "conv_gn_bf16": FusedConvGN.launches_bf16}
+
+
+def int8_launches() -> int:
+    """`torch._int_mm` products of the W8A8 convs on the card since the last
+    `reset_launches` (ops/quant.py `Int8Conv`; a library product, kept apart
+    from the kernels' counts)."""
+    from diffsplitting_tpu_torch.ops.quant import Int8Conv
+
+    return Int8Conv.launches
 
 
 def slice_inputs(dev):
@@ -833,6 +858,7 @@ def phase_slice(model, frames, fused: bool, expected: dict, n_tiles: int, forwar
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     launches = read_launches()
+    int8 = int8_launches()
     peak = torch.cuda.max_memory_allocated()
     if launches != expected:
         raise AssertionError(f"{label} fused={fused}: launches {launches}, expected {expected}")
@@ -850,7 +876,7 @@ def phase_slice(model, frames, fused: bool, expected: dict, n_tiles: int, forwar
         "UNet forwards: "
         f"runs {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median {tiles_per_s:.2f} "
         f"tiles/s, peak memory {peak / 2**30:.2f} GiB ({peak} bytes), launches {launches}")
-    return out, launches, dict(tiles_per_s=tiles_per_s, peak=peak, walls=walls)
+    return out, launches, dict(tiles_per_s=tiles_per_s, peak=peak, walls=walls, int8_conv=int8)
 
 
 def smooth_pair(rng, batch: int, patch: int) -> dict:
@@ -2063,6 +2089,7 @@ def serve_cli(label: str, cli, argv: list, per_forward: dict, steps: int, want=N
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    int8 = int8_launches()
     peak = torch.cuda.max_memory_allocated()
     if want is None:
         want = {k: v * steps for k, v in per_forward.items()}
@@ -2074,7 +2101,8 @@ def serve_cli(label: str, cli, argv: list, per_forward: dict, steps: int, want=N
     log(f"{label}: one {steps}-step chain at batch 1 in {secs:.3f} s ({steps / secs:.1f} "
         f"forwards/s; the CLI's run {wall:.1f} s), peak memory {peak / 2**30:.2f} GiB ({peak} "
         f"bytes), launches {launches}")
-    return dict(out, launches=launches, chain_s=secs, forwards_per_s=steps / secs, peak=peak)
+    return dict(out, launches=launches, chain_s=secs, forwards_per_s=steps / secs, peak=peak,
+                int8_conv=int8)
 
 
 def chain_profile(model, steps: int, fused: bool, full_steps: int, full_chain_s: float,
@@ -3277,6 +3305,404 @@ def phase_sr_accelerators(dev, work: str, sr512: dict) -> dict:
                         for k, r in runs.items()})
 
 
+W8A8_SITES_HAGEN = 28  # int8 sites a Hagen forward by default: 14 ResnetBlocks x 2 Block convs
+W8A8_SITES_SR512 = 34  # int8 sites an sr_sr3_64_512 forward by default: 17 x 2
+W8A8_PROFILE_STEPS = 10  # the W8A8 DDIM chain cut for the idle share's profile
+W8A8_SITE_ITERS = 5  # calls captured per CUDA graph when a site is timed
+LPIPS_SHAPE = (2, 256, 256, 3)
+
+
+def w8a8_sites(label: str, float_net, qnet, forward, timed: bool) -> dict:
+    """Every W8A8 site of `qnet`: its input captured on one forward
+    (`forward(qnet)`), quantized with the site's a_scale; the card route
+    (im2col + torch._int_mm) against the plain version (the exact float64
+    conv, cuDNN off) on those int8 operands, int32 bit for bit; with `timed`,
+    the device time of the site's whole W8A8 call (quantize, im2col, product,
+    dequantize, bias) beside `float_net`'s conv at the same path and input
+    (cuDNN in the compute dtype), each by CUDA-graph replay. Returns
+    {path: {kind, shape, stride[, w8a8_ms, float_ms]}}."""
+    import torch
+    from diffsplitting_tpu_torch.kernels.variants import device_ms
+    from diffsplitting_tpu_torch.models.quant_unet import classify, iter_quant_sites
+    from diffsplitting_tpu_torch.ops import quant
+
+    inputs = {}
+
+    def keep(name):
+        def hook(_, args):
+            inputs[name] = args[0]
+        return hook
+
+    handles = [m.register_forward_pre_hook(keep(n)) for n, m in iter_quant_sites(qnet)]
+    try:
+        with torch.inference_mode():
+            forward(qnet)
+    finally:
+        for h in handles:
+            h.remove()
+    rows = {}
+    with torch.inference_mode():
+        for name, m in iter_quant_sites(qnet):
+            x = inputs.pop(name)
+            x_i8 = quant.quantize_act(x.to(m.compute_dtype or torch.float32),
+                                      quant.act_inverse(m.a_scale))
+            got = quant.int8_conv(x_i8, m.weight_i8, m.stride, m.weight_mat)
+            with torch.backends.cudnn.flags(enabled=False):
+                want = quant.int8_conv_reference(x_i8, m.weight_i8, m.stride)
+            if not (got.dtype == want.dtype == torch.int32 and torch.equal(got, want)):
+                raise AssertionError(f"{label} {name}: the card's int8 conv differs from the "
+                                     f"plain version (max abs {(got - want).abs().max()})")
+            row = dict(kind=classify(name), shape=tuple(x.shape), stride=m.stride,
+                       cout=m.out_channels, k=m.kernel_size[0])
+            if timed:
+                fconv = float_net.get_submodule(name)
+                row.update(w8a8_ms=device_ms(lambda: m(x), W8A8_SITE_ITERS),
+                           float_ms=device_ms(lambda: fconv(x), W8A8_SITE_ITERS))
+            rows[name] = row
+            del x, x_i8, got, want
+    torch.cuda.synchronize()
+    kinds = collections.Counter(r["kind"] for r in rows.values())
+    log(f"{label}: {len(rows)} int8 sites ({dict(kinds)}), the card route int32 bit-equal to the "
+        "plain version at every one")
+    return rows
+
+
+def site_times(label: str, rows: dict, float_label: str) -> dict:
+    """The sums of the timed sites' device ms, all and the default (block)
+    ones, logged with the slowest site."""
+    out = {}
+    for which, keep in (("default", lambda r: r["kind"] == "block"), ("all", lambda r: True)):
+        sel = [r for r in rows.values() if keep(r)]
+        out[which] = dict(sites=len(sel), w8a8_ms=sum(r["w8a8_ms"] for r in sel),
+                          float_ms=sum(r["float_ms"] for r in sel))
+        log(f"{label}, {which} sites ({len(sel)}): W8A8 convs {out[which]['w8a8_ms']:.4f} ms of "
+            f"device time a forward (CUDA-graph replay) against {out[which]['float_ms']:.4f} for "
+            f"{float_label} at the same sites ({out[which]['w8a8_ms'] / out[which]['float_ms']:.2f}x)")
+    name, r = max(rows.items(), key=lambda kv: kv[1]["w8a8_ms"])
+    log(f"{label}: slowest W8A8 site {name} {r['shape']} -> {r['cout']} (k {r['k']}, stride "
+        f"{r['stride']}): {r['w8a8_ms']:.4f} ms against {r['float_ms']:.4f}")
+    out["by_site"] = {n: {k: r[k] for k in ("kind", "shape", "w8a8_ms", "float_ms")}
+                      for n, r in rows.items()}
+    return out
+
+
+def memory_split(label: str, calibrate, forwards: dict) -> dict:
+    """Peak device memory of a W8A8 calibration (`calibrate()`, with the
+    quantized-net cache dropped before) and of each of `forwards`, each run
+    alone from a reset of the peak: {name: (peak, allocated before)} in bytes."""
+    import torch
+
+    out = {}
+    for name, fn in (("calibration", calibrate), *forwards.items()):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (torch.cuda.max_memory_allocated(), base)
+    log(f"{label} peak memory alone: " + "; ".join(
+        f"{name} {peak / 2**30:.2f} GiB ({peak} bytes, {base} allocated before)"
+        for name, (peak, base) in out.items()))
+    return out
+
+
+W8A8_REL_L2_MAX = 0.25  # one W8A8 forward against the float one, seeded weights (sanity bound)
+
+
+def rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def phase_w8a8(dev, work: str, exact_slice: dict, sr512: dict, sra: dict, train: dict) -> dict:
+    """W8A8 quantized serving (ops/quant.py, models/quant_unet.py,
+    `set_quant`) at full width, with the FLOP count's MFU and LPIPS:
+      * every int8 site of configs/splitting_hagen_indi_joint.json (both nets,
+        patch 512, batch 8) and of configs/sr_sr3_64_512.json (batch 1), at
+        the default sites and at 'all' (Down/Upsample and 1x1 shortcuts too):
+        the card route against the plain version on the same int8 operands,
+        int32 bit-equal (`w8a8_sites`); at 'all' each site's W8A8 call timed
+        beside the float cuDNN conv (f32 Hagen, bf16 SR);
+      * the Hagen joint slice with W8A8 through `predict_frames` (patch 512,
+        batch 8, 3 steps, 18 tiles): 29 GN+Swish, 1 attention and 28 int8
+        products a forward asserted, tiles/s and peak beside the exact slice
+        of this run (main's), the calibration's seconds, PSNR against the
+        exact chain from the same noise; DSP_FUSED=1 serving the W8A8 forward
+        (the same bits, no conv_gn launch); the peak memory of a calibration
+        and of one W8A8 and one float forward, each alone (`memory_split`);
+      * sr_sr3_64_512 (bf16) through infer.py at batch 1: `--w8a8 --ddim
+        250,1`, `--w8a8_sites all --ddim 250,1`, `--w8a8 --ddim 250,1
+        --deepcache 5,1`; launches asserted (the calibration forward's
+        included), int8 products a forward (34 by default), seconds a chain
+        (calibration included, and without it), peak, idle share from a
+        profiled 20-step W8A8 DDIM chain, beside phase_sr_accelerators' DDIM
+        chains; one forward's rel-L2 against the unquantized forward on the
+        calibration batch, default and all sites, held in (0, 0.25); the
+        peak memory of the calibration, of its 8-row float forward and of one
+        W8A8 and one float forward at batch 1, each alone;
+      * MFU (utils/flops.py, utils/profiling.py) of the exact sr_sr3_64_512
+        step (phase_sr3_512's device time a step and its chain's wall time a
+        step, against the bf16 peak) and of the Hagen train step (phase_train's
+        ms a step and its profiled device time, against the FP32 peak: TF32
+        is off);
+      * LPIPS (utils/lpips.py) with random weights on the card against the
+        CPU."""
+    import torch
+    from diffsplitting_tpu_torch import infer
+    from diffsplitting_tpu_torch.config import dict_to_nonedict, load_json
+    from diffsplitting_tpu_torch.data.lrhr_dataset import LRHRDataset
+    from diffsplitting_tpu_torch.diffusion.ddim import ddim_timesteps
+    from diffsplitting_tpu_torch.models.blocks import GroupNormSwish, ResnetBlock, SelfAttention
+    from diffsplitting_tpu_torch.models.deepcache import CachedUNet
+    from diffsplitting_tpu_torch.models.quant_unet import W8A8Conv2d, iter_quant_sites
+    from diffsplitting_tpu_torch.predict import predict_frames
+    from diffsplitting_tpu_torch.serving import SplittingModel, sr_calib_inputs
+    from diffsplitting_tpu_torch.split import train_flops_per_step
+    from diffsplitting_tpu_torch.utils import lpips
+    from diffsplitting_tpu_torch.utils.cli import parse_accel_flag
+    from diffsplitting_tpu_torch.utils.flops import config_forward_flops
+    from diffsplitting_tpu_torch.utils.profiling import peak_flops
+
+    t_phase = time.perf_counter()
+    result = {}
+
+    # ------------------------------------------------ Hagen joint: sites, slice, fused
+    opt = dict_to_nonedict(load_json(CONFIG))
+    model = SplittingModel(opt, device=dev, seed=0)
+    tile_batch, frames = slice_inputs(dev)
+    t_vec = torch.full((BATCH,), 0.5, device=dev)
+    hagen_sites = {}
+    for sites, wide in (("default", False), ("all", True)):
+        model.set_quant(8, updown=wide, shortcut=wide)
+        with torch.inference_mode():
+            qnets = model.served_unets(tile_batch)
+        for i, qnet in enumerate(qnets):
+            rows = w8a8_sites(f"w8a8 Hagen net {i + 1}, {sites} sites, B={BATCH} {PATCH}²",
+                              model.unets()[i], qnet, lambda q: q(tile_batch, t_vec),
+                              timed=wide and i == 0)
+            if sites == "default" and len(rows) != W8A8_SITES_HAGEN:
+                raise AssertionError(f"w8a8 Hagen: {len(rows)} default int8 sites, expected "
+                                     f"{W8A8_SITES_HAGEN}")
+            hagen_sites[sites] = len(rows)
+            if wide and i == 0:
+                result["hagen_sites"] = site_times(f"w8a8 Hagen B={BATCH} {PATCH}²", rows,
+                                                   "cuDNN's f32 convs (TF32 off)")
+    del qnets, rows
+    model.set_quant(8)
+    steps = model.process.val_num_timesteps
+    n_tiles = 18
+    forwards = 2 * steps * math.ceil(n_tiles / BATCH)
+    # a forward's GN+Swish and attention launches and int8 sites, from the UNet's modules
+    net = model.unets()[0]
+    gn_fwd = sum(isinstance(m, GroupNormSwish) for m in net.modules())
+    attn_fwd = sum(isinstance(m, SelfAttention) for m in net.modules())
+    blocks = sum(isinstance(m, ResnetBlock) for m in net.modules())
+    if (gn_fwd, attn_fwd, 2 * blocks) != (29, 1, W8A8_SITES_HAGEN):
+        raise AssertionError(f"w8a8 slice: {CONFIG} has {gn_fwd} GN+Swish, {attn_fwd} attention "
+                             f"and {blocks} ResnetBlocks a forward")
+    expected = {"group_norm_swish": gn_fwd * forwards, "attention": attn_fwd * forwards,
+                "attention_wide": 0,
+                "attention_narrow": 0, "conv_gn": 0, "sites_kernel": 0, "sites_library": 0,
+                **BF16_NONE}
+    out, launches, stats = phase_slice(model, frames, False, expected, n_tiles, forwards,
+                                       label="w8a8 slice")
+    if stats["int8_conv"] != W8A8_SITES_HAGEN * forwards:
+        raise AssertionError(f"w8a8 slice: {stats['int8_conv']} int8 products, expected "
+                             f"{W8A8_SITES_HAGEN} x {forwards}")
+    calib_s = model.last_calibration_s
+    fused_out, fused_launches, fused_stats = phase_slice(
+        model, frames, True, expected, n_tiles, forwards, label="w8a8 slice (fused requested)")
+    if not (torch.equal(fused_out, out) and fused_stats["int8_conv"] == stats["int8_conv"]):
+        raise AssertionError("w8a8 slice: DSP_FUSED did not serve the W8A8 forward")
+    model.set_quant(8)  # drops the cached nets: the calibration below runs anew
+    hagen_memory = memory_split(
+        f"w8a8 Hagen B={BATCH} {PATCH}²", lambda: model.served_unets(tile_batch),
+        {"w8a8_forward": lambda: model.served_unets(tile_batch)[0](tile_batch, t_vec),
+         "float_forward": lambda: net(tile_batch, t_vec)})
+    model.set_quant(None)
+    model.generator.manual_seed(0)
+    exact = predict_frames(model, frames, PATCH, BATCH)
+    psnr = psnr_per_channel(exact, out)
+    log(f"w8a8 slice: {stats['tiles_per_s']:.2f} tiles/s, peak {stats['peak'] / 2**30:.2f} GiB "
+        f"({stats['peak']} bytes) against the exact slice's {exact_slice['tiles_per_s']:.2f} "
+        f"tiles/s, {exact_slice['peak'] / 2**30:.2f} GiB of this run; calibration (two nets, 8 "
+        f"rows each) {calib_s:.3f} s; int8 products "
+        f"{stats['int8_conv']} ({W8A8_SITES_HAGEN} a forward); PSNR against the exact chain "
+        f"{psnr[0]:.2f} / {psnr[1]:.2f} dB; with a fused request: the same bits, launches "
+        f"{fused_launches}")
+    result["hagen"] = dict(tiles_per_s=stats["tiles_per_s"], peak=stats["peak"],
+                           exact_tiles_per_s=exact_slice["tiles_per_s"],
+                           exact_peak=exact_slice["peak"], calibration_s=calib_s, psnr=psnr,
+                           sites=hagen_sites, launches=launches, int8_conv=stats["int8_conv"],
+                           fused_launches=fused_launches, memory=hagen_memory)
+    del model, net, frames, tile_batch, out, fused_out, exact
+    torch.cuda.empty_cache()
+    hagen_s = time.perf_counter() - t_phase
+
+    # ------------------------------------------------ sr_sr3_64_512: infer.py with W8A8
+    model_opt = dict_to_nonedict(load_json(SR512_CONFIG))["model"]
+    T = int(model_opt["beta_schedule"]["val"]["n_timestep"])
+    size = int(model_opt["diffusion"]["image_size"])
+    cfg = sr_config(work, SR512_CONFIG, sr512["root"], 1)
+    S = len(ddim_timesteps(T, parse_accel_flag(SRA_DDIM, 0.0)[0]))
+    interval, depth = parse_accel_flag(SRA_DEEPCACHE, 1, second_cast=int)
+    per_forward = dict(GN_ATTN_ONLY, group_norm_swish=0, attention=0,
+                       group_norm_swish_bf16=SR512_GN_FWD, attention_bf16=SR512_ATTN_FWD)
+    F = len(range(0, S, interval))
+    full = shallow = None  # a CachedUNet pass's launches, from the first run's UNet
+    calib = per_forward  # the calibration forward: one bf16 forward of the float net
+
+    def with_calib(counts):
+        return {k: counts[k] + calib[k] for k in counts}
+
+    runs, prof, rel, sr_sites = {}, {}, {}, {}
+    plans = (("w8a8", ["--w8a8"], with_calib({k: v * S for k, v in per_forward.items()})),
+             ("w8a8_all", ["--w8a8_sites", "all"],
+              with_calib({k: v * S for k, v in per_forward.items()})),
+             ("w8a8_deepcache", ["--w8a8", "--deepcache", SRA_DEEPCACHE], None))
+    for name, flags, want in plans:
+        if want is None:
+            want = with_calib(dict(per_forward, **{k: full[k] * F + shallow[k] * (S - F)
+                                                   for k in full}))
+        t_run = time.perf_counter()
+        run = serve_cli(f"w8a8 infer.py {' '.join(flags)} --ddim {SRA_DDIM}", infer,
+                        ["-c", cfg, "-rootdir", str(Path(work) / f"w8a8_{name}"), "--ddim",
+                         SRA_DDIM] + flags, per_forward, S, want=want)
+        model = run.pop("model")
+        if full is None:
+            full, shallow = pass_launches(model.nets.denoise_fn, depth)
+        (_, (_, (qnet,))), = model.switches._quant_nets.items()
+        n_sites = sum(1 for _ in iter_quant_sites(qnet))
+        if name == "w8a8" and n_sites != W8A8_SITES_SR512:
+            raise AssertionError(f"w8a8 sr512: {n_sites} default int8 sites, expected "
+                                 f"{W8A8_SITES_SR512}")
+        if name == "w8a8_deepcache":
+            cnet = CachedUNet(qnet, depth)
+            shallow_sites = sum(isinstance(m, W8A8Conv2d) for layer in
+                                cnet.shallow_down + cnet.shallow_up + [qnet.final_conv]
+                                for m in layer.modules())
+            want_int8 = n_sites * F + shallow_sites * (S - F)
+        else:
+            want_int8 = n_sites * S
+        if run["int8_conv"] != want_int8:
+            raise AssertionError(f"w8a8 sr512 {name}: {run['int8_conv']} int8 products, "
+                                 f"expected {want_int8}")
+        run.update(calibration_s=model.switches.last_calibration_s, sites=n_sites,
+                   int8_conv=run["int8_conv"])
+        serve_s = run["chain_s"] - run["calibration_s"]
+        # the idle share: device time a step of a profiled 20-step W8A8 DDIM chain
+        # (DeepCache at the same share of full passes) over the chain's own seconds
+        item = LRHRDataset(sr512["root"], "img", size // 8, size, split="val", need_LR=False)[0]
+        model.feed_data({"input": item["SR"][None], "target": item["HR"][None]})
+        model.set_ddim(W8A8_PROFILE_STEPS, 1.0)
+        t_checks = time.perf_counter()
+        prof[name] = chain_profile(model, W8A8_PROFILE_STEPS, False, S, serve_s,
+                                   label=f"w8a8 profile, {name}")
+        if name != "w8a8_deepcache":
+            net = model.nets.denoise_fn
+            x, t = sr_calib_inputs("sr3", model.process, model.current_sched, "test", 8,
+                                   model.data["input"][:1], dev)
+            with torch.inference_mode():
+                rel[name] = rel_l2(qnet(x, t), net(x, t))
+            log(f"w8a8 sr512 {name}: one forward on the calibration batch (8 rows) rel-L2 "
+                f"{rel[name]:.5f} against the unquantized bf16 forward")
+            # 0 is a forward that quantizes nothing; the bound is about twice the
+            # error measured at 'all' sites on these seeded weights
+            if not 0 < rel[name] < W8A8_REL_L2_MAX:
+                raise AssertionError(f"w8a8 sr512 {name}: rel-L2 {rel[name]} outside "
+                                     f"(0, {W8A8_REL_L2_MAX})")
+            if name == "w8a8":
+                model.set_quant(8)  # drops the cached nets: the calibration below runs anew
+                result["sr512_memory"] = memory_split(
+                    f"w8a8 sr512 B=1 {size}²",
+                    lambda: model.switches.quantized_unets((net,), "test", lambda i: (x, t)),
+                    {"float_forward_8_rows": lambda: net(x, t),
+                     "w8a8_forward": lambda: qnet(x[:1], t[:1]),
+                     "float_forward": lambda: net(x[:1], t[:1])})
+            sr_sites[name] = w8a8_sites(
+                f"w8a8 sr512 {name}, B=1 {size}²", net, qnet,
+                lambda q: q(x[:1], t[:1]), timed=name == "w8a8_all")
+            if name == "w8a8_all":
+                result["sr512_sites"] = site_times(f"w8a8 sr512 B=1 {size}²", sr_sites[name],
+                                                   "cuDNN's bf16 convs")
+            del x, t, net
+        log(f"w8a8 sr512 {name}: the infer.py run {t_checks - t_run:.1f} s, the profile and "
+            f"checks {time.perf_counter() - t_checks:.1f} s")
+        runs[name] = dict(chain_s=run["chain_s"], serve_s=serve_s,
+                          calibration_s=run["calibration_s"], peak=run["peak"],
+                          idle=prof[name]["idle"], sites=n_sites, int8_conv=run["int8_conv"],
+                          launches=run["launches"])
+        del model, qnet
+        torch.cuda.empty_cache()
+    base = {"w8a8": "ddim", "w8a8_all": "ddim", "w8a8_deepcache": "ddim_deepcache"}
+    for name, r in runs.items():
+        b = sra["chains"][base[name]]
+        log(f"w8a8 sr512 {name}: {r['chain_s']:.3f} s a {S}-step chain ({r['serve_s']:.3f} s "
+            f"without the calibration's {r['calibration_s']:.3f} s), peak {r['peak'] / 2**30:.2f} "
+            f"GiB ({r['peak']} bytes), idle share "
+            + ("not measured" if r["idle"] is None else f"{r['idle']:.2%}")
+            + f", {r['sites']} int8 sites a forward; the unquantized {base[name]} chain of this "
+            f"run {b['chain_s']:.3f} s, {b['peak'] / 2**30:.2f} GiB, idle "
+            + ("not measured" if b["idle"] is None else f"{b['idle']:.2%}")
+            + f" ({r['serve_s'] / b['chain_s']:.2f}x its seconds)")
+    result["sr512"] = dict(runs=runs, rel_l2=rel)
+    sr_s = time.perf_counter() - t_phase - hagen_s
+
+    # ------------------------------------------------ MFU from the FLOP count
+    name = torch.cuda.get_device_name(0)
+    fwd = config_forward_flops(model_opt, size, 1)
+    step_ms = sr512["chain"].get("busy_ms")
+    step_ms = None if step_ms is None else step_ms / SR512_CUT_STEPS
+    wall_ms = sr512["chain"]["chain_s"] * 1e3 / sr512["chain"]["steps"]
+    bf16_peak = peak_flops(torch.bfloat16, dev)
+    mfu = dict(sr512_flops_a_step=fwd, sr512_wall=fwd / (wall_ms / 1e3) / bf16_peak,
+               sr512_device=None if step_ms is None else fwd / (step_ms / 1e3) / bf16_peak)
+    train_flops = train_flops_per_step(opt)
+    f32_peak = peak_flops(torch.float32, dev)
+    busy = (train.get("profile") or {}).get("busy_ms")
+    mfu.update(hagen_train_flops_a_step=train_flops,
+               hagen_train_wall=train_flops / (train["ms"] / 1e3) / f32_peak,
+               hagen_train_device=None if not busy else train_flops / (busy / 1e3) / f32_peak)
+    log(f"MFU on {name}: sr_sr3_64_512 exact step, {fwd / 1e9:.1f} GFLOP a forward at batch 1: "
+        f"{mfu['sr512_wall']:.2%} of the bf16 peak ({bf16_peak / 1e12:.0f} TFLOP/s) by the "
+        f"chain's wall time a step ({wall_ms:.3f} ms), "
+        + ("device time not measured" if step_ms is None else
+           f"{mfu['sr512_device']:.2%} by its device time a step ({step_ms:.4f} ms)")
+        + f"; Hagen joint train step, {train_flops / 1e12:.3f} TFLOP (3 x forward x 2 nets at "
+        f"batch {TRAIN_BATCH}): {mfu['hagen_train_wall']:.2%} of the FP32 peak "
+        f"({f32_peak / 1e12:.0f} TFLOP/s; TF32 is off) at {train['ms']:.2f} ms a step, "
+        + ("device time not measured" if not busy else
+           f"{mfu['hagen_train_device']:.2%} by its profiled device time ({busy:.2f} ms)"))
+    result["mfu"] = mfu
+
+    # ------------------------------------------------ LPIPS, card against CPU
+    params = lpips.random_lpips_params(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(46)
+    a = torch.rand(LPIPS_SHAPE, generator=g) * 2 - 1
+    b = (a + 0.3 * torch.randn(LPIPS_SHAPE, generator=g)).clamp(-1, 1)
+    with torch.inference_mode():
+        want = lpips.lpips(params, a, b)
+        card = {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+        got = lpips.lpips(card, a.to(dev), b.to(dev))
+        lp_ms = time_ms(lambda: lpips.lpips(card, a.to(dev), b.to(dev)), 5)
+    err = (got.cpu() - want).abs().max().item()
+    if not err <= 1e-4 * want.abs().max().item() + 1e-6:
+        raise AssertionError(f"LPIPS card vs CPU: max abs err {err}")
+    log(f"LPIPS (random weights) at {LPIPS_SHAPE}: card {got.cpu().tolist()} against CPU "
+        f"{want.tolist()}, max abs err {err:.3g}; {lp_ms:.3f} ms a call on the card")
+    result["lpips"] = dict(err=err, ms=lp_ms)
+
+    secs = time.perf_counter() - t_phase
+    log(f"w8a8 phase: {secs:.1f} s (Hagen {hagen_s:.1f} s, sr512 {sr_s:.1f} s)")
+    result["seconds"] = secs
+    result["launches"] = {
+        "group_norm_swish": launches["group_norm_swish"] + fused_launches["group_norm_swish"],
+        "attention": launches["attention"] + fused_launches["attention"],
+        **{k: sum(r["launches"][k] for r in runs.values())
+           for k in ("group_norm_swish_bf16", "attention_bf16")}}
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -3377,7 +3803,7 @@ def main() -> int:
     steps = model.process.val_num_timesteps
     n_tiles = 18  # 3×3 tiles per 1024² frame: 512² patches on a 256² grid
     forwards = 2 * steps * math.ceil(n_tiles / BATCH)
-    out, launches, _ = phase_slice(
+    out, launches, exact_slice = phase_slice(
         model, frames, False,
         {"group_norm_swish": 29 * forwards, "attention": forwards, "attention_wide": 0,
          "attention_narrow": 0,
@@ -3423,6 +3849,7 @@ def main() -> int:
         sr3 = phase_sr3(dev, work)
         sr512 = phase_sr3_512(dev, work)
         sra = phase_sr_accelerators(dev, work, sr512)
+        w8a8 = phase_w8a8(dev, work, exact_slice, sr512, sra, train)
     wide_shape = (BATCH, 16, 256)  # the mid block of the inner-32 path
     narrow_shape = (BATCH, 16, 64)  # the mid block of the inner-8 path
 
@@ -3434,7 +3861,7 @@ def main() -> int:
              + loop["launches"]["group_norm_swish"] + tp["launches"]["group_norm_swish"]
              + tref["launches"]["group_norm_swish"] + dcache["launches"]["group_norm_swish"]
              + window["launches"]["group_norm_swish"] + sr3["launches"]["group_norm_swish"]
-             + sra["parallel_launches"]["group_norm_swish"],
+             + sra["parallel_launches"]["group_norm_swish"] + w8a8["launches"]["group_norm_swish"],
              max_abs_err=max(gn_err, sr3["gn_err"]), ms=gn["ms"],
              plain_ms=gn["plain_ms"], bound_ms=gn["bound_ms"], bound_by="bytes",
              library_ms=gn["library_ms"], device_ms=gn["device_ms"],
@@ -3449,7 +3876,7 @@ def main() -> int:
              launches=launches["attention"] + train["launches"]["attention"]
              + loop["launches"]["attention"] + tp["launches"]["attention"]
              + tref["launches"]["attention"] + dcache["launches"]["attention"]
-             + window["launches"]["attention"],
+             + window["launches"]["attention"] + w8a8["launches"]["attention"],
              max_abs_err=max(attn_err, tp["attn_b1"]["max_abs_err"]), ms=attn["ms"],
              plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"], bound_by=attn["bound_by"],
              library_ms=attn["library_ms"],
@@ -3490,7 +3917,8 @@ def main() -> int:
              source="diffsplitting_tpu_torch/csrc/groupnorm_swish.cu",
              replaces="diffsplitting_tpu/experimental/groupnorm_pallas.py:21,58",
              launches=sr512["launches"]["group_norm_swish_bf16"]
-             + sra["launches"]["group_norm_swish_bf16"],
+             + sra["launches"]["group_norm_swish_bf16"]
+             + w8a8["launches"]["group_norm_swish_bf16"],
              max_abs_err=sr512["gn_worst"]["kernel"],
              plain_max_abs_err=sr512["gn_worst"]["plain"],
              **{k: sr512["gn"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
@@ -3500,7 +3928,8 @@ def main() -> int:
              source="diffsplitting_tpu_torch/csrc/attention_bf16.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
              design=ATTN_BF16_DESIGN, registers=attn_bf16_regs,
-             launches=sr512["launches"]["attention_bf16"] + sra["launches"]["attention_bf16"],
+             launches=sr512["launches"]["attention_bf16"] + sra["launches"]["attention_bf16"]
+             + w8a8["launches"]["attention_bf16"],
              max_abs_err=sr512["attn_worst"]["kernel"],
              plain_max_abs_err=sr512["attn_worst"]["plain"], at="B=1 N=1024 D=1024",
              **{k: sr512["attn"][(1, 1024, 1024)][k] for k in (
@@ -3563,7 +3992,10 @@ def main() -> int:
         "device_ms, plain_ms and library_ms (cuDNN F.conv2d in bf16 on the activated input, + "
         "the residual or its 1x1 skip conv) by CUDA-graph replay; by_site per call), its "
         "max_abs_err against its plain version (bf16 operands, f32 sums, y rounded to bf16), "
-        "its launches the phase's fused infer.py chain's (11 a forward) and the fused DDIM run's")
+        "its launches the phase's fused infer.py chain's (11 a forward) and the fused DDIM run's; "
+        "the W8A8 phase's counted runs add to group_norm_swish and attention (the Hagen W8A8 "
+        "slice, unfused and with a fused request) and to their bf16 kernels (its three infer.py "
+        "runs, each with its calibration forward)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

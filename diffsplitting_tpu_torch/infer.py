@@ -19,8 +19,11 @@ The serving accelerators, by flag or by the config's `model.ddim`,
 DDIM, ETA 0 by default), `--deepcache K[,D]` (K may be 'auto'; depth 1 by
 default; composes with --ddim), `--sliding_window W[,TAU]` (TAU 0.1 by
 default; exclusive with both: ValueError). With one on, the chain gives its
-final frame only and no `_sr_process.png` is written. `--w8a8` and
-`--w8a8_sites` are accepted and raise NotImplementedError (ROADMAP item 1g).
+final frame only and no `_sr_process.png` is written. `--w8a8` serves the
+W8A8 quantized UNet (`set_quant`, or the config's `model.quant`; composes
+with all three, and alone keeps the trajectory); `--w8a8_sites all` also
+quantizes the Down/Upsample and 1×1 shortcut convs, `attn` those and the
+attention block's 1×1 convs; a sites choice implies `--w8a8`.
 
 The device is the card unless `--device` says otherwise; without CUDA the
 CLI raises unless `--device cpu` is given. `-gpu` is accepted and ignored.
@@ -47,9 +50,8 @@ from . import data as Data
 from .device import resolve_device
 from .serving import check_compute_dtype
 from .train import create_model
-from .train.trainer import not_ported_1g
 from .utils import setup_logger
-from .utils.cli import parse_accel_flag
+from .utils.cli import add_w8a8_flags, apply_w8a8_flags, parse_accel_flag
 from .utils.metrics import save_img, tensor2img
 
 
@@ -67,26 +69,20 @@ def add_accelerator_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--ddim", type=str, default=None, metavar="S[,ETA]",
                         help="respaced DDIM serving: S steps of the trained chain (default "
                              "ETA 0, deterministic); final frames only")
-    parser.add_argument("--w8a8", action="store_true",
-                        help="W8A8 quantized serving: not ported (raises)")
-    parser.add_argument("--w8a8_sites", choices=["default", "all", "attn"], default="default",
-                        help="W8A8 site coverage: not ported (raises unless 'default')")
-
-
-def refuse_w8a8(args) -> None:
-    if args.w8a8 or args.w8a8_sites != "default":
-        raise not_ported_1g("--w8a8")
+    add_w8a8_flags(parser)
 
 
 def apply_accelerator_flags(model, args) -> bool:
-    """Switch on the accelerators the flags ask for; True when any is on (by
-    flag or config), and the chain then gives its final frame only."""
+    """Switch on the accelerators the flags ask for, W8A8 included; True
+    when DDIM, DeepCache or the window is on (by flag or config), and the
+    chain then gives its final frame only."""
     if args.deepcache:
         model.set_deepcache(*parse_accel_flag(args.deepcache, 1, second_cast=int))
     if args.sliding_window:
         model.set_sliding_window(*parse_accel_flag(args.sliding_window, 0.1))
     if args.ddim:
         model.set_ddim(*parse_accel_flag(args.ddim, 0.0))
+    apply_w8a8_flags(model, args)
     return any(x is not None for x in (model.deepcache, model.sliding_window, model.ddim))
 
 
@@ -128,7 +124,6 @@ def main(argv: Optional[list] = None) -> dict:
     parser.add_argument("--device", default=None, help="default: cuda")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
-    refuse_w8a8(args)
     check_compute_dtype(Logger.load_json(args.config)["model"])
     # the config's compute dtype (float32, or bfloat16 with f32 statistics)
     # as the JAX package computes it; cuDNN would otherwise run the float32

@@ -1,22 +1,23 @@
 """Batch prediction: checkpoint -> tiled splitting inference on the card -> TIFFs.
 
-Counterpart: the repository's top-level predict.py (its W8A8 flags are not
-ported).
+Counterpart: the repository's top-level predict.py.
 
 Usage:
   python -m diffsplitting_tpu_torch.predict -c configs/splitting_hagen_indi_joint.json \\
       (--weights <I{it}_E{ep}_gen.pth> | --resume <.../I{it}_E{ep}>) \\
       --input mixed.tif --out predictions/ [--num_steps 3] [--t_float_start 0.5] \\
       [--batch_size 8] [--mmse 1] [--coalesce 1] [--deepcache K[,D]] \\
-      [--sliding_window W[,TAU]] [--png_preview]
+      [--sliding_window W[,TAU]] [--w8a8] [--w8a8_sites default|all|attn] [--png_preview]
 
 The input TIFF is normalized with the config's quantile scheme computed from
 the input itself unless --norm_from gives the two training channel TIFFs.
 DSP_FUSED=1, as for the JAX package, serves through the stat-carried fused
 UNet forward (models/fused_forward.py). `--deepcache` and `--sliding_window`
 switch the serving accelerators of `SplittingModel` (exclusive of each
-other); `--coalesce 0` runs the `--mmse` chains one after another instead of
-as one wider batch.
+other); `--w8a8` serves the W8A8 quantized UNets (`set_quant`, calibrated on
+the first tile; composes with both, and served unfused at DSP_FUSED=1),
+`--w8a8_sites all` / `attn` widen its sites as in infer.py; `--coalesce 0`
+runs the `--mmse` chains one after another instead of as one wider batch.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from .data.normalization import compute_normalization_dict
 from .device import resolve_device
 from .serving import SplittingModel
 from .train.checkpoints import resolve_checkpoint
-from .utils.cli import parse_accel_flag
+from .utils.cli import add_w8a8_flags, apply_w8a8_flags, parse_accel_flag
 from .utils.weights import load_reference_checkpoint
 
 
@@ -95,6 +96,7 @@ def main(argv=None):
                     help="sliding-window serving: W steps a sweep as one (W*B)-batch forward, "
                          "advancing past steps that moved by at most TAU*sigma^2 (default "
                          "0.1; 0 is the exact chain). Exclusive with --deepcache")
+    add_w8a8_flags(ap)
     ap.add_argument("--png_preview", action="store_true",
                     help="also write an 8-bit PNG of each channel's first frame")
     ap.add_argument("--device", default=None, help="default: cuda")
@@ -130,6 +132,7 @@ def main(argv=None):
     model = SplittingModel(opt, device=device)
     weights_path = args.weights or resolve_checkpoint(args.resume)[0]
     model.nets.load_state_dict(load_reference_checkpoint(weights_path, which))
+    apply_w8a8_flags(model, args)
     deepcache = (parse_accel_flag(args.deepcache, 1, second_cast=int) if args.deepcache
                  else None)
     window = parse_accel_flag(args.sliding_window, 0.1) if args.sliding_window else None

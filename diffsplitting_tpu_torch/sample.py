@@ -14,8 +14,8 @@ Val: `datasets.val.data_len` samples, each written as its trajectory grid
 serving accelerator on, the final frame `_sample.png` only.
 
 The device, `-gpu`, the accelerator flags (`--ddim`, `--deepcache`,
-`--sliding_window`; `--w8a8` raises) and the compute dtype are as in
-`infer.py`.
+`--sliding_window`, `--w8a8`, `--w8a8_sites`) and the compute dtype are as
+in `infer.py`.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch
 from . import config as Logger
 from . import data as Data
 from .device import resolve_device
-from .infer import add_accelerator_flags, apply_accelerator_flags, hwc, refuse_w8a8, run_logging
+from .infer import add_accelerator_flags, apply_accelerator_flags, hwc, run_logging
 from .serving import check_compute_dtype
 from .train import create_model
 from .utils.metrics import save_img, tensor2img
@@ -52,7 +52,6 @@ def main(argv: Optional[list] = None) -> dict:
     parser.add_argument("--device", default=None, help="default: cuda")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
-    refuse_w8a8(args)
     check_compute_dtype(Logger.load_json(args.config)["model"])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

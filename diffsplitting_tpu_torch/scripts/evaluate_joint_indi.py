@@ -1,17 +1,18 @@
 """Full-frame joint-InDI evaluation: tiled prediction, stitch, metrics.
 
-Counterpart: scripts/evaluate_joint_indi.py of the repository (PSNR only;
-LPIPS waits for the port's LPIPS, ROADMAP §1 item 1g). Loads a checkpoint
-(a `.../I{iter}_E{epoch}` prefix or a `*_gen.pth`), builds the tiled val
-dataset over the full val frames (patch² tiles on a (patch/2)² grid), runs
-the reverse process on every tile batch on the device
+Counterpart: scripts/evaluate_joint_indi.py of the repository. Loads a
+checkpoint (a `.../I{iter}_E{epoch}` prefix or a `*_gen.pth`), builds the
+tiled val dataset over the full val frames (patch² tiles on a (patch/2)²
+grid), runs the reverse process on every tile batch on the device
 (`data/tiled_infer.py`), stitches the tiles' centres and reports the
 RangeInvariantPSNR of each channel, for each reverse-step count N of
-`--num_steps`.
+`--num_steps`; with `--lpips-weights` (a local `.npz` or torch `.pth`,
+utils/lpips.py) also each channel's LPIPS, on frames scaled to [-1, 1].
 
   python -m diffsplitting_tpu_torch.scripts.evaluate_joint_indi \\
       -c configs/splitting_hagen_indi_joint.json --resume <prefix> \\
-      [--num_steps 1 5 10] [--t_float_start 0.5] [--mmse 1] [--out metrics.json]
+      [--num_steps 1 5 10] [--t_float_start 0.5] [--mmse 1] [--out metrics.json] \\
+      [--lpips-weights lpips.npz]
   python -m diffsplitting_tpu_torch.scripts.evaluate_joint_indi -c <config> --check_data
 """
 
@@ -28,7 +29,9 @@ from ..config import dict_to_nonedict, load_json
 from ..data import SplitDatasetTiledPred, predict_tiled
 from ..data.check import run_check
 from ..data.split_dataset import DataLocation
+from ..device import resolve_device
 from ..train import create_model
+from ..utils.lpips import load_lpips_weights, lpips_grayscale
 from ..utils.psnr import RangeInvariantPsnr
 
 
@@ -61,10 +64,18 @@ def normalized_input_frames(ds):
     return np.stack(frames), np.stack(targets)
 
 
+def to_pm1(a):
+    """A frame stack min-max scaled to [-1, 1] (the notebook's convention)."""
+    lo, hi = a.min(), a.max()
+    return (2.0 * (a - lo) / max(hi - lo, 1e-8) - 1.0).astype(np.float32)
+
+
 @torch.inference_mode()
 def evaluate(opt, resume: str, num_steps: Sequence[int] = (1,), t_float_start: float = 0.5,
-             mmse: int = 1, batch_size: int = 8, device=None) -> dict:
-    """{N: {'psnr_ch0', 'psnr_ch1'}} for each N of `num_steps`."""
+             mmse: int = 1, batch_size: int = 8, device=None, lpips_params=None) -> dict:
+    """{N: {'psnr_ch0', 'psnr_ch1'}} for each N of `num_steps`, with
+    'lpips_ch0' and 'lpips_ch1' (the mean over frames) when `lpips_params`
+    (utils/lpips.py) are given."""
     opt["phase"] = "val"
     opt["path"]["resume_state"] = resume
     ds = build_val_dataset(opt)
@@ -85,6 +96,15 @@ def evaluate(opt, resume: str, num_steps: Sequence[int] = (1,), t_float_start: f
         psnr1 = float(RangeInvariantPsnr(targets[..., 1], pred[..., 1]).mean())
         results[int(n)] = {"psnr_ch0": psnr0, "psnr_ch1": psnr1}
         print(f"N={n}: RangeInvariantPSNR ch0={psnr0:.2f} dB ch1={psnr1:.2f} dB", flush=True)
+        if lpips_params is not None:
+            for ch in (0, 1):
+                d = lpips_grayscale(
+                    lpips_params,
+                    torch.from_numpy(to_pm1(targets[..., ch])[..., None]).to(model.device),
+                    torch.from_numpy(to_pm1(pred[..., ch])[..., None]).to(model.device))
+                results[int(n)][f"lpips_ch{ch}"] = float(d.mean())
+            print(f"N={n}: LPIPS ch0={results[int(n)]['lpips_ch0']:.4f} "
+                  f"ch1={results[int(n)]['lpips_ch1']:.4f}", flush=True)
     return results
 
 
@@ -99,6 +119,9 @@ def main(argv: Optional[list] = None) -> dict:
     ap.add_argument("--mmse", type=int, default=1, help="average over this many chains")
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--out", default=None, help="write the metrics JSON here")
+    ap.add_argument("--lpips-weights", default=None,
+                    help="local AlexNet-LPIPS weights (.npz or torch .pth, utils/lpips.py); "
+                         "when given, each channel's LPIPS is reported beside the PSNR")
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--check_data", action="store_true",
                     help="validate the config's Hagen TIFF layout, print the parity-run "
@@ -114,8 +137,11 @@ def main(argv: Optional[list] = None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     opt = dict_to_nonedict(load_json(args.config))
+    lpips_params = None
+    if args.lpips_weights:
+        lpips_params = load_lpips_weights(args.lpips_weights, resolve_device(args.device))
     results = evaluate(opt, args.resume, args.num_steps, args.t_float_start, args.mmse,
-                       args.batch_size, args.device)
+                       args.batch_size, args.device, lpips_params)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=2)

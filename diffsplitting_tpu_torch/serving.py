@@ -28,14 +28,23 @@ tau}`; `model.ddim` is read and, as in JAX, ignored: InDI respaces through
     chain. `last_sliding_sweeps` holds the last call's sweeps.
 They exclude each other; a trajectory request (`continuous`) serves the exact
 chain, with one warning.
+
+W8A8 quantized serving (`set_quant`, the config key `model.quant {bits,
+calib, updown, shortcut, attn, clip}`; JAX's `set_quant`, `_calib_inputs`,
+`_maybe_quantize`) swaps the nets, not the chain: a call serves the W8A8
+copies of its UNets (models/quant_unet.py), built once per (nets, kind) after
+one calibration forward (`indi_calib_inputs`, `sr_calib_inputs`), unfused
+whatever `fused` says, and composes with both accelerators and DDIM.
 """
 
 from __future__ import annotations
 
 import functools
 import logging
+import time
 from typing import Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -45,7 +54,7 @@ from .diffusion.deepcache import (cached_indi_inference, cached_joint_indi_infer
                                   make_cached_denoisers)
 from .diffusion.parallel_sampling import (indi_inference_sliding_window,
                                           joint_indi_inference_sliding_window)
-from .models import UNet, apply_unet
+from .models import UNet, apply_unet, fused_enabled
 from .models.precision import compute_dtype
 
 logger = logging.getLogger("base")
@@ -161,17 +170,76 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 p.zero_()
 
 
+CALIB_SEED = 0xCA11B  # the calibration noise's seed (JAX's PRNGKey)
+
+
+def calib_noise(shape, device, eps=None):
+    """The calibration draw: `eps` when given (the tests inject JAX's), else
+    a standard normal from a generator seeded `CALIB_SEED` (torch cannot
+    replay JAX's threefry)."""
+    if eps is not None:
+        return torch.tensor(np.asarray(eps), dtype=torch.float32, device=device).reshape(shape)
+    gen = torch.Generator(device=device).manual_seed(CALIB_SEED)
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def indi_calib_inputs(process, in_channel: int, cond, K: int, device, eps=None):
+    """The calibration batch of an InDI denoiser (JAX's `_calib_inputs`): the
+    serving input `cond` (1, H, W, C), tiled on channels to `in_channel`,
+    noised at the bridge's e(t) for K values of t in (0, 1] (t = k / K);
+    returns (x, t), K rows; noise from `calib_noise`."""
+    K = max(2, int(K))
+    cond = cond.to(device, torch.float32)
+    if cond.shape[-1] != in_channel:
+        if in_channel % cond.shape[-1]:
+            raise ValueError(f"input of {cond.shape[-1]} channels for a UNet of {in_channel}")
+        cond = cond.repeat(1, 1, 1, in_channel // cond.shape[-1])
+    tvals = np.linspace(1.0 / K, 1.0, K).astype(np.float32)
+    scale = torch.tensor([float(process.get_t_times_e(t)) for t in tvals], device=device)
+    eps = calib_noise((K,) + tuple(cond.shape[1:]), device, eps)
+    return cond + eps * scale[:, None, None, None], torch.from_numpy(tvals).to(device)
+
+
+def sr_calib_inputs(which: str, process, sched, kind: str, K: int, cond, device, eps=None):
+    """The calibration batch of a DDPM / SR3 denoiser (JAX's
+    `_calib_inputs`): x_t = γ·x0 + √(1−γ²)·ε at the steps linspace(0, T−1, K)
+    of `sched` (γ = √ᾱ_{t+1}), x0 the condition `cond` (1, H, W, C) where it
+    has the sample's channels, else zeros; a conditional 'test' call puts
+    the condition before x_t, as the chain does. The net's t is γ (sr3) or
+    the step (ddpm). Noise from `calib_noise`."""
+    T = sched.num_timesteps
+    ts = np.unique(np.linspace(0, T - 1, max(2, int(K))).astype(np.int64))
+    gam = sched.sqrt_alphas_cumprod_prev.detach().cpu().numpy()[ts + 1]
+    ch = process.channels
+    use_cond = process.conditional and kind == "test" and cond is not None
+    if use_cond:
+        cond = cond.to(device, torch.float32)
+        h, w = cond.shape[1], cond.shape[2]
+    else:
+        h = w = process.image_size
+    x0 = cond if use_cond and cond.shape[-1] == ch else torch.zeros(1, h, w, ch, device=device)
+    eps = calib_noise((len(ts), h, w, ch), device, eps)
+    g = torch.from_numpy(gam.astype(np.float32)).to(device)
+    x_t = g[:, None, None, None] * x0 + torch.sqrt(1.0 - g * g)[:, None, None, None] * eps
+    net_in = torch.cat([cond.expand(len(ts), -1, -1, -1), x_t], dim=-1) if use_cond else x_t
+    t = g if which == "sr3" else torch.from_numpy(ts.astype(np.float32)).to(device)
+    return net_in, t
+
+
 class AcceleratorSwitches:
     """The opt-in serving accelerators of a model, switched as JAX's
     `DiffusionModel` switches them: `set_deepcache(interval, depth)`,
-    `set_sliding_window(window, tau)`, `set_ddim(steps, eta)` (None or 0
-    restores the exact chain), or the config keys `model.deepcache {interval,
-    depth}`, `model.sliding_window {window, tau}` and `model.ddim {steps,
-    eta}`. DDIM respaces only a DDPM / SR3 chain (InDI takes its step count
-    from `num_timesteps`) and composes with DeepCache; the sliding window
-    excludes both. A trajectory request (`continuous`) serves the exact
-    chain, with one warning for each accelerator that is on.
-    `last_sliding_sweeps` holds the last windowed chain's sweeps."""
+    `set_sliding_window(window, tau)`, `set_ddim(steps, eta)`, `set_quant(bits,
+    ...)` (None or 0 restores the exact chain), or the config keys
+    `model.deepcache {interval, depth}`, `model.sliding_window {window,
+    tau}`, `model.ddim {steps, eta}` and `model.quant {bits, calib, updown,
+    shortcut, attn, clip}`. DDIM respaces only a DDPM / SR3 chain (InDI takes
+    its step count from `num_timesteps`) and composes with DeepCache; the
+    sliding window excludes both. A trajectory request (`continuous`) serves
+    the exact chain, with one warning for each accelerator that is on.
+    W8A8 (`quant`) changes the nets, not the chain, so it composes with all
+    three and with trajectories. `last_sliding_sweeps` holds the last
+    windowed chain's sweeps."""
 
     def __init__(self, model_opt: Mapping):
         dc_opt = model_opt.get("deepcache") or {}
@@ -182,8 +250,14 @@ class AcceleratorSwitches:
         dd_opt = model_opt.get("ddim") or {}
         eta = dd_opt.get("eta")
         self.set_ddim(dd_opt.get("steps"), 0.0 if eta is None else eta)
+        q_opt = model_opt.get("quant") or {}
+        self.set_quant(q_opt.get("bits"), int(q_opt.get("calib") or 8),
+                       bool(q_opt.get("updown", False)), bool(q_opt.get("shortcut", False)),
+                       bool(q_opt.get("attn", False)), float(q_opt.get("clip") or 1.0))
         self.last_sliding_sweeps = None
+        self.last_calibration_s = None
         self._warned_continuous = set()
+        self._warned_quant_fused = False
 
     def set_deepcache(self, interval, depth: int = 1):
         """DeepCache serving: the full UNet every `interval`-th step ('auto':
@@ -204,6 +278,68 @@ class AcceleratorSwitches:
         """Respaced DDIM serving of a DDPM / SR3 chain in `steps` steps at
         `eta`; None or 0 restores the exact chain."""
         self.ddim = (int(steps), float(eta)) if steps else None
+
+    def set_quant(self, bits, calib: int = 8, updown: bool = False, shortcut: bool = False,
+                  attn: bool = False, clip: float = 1.0):
+        """W8A8 quantized serving (models/quant_unet.py): the nets of a
+        `test` / `sample` call are quantized once, after a calibration
+        forward of `calib` rows spanning the chain (`indi_calib_inputs`,
+        `sr_calib_inputs`), at the
+        ResnetBlocks' Block convs, plus the Down/Upsample and 1×1 shortcut
+        convs (`updown`, `shortcut`) and the attention block's 1×1 convs
+        (`attn`); `clip` scales the calibrated activation range. Only 8 bits;
+        None or 0 restores the exact forward. Drops the quantized nets."""
+        if bits:
+            if int(bits) != 8:
+                raise ValueError("set_quant: only 8-bit is supported")
+            self.quant = dict(calib=int(calib), updown=bool(updown), shortcut=bool(shortcut),
+                              attn=bool(attn), clip=float(clip))
+        else:
+            self.quant = None
+        self.drop_quant_cache()
+
+    def drop_quant_cache(self):
+        """Forget the quantized nets: they are stale once the weights change
+        (a train step, an EMA update, a load)."""
+        self._quant_nets = {}
+
+    def quantized_unets(self, unets, kind: str, calib):
+        """The W8A8 copies of `unets` for a `kind` ('test' or 'sample') call,
+        built once per (source nets, kind) as JAX's `_maybe_quantize` does:
+        `calib(i)` gives UNet i's calibration batch (x, t);
+        `last_calibration_s` the host seconds of the last build."""
+        from .models.quant_unet import (collect_act_absmax, iter_quant_sites,
+                                        quantize_unet)
+
+        key = (kind,) + tuple(id(u) for u in unets)
+        hit = self._quant_nets.get(key)
+        if hit is not None and all(a is b for a, b in zip(hit[0], unets)):
+            return hit[1]
+        q, t0, out = self.quant, time.perf_counter(), []
+        for i, unet in enumerate(unets):
+            x, t = calib(i)
+            stats = collect_act_absmax(unet, x, t)
+            out.append(quantize_unet(unet, stats, updown=q["updown"], shortcut=q["shortcut"],
+                                     attn=q["attn"], clip_ratio=q["clip"]))
+            logger.info("W8A8: quantized UNet %d of %d (%d int8 conv sites, calib batch %d)",
+                        i + 1, len(unets), sum(1 for _ in iter_quant_sites(out[-1])),
+                        x.shape[0])
+        self.last_calibration_s = time.perf_counter() - t0
+        self._quant_nets[key] = (tuple(unets), tuple(out))
+        return tuple(out)
+
+    def serving_fused(self, fused: Optional[bool]) -> Optional[bool]:
+        """`fused` as served: a W8A8 net runs its own unfused forward (JAX's
+        `_apply` takes the int8 walker before the fused switch), so with
+        `quant` on a fused request (`fused`, or DSP_FUSED=1 when None) is
+        served unfused, logged once."""
+        if self.quant is None:
+            return fused
+        if (fused_enabled() if fused is None else fused) and not self._warned_quant_fused:
+            logger.info("W8A8: the quantized nets serve through their own unfused forward; "
+                        "the fused walk (DSP_FUSED=1 / fused=True) is not taken")
+            self._warned_quant_fused = True
+        return False
 
     def dc_interval(self, T: int) -> int:
         """The refresh interval of a T-step chain: 'auto' is
@@ -257,6 +393,17 @@ class SplittingModel(AcceleratorSwitches):
             return self.nets.indi1.denoise_fn, self.nets.indi2.denoise_fn
         return (self.nets.denoise_fn,)
 
+    def served_unets(self, x):
+        """The UNets a `test` on the NHWC batch x serves: their W8A8 copies
+        when `quant` is on (calibrated on x's first tile), else `unets()`."""
+        unets = self.unets()
+        if self.quant is None:
+            return unets
+        process = self.process
+        procs = (process.indi1, process.indi2) if self.which == "joint_indi" else (process,)
+        return self.quantized_unets(unets, "test", lambda i: indi_calib_inputs(
+            procs[i], unets[i].in_channel, x[:1], self.quant["calib"], self.device))
+
     def denoise_fns(self, fused: Optional[bool] = None):
         """(x, t) -> x̂0 for each UNet, through `apply_unet`."""
         fused = self.fused if fused is None else fused
@@ -282,9 +429,11 @@ class SplittingModel(AcceleratorSwitches):
         was_training = self.nets.training
         self.nets.eval()
         try:
+            unets = self.served_unets(x)
+            fused = self.serving_fused(self.fused if fused is None else fused)
+            fns = tuple(functools.partial(apply_unet, net, fused=fused) for net in unets)
             if accelerator == "deepcache":
-                appliers = [make_cached_denoisers(net, self.deepcache[1])
-                            for net in self.unets()]
+                appliers = [make_cached_denoisers(net, self.deepcache[1]) for net in unets]
                 kw = dict(interval=self.dc_interval(n), num_timesteps=n, t_float_start=t0,
                           generator=self.generator)
                 if joint:
@@ -295,10 +444,9 @@ class SplittingModel(AcceleratorSwitches):
                 sampler = (joint_indi_inference_sliding_window if joint
                            else indi_inference_sliding_window)
                 out, self.last_sliding_sweeps = sampler(
-                    self.process, *self.denoise_fns(fused), x, n, t0, window, tau,
-                    generator=self.generator)
+                    self.process, *fns, x, n, t0, window, tau, generator=self.generator)
                 return out
-            return self.process.inference(*self.denoise_fns(fused), x, n, t0,
-                                          generator=self.generator, continuous=continuous)
+            return self.process.inference(*fns, x, n, t0, generator=self.generator,
+                                          continuous=continuous)
         finally:
             self.nets.train(was_training)

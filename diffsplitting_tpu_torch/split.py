@@ -39,13 +39,40 @@ from .data.check import run_check
 from .data.device_pool import DevicePatchPool
 from .data.split_dataset import DataLocation
 from .device import resolve_device
+from .models.precision import compute_dtype
 from .train import create_model
 from .utils import setup_logger
 from .utils.metrics import calculate_psnr, calculate_ssim, save_img
-from .utils.profiling import StepTimer
+from .utils.flops import config_forward_flops
+from .utils.profiling import StepTimer, peak_flops
 from .utils.psnr import PSNR
 
 DEVICE_POOL_CAP_BYTES = 4 << 30
+
+
+def train_flops_per_step(opt) -> Optional[float]:
+    """3 × the forward FLOPs (forward and backward) of the configured UNet at
+    the train patch and batch, times the nets (2 for joint_indi), as JAX's
+    `_train_flops_per_step` counts; None where the config has no patch."""
+    patch = opt["datasets"].get("patch_size")
+    if patch is None:
+        return None
+    m = opt["model"]
+    n_nets = 2 if m["which_model_G"] == "joint_indi" else 1
+    fwd = config_forward_flops(m, patch, opt["datasets"]["train"]["batch_size"])
+    return 3.0 * fwd * n_nets
+
+
+def train_peak_flops(opt, device, logger) -> Optional[float]:
+    """The card's peak for the config's compute dtype, None on the CPU or on
+    a card `peak_flops` does not know (logged: no MFU then)."""
+    if device.type != "cuda":
+        return None
+    try:
+        return peak_flops(compute_dtype(opt["model"]), device)
+    except ValueError as e:
+        logger.warning("%s: MFU is not reported", e)
+        return None
 
 
 def device_pool_eligible(train_set, cap_bytes: int = DEVICE_POOL_CAP_BYTES) -> bool:
@@ -211,7 +238,8 @@ def train(opt, diffusion, train_set, val_set, logger, wandb_logger) -> list:
     print_freq = int(opt["train"]["print_freq"])
     val_freq = int(opt["train"]["val_freq"])
     save_freq = int(opt["train"]["save_checkpoint_freq"])
-    timer = StepTimer(flops_per_step=None)
+    timer = StepTimer(flops_per_step=train_flops_per_step(opt),
+                      peak=train_peak_flops(opt, diffusion.device, logger))
     val_psnrs, val_step = [], 0
     while current_step < n_iter:
         current_epoch += 1

@@ -62,11 +62,19 @@ remat rematerializes the UNet's blocks in the backward (models/unet.py).
 DSP_PRECAST=1 serves from a copy whose Conv/Linear weights are cast once a
 call (`_inference_nets`, JAX's `_inference_params`).
 
+W8A8 quantized serving (`model.quant {bits, calib, updown, shortcut, attn,
+clip}` or `set_quant`, `serving.AcceleratorSwitches`): a chain serves the
+W8A8 copies of the inference nets (models/quant_unet.py; in place of the
+DSP_PRECAST copy, as JAX's `_serving_params`), built once per nets and kind
+('test', 'sample') after a calibration forward, and dropped after a train
+step, an EMA update or a load. A quantized net serves through its own
+unfused forward even at DSP_FUSED=1 or `fused=True` (logged once), as JAX's
+`_apply` does; DDIM, DeepCache and the window compose with it.
+
 On one device, `train.optimizer.zero` and `model.param_sharding` (JAX's
 ZeRO-1 Adam moments and FSDP parameters over the 'data' mesh axis) are the
 no-ops they are on a one-device mesh and are not read; sharding across cards
-is ROADMAP item 1h. Not ported: W8A8 quantized serving (`model.quant`,
-ROADMAP item 1g), which raises NotImplementedError for every family.
+is ROADMAP item 1h.
 """
 
 from __future__ import annotations
@@ -90,7 +98,8 @@ from ..diffusion.parallel_sampling import ddpm_sample_sliding_window
 from ..models import apply_unet
 from ..models.blocks import set_dropout_generator
 from ..models.precision import cast_unet_params_for_inference, precast_enabled
-from ..serving import AcceleratorSwitches, SplittingModel, define_generator, init_weights
+from ..serving import (AcceleratorSwitches, SplittingModel, define_generator, init_weights,
+                       sr_calib_inputs)
 from ..utils.weights import load_reference_checkpoint
 from .checkpoints import load_trainer_state, resolve_checkpoint, save_checkpoint
 from .clipping import global_norm, make_clip
@@ -99,11 +108,6 @@ from .optim import make_lr, optax_adam
 logger = logging.getLogger("base")
 
 SR_FAMILIES = ("ddpm", "sr3")
-
-
-def not_ported_1g(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: W8A8 quantized serving is not ported (ROADMAP item "
-                               "1g); the port serves the float32 / bfloat16 forward")
 
 
 def create_model(opt: Mapping, **kwargs) -> "DiffusionModel":
@@ -126,8 +130,6 @@ class DiffusionModel:
         self.which = model_opt["which_model_G"]
         if self.which not in ("indi", "joint_indi") + SR_FAMILIES:
             raise NotImplementedError(f"which_model_G={self.which!r} is not recognized")
-        if (model_opt.get("quant") or {}).get("bits"):
-            raise not_ported_1g("model.quant")
         if model_opt.get("finetune_norm"):
             # the JAX package trains only the parameters whose path holds
             # 'transformer' and raises when none does; no UNet has one
@@ -254,6 +256,7 @@ class DiffusionModel:
                 d = 0.0 if self.global_step < self.ema_start else self.ema_decay
                 for e, p in zip(self.ema_nets.parameters(), self.params):
                     e.mul_(d).add_(p, alpha=1.0 - d)
+        self.switches.drop_quant_cache()  # the quantized nets are stale
 
         self.log_dict["l_pix"] = loss.detach()
         for k, v in logs.items():
@@ -274,9 +277,11 @@ class DiffusionModel:
     def _inference_nets(self):
         """The nets a chain serves from: the EMA copy when the EMA is on; with
         DSP_PRECAST=1 and a bf16 UNet, a copy of them whose Conv/Linear
-        weights are cast to bf16 once for the call (bit-identical outputs)."""
+        weights are cast to bf16 once for the call (bit-identical outputs),
+        unless W8A8 is on: the quantized copies replace the precast one."""
         nets = self.ema_nets if self.use_ema else self.nets
-        if precast_enabled() and any(u.compute_dtype == torch.bfloat16 for u in self.unets()):
+        if (self.quant is None and precast_enabled()
+                and any(u.compute_dtype == torch.bfloat16 for u in self.unets())):
             return cast_unet_params_for_inference(nets)
         return nets
 
@@ -293,6 +298,12 @@ class DiffusionModel:
         indi / joint_indi ignore it."""
         self.switches.set_ddim(steps, eta)
 
+    def set_quant(self, bits, calib: int = 8, updown: bool = False, shortcut: bool = False,
+                  attn: bool = False, clip: float = 1.0):
+        """W8A8 quantized serving (`AcceleratorSwitches.set_quant`)."""
+        self.switches.set_quant(bits, calib, updown, shortcut, attn, clip)
+
+    quant = property(lambda self: self.switches.quant)
     deepcache = property(lambda self: self.switches.deepcache)
     sliding_window = property(lambda self: self.switches.sliding_window)
     ddim = property(lambda self: self.switches.ddim)
@@ -300,15 +311,22 @@ class DiffusionModel:
                                    doc="The sweeps of the last sliding-window chain.")
 
     @contextlib.contextmanager
-    def _serving_unet(self):
-        """The UNet of a ddpm / sr3 chain: the inference nets' in eval mode,
-        under inference_mode, their mode restored after."""
+    def _serving_unet(self, kind: str, cond=None):
+        """The UNet of a ddpm / sr3 `kind` ('test' or 'sample') chain: the
+        inference nets' in eval mode (their W8A8 copy when `quant` is on,
+        calibrated on `cond`'s first image), under inference_mode, their mode
+        restored after."""
         nets = self._inference_nets()
         was_training = nets.training
         nets.eval()
         try:
             with torch.inference_mode():
-                yield nets.denoise_fn
+                unet = nets.denoise_fn
+                if self.quant is not None:
+                    unet, = self.switches.quantized_unets((unet,), kind, lambda i: sr_calib_inputs(
+                        self.which, self.process, self.current_sched, kind,
+                        self.quant["calib"], None if cond is None else cond[:1], self.device))
+                yield unet
         finally:
             nets.train(was_training)
 
@@ -320,8 +338,9 @@ class DiffusionModel:
         on = sw.accelerators(continuous, respaces=True)
         sched = self.current_sched
         kw = dict(generator=self.sample_generator, device=self.device)
-        with self._serving_unet() as unet:
-            fn = functools.partial(apply_unet, unet, fused=fused)
+        kind = "sample" if isinstance(x_in, tuple) else "test"
+        with self._serving_unet(kind, None if kind == "sample" else x_in) as unet:
+            fn = functools.partial(apply_unet, unet, fused=sw.serving_fused(fused))
             if "sliding_window" in on:
                 img, sw.last_sliding_sweeps = ddpm_sample_sliding_window(
                     self.process, fn, sched, x_in, *sw.sliding_window, **kw)
@@ -433,6 +452,7 @@ class DiffusionModel:
         gen_path, opt_path = resolve_checkpoint(load_path)
         logger.info("Loading pretrained model for G [%s] ...", gen_path)
         self.nets.load_state_dict(load_reference_checkpoint(gen_path, self.which), strict=True)
+        self.switches.drop_quant_cache()
         state = (load_trainer_state(opt_path)
                  if opt_path is not None and self.phase == "train" else None)
         if self.use_ema:

@@ -1,7 +1,9 @@
 """The port stands alone: it imports and runs (the fused forward, a train
-step, the DeepCache and sliding-window chains, an SR3 forward, chain and DDIM chain, and
-a bf16 UNet with remat included) with jax and the JAX package blocked, its sources import neither, and its entry points refuse
-to run without CUDA unless the caller asks for the CPU."""
+step, the DeepCache and sliding-window chains, a W8A8 chain, LPIPS and the
+FLOP count, an SR3 forward, chain and DDIM chain, and a bf16 UNet with remat
+included) with jax and the JAX package blocked, its sources import neither,
+and its entry points refuse to run without CUDA unless the caller asks for
+the CPU."""
 
 import ast
 import os
@@ -82,6 +84,17 @@ windowed = model.test(x)
 assert cached.shape == windowed.shape == (2, 16, 16, 2)
 assert torch.isfinite(cached).all() and torch.isfinite(windowed).all()
 assert model.last_sliding_sweeps == 2 * model.process.val_num_timesteps
+# W8A8 (ops/quant.py, models/quant_unet.py): one quantized chain; LPIPS, FLOPs
+model.set_sliding_window(None)
+model.set_quant(8, calib=2)
+quantized = model.test(x)
+assert quantized.shape == (2, 16, 16, 2) and torch.isfinite(quantized).all()
+model.set_quant(None)
+from diffsplitting_tpu_torch.utils import lpips
+from diffsplitting_tpu_torch.utils.flops import config_forward_flops
+lp = lpips.random_lpips_params(torch.Generator().manual_seed(0))
+assert lpips.lpips_grayscale(lp, x.repeat(1, 4, 4, 1), -x.repeat(1, 4, 4, 1)).shape == (2,)
+assert config_forward_flops(opt["model"], 16) > 0
 # SR3: the noise-level UNet, one forward and a 2-step chain
 from diffsplitting_tpu_torch.diffusion import SR3Process, build_ddpm_schedule
 from diffsplitting_tpu_torch.models import UNet

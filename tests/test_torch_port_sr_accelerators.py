@@ -16,7 +16,7 @@ of `test` / `sample` through them, and infer.py / sample.py's flags.
   * the trainer: config keys and setters, unset restores the exact chain,
     the window excludes DDIM and DeepCache, trajectory requests serve the
     exact chain, the EMA nets serve, indi ignores DDIM, `model.quant`
-    raises for every family (tests/test_ddim_serving.py,
+    serves W8A8 for every family (tests/test_ddim_serving.py,
     test_ddim_deepcache.py and test_deepcache_serving.py's contract);
   * infer.py and sample.py with `--ddim 2 --deepcache 1` write the files the
     top-level CLIs write with an accelerator on (their final frames only).
@@ -215,7 +215,7 @@ def direct(m, chain, *args, **kw):
     state `serve` starts from."""
     m.sample_generator.manual_seed(7)
     x_in = m.data["input"] if m.process.conditional else (1, 16, 16, 2)
-    with m._serving_unet() as unet:
+    with m._serving_unet("test") as unet:
         return chain(m.process, unet, m.current_sched, x_in, *args,
                      generator=m.sample_generator, device=m.device)
 
@@ -311,11 +311,26 @@ def test_indi_ignores_ddim():
 
 
 @pytest.mark.parametrize("which", ["indi", "joint_indi", "sr3"])
-def test_quant_is_refused_for_every_family(which):
+def test_quant_serves_every_family(which):
+    """`model.quant` serves the W8A8 nets for every family (the unconditional
+    sr3 through `sample`), as JAX's trainer does; unset, the exact chain."""
     opt = tiny_opt(which, in_ch=2, out_ch=2)
-    opt["model"]["quant"] = {"bits": 8}
-    with pytest.raises(NotImplementedError, match="item 1g"):
-        DiffusionModel(opt, device="cpu")
+    outs, kinds = [], []
+    for quant in ({"bits": 8}, None):
+        opt["model"]["quant"] = quant
+        m = DiffusionModel(opt, device="cpu", seed=0)
+        m.set_new_noise_schedule(opt["model"]["beta_schedule"]["val"], "val")
+        if which == "sr3":
+            m.sample_generator.manual_seed(0)
+            outs.append(m.sample(2))
+        else:
+            m.feed_data({"input": np.random.default_rng(0).normal(size=(2, 16, 16, 2))
+                         .astype(np.float32)})
+            outs.append(m.test())
+        assert torch.isfinite(outs[-1]).all()
+        kinds.append(sorted(key[0] for key in m.switches._quant_nets))
+    assert kinds == [["sample" if which == "sr3" else "test"], []]
+    assert outs[0].shape == outs[1].shape and not torch.equal(*outs)
 
 
 # ------------------------------------------------------------------ the CLIs

@@ -10,7 +10,8 @@
     are equal bit for bit (the chains' noise differs: the packages draw
     from different generators);
   * eval.py prints the same PSNR / SSIM lines as the top-level eval.py on the
-    same PNGs.
+    same PNGs;
+  * `--w8a8` and `--w8a8_sites` serve W8A8 through infer.py and sample.py.
 """
 
 import json
@@ -28,6 +29,7 @@ from diffsplitting_tpu_torch import eval as port_eval, infer as port_infer, samp
 from diffsplitting_tpu_torch.config import load_json
 from diffsplitting_tpu_torch.data import create_dataset, lrhr_dataset
 from diffsplitting_tpu_torch.data import prepare_data
+from diffsplitting_tpu_torch.models.quant_unet import iter_quant_sites
 
 from tests import fake_lmdb
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -185,15 +187,25 @@ def test_sample_val_phase_writes_what_jax_writes(lrhr_root, tmp_path, monkeypatc
 
 
 @pytest.mark.parametrize("flag", [["--w8a8"], ["--w8a8_sites", "all"]])
-def test_cli_accelerator_flags_are_refused(flag, lrhr_root, tmp_path):
-    """W8A8 (ROADMAP item 1g) is refused; --ddim, --deepcache and
-    --sliding_window serve (tests/test_torch_port_sr_accelerators.py)."""
-    cfg = sr_config(tmp_path, lrhr_root / "root", "sr3", True)
-    for cli in (port_infer, port_sample):
-        with pytest.raises(NotImplementedError, match="item 1g"):
-            cli.main(["-c", cfg, "-p", "val", "-rootdir", str(tmp_path / "exp"), "--device",
-                      "cpu"] + flag)
-    assert not (tmp_path / "exp").exists()  # refused before any directory is made
+def test_cli_w8a8_flags_serve(flag, lrhr_root, tmp_path):
+    """W8A8 serves through infer.py (sr3, conditional) and sample.py (ddpm,
+    unconditional) as the JAX CLIs' flags set it (`set_quant(8, updown=wide,
+    shortcut=wide)`; a sites choice implies --w8a8); alone it keeps the
+    trajectory PNGs. The W8A8 chains themselves are held in
+    tests/test_torch_port_quant_serving.py."""
+    wide = "all" in flag
+    for cli, which, conditional, kinds in (
+            (port_infer, "sr3", True, ("sr", "sr_process", "hr", "inf")),
+            (port_sample, "ddpm", False, ("sample", "sample_process"))):
+        cfg = sr_config(tmp_path, lrhr_root / "root", which, conditional)
+        out = cli.main(["-c", cfg, "-p", "val", "-rootdir", str(tmp_path / which), "--device",
+                        "cpu"] + flag)
+        model = out["model"]
+        assert model.quant == dict(calib=8, updown=wide, shortcut=wide, attn=False, clip=1.0)
+        (_, nets), = model.switches._quant_nets.values()
+        assert sum(1 for _ in iter_quant_sites(nets[0])) == (23 if wide else 16)
+        assert sorted(pngs(Path(out["results"]))) == sorted(
+            f"0_{i}_{k}.png" for i in (1, 2) for k in kinds)
 
 
 def test_infer_refuses_bfloat16_config(tmp_path):

@@ -122,8 +122,8 @@ def test_indi_refuses_a_conditional_bridge():
     # not take is refused
     (lambda o: o["model"].update(compute_dtype="float16"), NotImplementedError,
      "compute_dtype"),
-    # W8A8 serving (ROADMAP item 1g) is refused for every family, indi too
-    (lambda o: o["model"].update(quant={"bits": 8}), NotImplementedError, "item 1g"),
+    # W8A8 serving takes 8 bits only, as in JAX (trainer.py:201-202)
+    (lambda o: o["model"].update(quant={"bits": 4}), ValueError, "only 8-bit"),
 ])
 def test_trainer_refusals(edit, error, match):
     opt = tiny_opt("indi", in_ch=2, out_ch=2)
