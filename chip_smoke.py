@@ -19,7 +19,11 @@ attention at N = 16 tokens), again with inner_channel 32 (attention at
 D = 256 through the wide tensor-core kernel; the fused walk plans its wide
 conv sites to library ops), and with inner_channel 8 and 8 groups (D = 64,
 the narrow tensor-core kernel), unfused and fused, against the port on the
-CPU. The attention kernels at other head dims are also held against their
+CPU. The D = 128 attention kernel (the Hagen mid block, N = 4096) is held
+against its plain version at B = 1, 2, 4 and 8 with its key-split plan logged,
+two launches and a CUDA-graph replay bit-identical at B = 2, 4, 8 and at the
+CIFAR path's N = 16, and timed by host loop and by CUDA-graph device time
+beside SDPA. The attention kernels at other head dims are also held against their
 plain version and timed beside it and SDPA, each on its route, at D = 16 ...
 1024 (D = 192 on the wide kernel with a chunk of O past D; N = 4096 at D = 64
 and 192, the Hagen mid block at inner 8 and 24) and at the SR3 / DDPM
@@ -311,32 +315,48 @@ def phase_group_norm(dev, shapes, groups, batch=BATCH, timed=True):
 
 
 def phase_attention(dev, batches):
-    """Kernel vs plain version at N=4096, D=128, one head; timed at the
-    serving batch."""
+    """The D = 128 kernel against its plain version at N = 4096, one head,
+    at each of `batches` (the last is the serving batch, whose times the
+    kernels line reports): two launches and a CUDA-graph replay
+    bit-identical; the kernel's time through a host loop of calls and its
+    device time alone by CUDA-graph replay, the plain version's and SDPA's,
+    the bound and the key-split plan. Returns the last batch's results with
+    every batch's under `by_batch`, and the worst error."""
     import torch
     import torch.nn.functional as F
-    from diffsplitting_tpu_torch.ops import attention_reference, fused_attention
+    from diffsplitting_tpu_torch.kernels.variants import device_ms
+    from diffsplitting_tpu_torch.ops import FusedAttention, attention_reference, fused_attention
+    from diffsplitting_tpu_torch.ops.attention import D128_KEY_TILE
 
     g = torch.Generator(device=dev).manual_seed(2)
     scale = 1.0 / math.sqrt(ATTN_D)
-    worst, res = 0.0, None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, res, by_batch = 0.0, None, {}
     for B in batches:
         # q, k, v as the mid block hands them over: views of one qkv tensor
         qkv = torch.randn(B, ATTN_N, 1, 3, ATTN_D, device=dev, generator=g)
         q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
         got = fused_attention(q, k, v, scale)
+        how = FusedAttention.last_d128_plan  # the plan the wrapper launched
+        again = fused_attention(q, k, v, scale)
         want = attention_reference(q, k, v, scale)
         torch.cuda.synchronize()
         err = max_err(got, want)
         # f32 FMA on both sides; softmax sums over 4096 keys in another order
         tol = 1e-4 * (1 + want.abs().max().item())
-        if not err <= tol:
-            raise AssertionError(f"attention B={B}: max abs err {err} > {tol}")
+        if not err <= tol or not torch.equal(got, again):
+            raise AssertionError(f"attention B={B}: max abs err {err} (tol {tol}), two launches "
+                                 f"equal {torch.equal(got, again)}")
+        graph_replay_equals_eager(f"attention B={B} N={ATTN_N} D={ATTN_D}",
+                                  lambda: fused_attention(q, k, v, scale), got)
         worst = max(worst, err)
+        plan = dict(how._asdict(), key_tile=D128_KEY_TILE, blocks=how.blocks * B)
         ms = time_ms(lambda: fused_attention(q, k, v, scale), 10)
+        dev_ms = device_ms(lambda: fused_attention(q, k, v, scale))
         plain = time_ms(lambda: attention_reference(q, k, v, scale), 3)
         qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
         lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 10)
+        lib_dev = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
         flops = 4 * B * ATTN_N * ATTN_N * ATTN_D  # q·kᵀ and p·v
         nbytes = 4 * B * ATTN_N * ATTN_D * 4  # q, k, v in, out
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -346,14 +366,20 @@ def phase_attention(dev, batches):
         fma_ms = flops / F32_FLOPS_PER_S * 1e3
         bound = max(tc_ms, bytes_ms)
         bound_by = "operations" if tc_ms >= bytes_ms else "bytes"
-        log(f"attention B={B} N={ATTN_N} D={ATTN_D} heads=1: err {err:.3g} (tol {tol:.3g}) kernel "
-            f"{ms:.4f} ms plain {plain:.4f} ms library {lib:.4f} ms; bounds: 3xTF32 tensor-core "
-            f"{tc_ms:.4f} ms ({bound / ms:.1%} of it), f32 FMA {fma_ms:.4f} ms, bytes "
-            f"{bytes_ms:.4f} ms; {flops / ms / 1e9:.1f} f32 TFLOP/s")
-        res = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=bound_by)
-        del qkv, q, k, v, got, want
+        log(f"attention B={B} N={ATTN_N} D={ATTN_D} heads=1: plan {D128_KEY_TILE}-key tiles, "
+            f"{how.splits} key splits of {how.tiles_per_split} tiles, {how.blocks * B} blocks "
+            f"of 128 queries on {sms} SMs; err {err:.3g} (tol {tol:.3g}), two "
+            f"launches and a graph replay bit-identical; kernel {ms:.4f} ms (device time "
+            f"{dev_ms:.4f}) plain {plain:.4f} ms library {lib:.4f} ms (device time "
+            f"{lib_dev:.4f}; {lib_dev / dev_ms:.2f}x the kernel's); bounds: 3xTF32 tensor-core "
+            f"{tc_ms:.4f} ms ({bound / dev_ms:.1%} of it by device time), f32 FMA "
+            f"{fma_ms:.4f} ms, bytes {bytes_ms:.4f} ms; {flops / dev_ms / 1e9:.1f} f32 TFLOP/s")
+        res = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                   library_device_ms=lib_dev, bound_ms=bound, bound_by=bound_by, plan=plan)
+        by_batch[f"B={B} N={ATTN_N} D={ATTN_D}"] = dict(res, max_abs_err=err)
+        del qkv, q, k, v, got, again, want
         torch.cuda.empty_cache()
-    return res, worst
+    return dict(res, by_batch=by_batch), worst
 
 
 # (B, N, D) of attention at head dims other than 128: D = 16, 64 and 256 at
@@ -657,15 +683,20 @@ def phase_cifar10(dev, inner=None, plan=(31, 0), groups=None):
         qkv = torch.randn(B, n_tok, 1, 3, dim, device=dev, generator=g)
         q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
         got = fused_attention(q, k, v, 1 / math.sqrt(dim))
+        again = fused_attention(q, k, v, 1 / math.sqrt(dim))
         want = attention_reference(q, k, v, 1 / math.sqrt(dim))
         err = max_err(got, want)
         tol = 1e-4 * (1 + want.abs().max().item())  # f32 on both sides
-        if not err <= tol:
-            raise AssertionError(f"attention B={B} N={n_tok} D={dim}: max abs err {err} > {tol}")
+        if not err <= tol or not torch.equal(got, again):
+            raise AssertionError(f"attention B={B} N={n_tok} D={dim}: max abs err {err} (tol "
+                                 f"{tol}), two launches equal {torch.equal(got, again)}")
+        graph_replay_equals_eager(f"{name} attention B={B} N={n_tok} D={dim}",
+                                  lambda: fused_attention(q, k, v, 1 / math.sqrt(dim)), got)
         ms = time_ms(lambda: fused_attention(q, k, v, 1 / math.sqrt(dim)), 20)
         log(f"{name} kernels at B={B}: GN+Swish at {len(shapes)} shapes max abs err "
             f"{gn_err:.3g}, conv_gn at {len(sites)} sites {conv_err:.3g}, attention N={n_tok} "
-            f"D={dim} heads=1 {err:.3g} (tol {tol:.3g}), {ms:.4f} ms")
+            f"D={dim} heads=1 {err:.3g} (tol {tol:.3g}; two launches and a graph replay "
+            f"bit-identical), {ms:.4f} ms")
     outs = {}
     for fused in (False, True):
         expected = {"group_norm_swish": (1 if fused else gn_per_forward) * forwards,
@@ -717,11 +748,11 @@ def phase_cifar10(dev, inner=None, plan=(31, 0), groups=None):
     return outs[False][1], outs[True][1]
 
 
-# profile family -> the source whose __global__ functions make it up, and
+# profile family -> the sources whose __global__ functions make it up, and
 # the launch count that says the family ran
-KERNEL_FAMILIES = {"group_norm_swish kernel": ("groupnorm_swish.cu", "group_norm_swish"),
-                   "attention kernel": ("attention.cu", "attention"),
-                   "conv_gn kernel": ("conv_gn.cu", "conv_gn")}
+KERNEL_FAMILIES = {"group_norm_swish kernel": (("groupnorm_swish.cu",), "group_norm_swish"),
+                   "attention kernel": (("attention.cu", "attention_wide.cu"), "attention"),
+                   "conv_gn kernel": (("conv_gn.cu",), "conv_gn")}
 
 
 @functools.cache
@@ -730,10 +761,10 @@ def kernel_names() -> dict:
     csrc = Path(__file__).resolve().parent / "diffsplitting_tpu_torch" / "csrc"
     pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
     names = {}
-    for fam, (src, _) in KERNEL_FAMILIES.items():
-        names[fam] = pattern.findall((csrc / src).read_text())
+    for fam, (sources, _) in KERNEL_FAMILIES.items():
+        names[fam] = [n for src in sources for n in pattern.findall((csrc / src).read_text())]
         if not names[fam]:
-            raise AssertionError(f"no __global__ function found in csrc/{src}")
+            raise AssertionError(f"no __global__ function found in csrc/{sources}")
     return names
 
 
@@ -1416,24 +1447,32 @@ def tp_mixtures(rng, batch: int, patch: int):
 
 def attention_at_batch(dev, B: int) -> dict:
     """The D = 128 attention kernel at B, N = 4096 (the one-step inversions'
-    mid block at B = 1) against its plain version, with the kernel's, the
-    plain version's and SDPA's device time by CUDA-graph replay (and the
-    kernel's through a host loop of calls)."""
+    mid block at B = 1, whose plan splits the keys and adds the combine
+    launch) against its plain version, two launches and a CUDA-graph replay
+    bit-identical, with the kernel's, the plain version's and SDPA's device
+    time by CUDA-graph replay (and the kernel's through a host loop of
+    calls)."""
     import torch
     import torch.nn.functional as F
     from diffsplitting_tpu_torch.kernels.variants import device_ms
-    from diffsplitting_tpu_torch.ops import attention_reference, fused_attention
+    from diffsplitting_tpu_torch.ops import FusedAttention, attention_reference, fused_attention
+    from diffsplitting_tpu_torch.ops.attention import D128_KEY_TILE
 
     g = torch.Generator(device=dev).manual_seed(22)
     scale = 1.0 / math.sqrt(ATTN_D)
     qkv = torch.randn(B, ATTN_N, 1, 3, ATTN_D, device=dev, generator=g)
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     got = fused_attention(q, k, v, scale)
+    how = FusedAttention.last_d128_plan  # the plan the wrapper launched
+    again = fused_attention(q, k, v, scale)
     want = attention_reference(q, k, v, scale)
     err = max_err(got, want)
     tol = 1e-4 * (1 + want.abs().max().item())  # as phase_attention
-    if not err <= tol:
-        raise AssertionError(f"attention B={B}: max abs err {err} > {tol}")
+    if not err <= tol or not torch.equal(got, again):
+        raise AssertionError(f"attention B={B}: max abs err {err} (tol {tol}), two launches "
+                             f"equal {torch.equal(got, again)}")
+    graph_replay_equals_eager(f"attention B={B} N={ATTN_N} D={ATTN_D}",
+                              lambda: fused_attention(q, k, v, scale), got)
     ms = time_ms(lambda: fused_attention(q, k, v, scale), 20)
     dev_ms = device_ms(lambda: fused_attention(q, k, v, scale))
     plain_dev = device_ms(lambda: attention_reference(q, k, v, scale), 5)
@@ -1443,13 +1482,16 @@ def attention_at_batch(dev, B: int) -> dict:
     tc_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
     bytes_ms = 4 * B * ATTN_N * ATTN_D * 4 / HBM_BYTES_PER_S * 1e3
     bound = max(tc_ms, bytes_ms)
-    log(f"attention B={B} N={ATTN_N} D={ATTN_D}: err {err:.3g} (tol {tol:.3g}); device time "
+    log(f"attention B={B} N={ATTN_N} D={ATTN_D}: plan {how.splits} key splits of "
+        f"{how.tiles_per_split} {D128_KEY_TILE}-key tiles, {how.blocks * B} blocks; err "
+        f"{err:.3g} (tol {tol:.3g}), two launches and a graph replay bit-identical; device time "
         f"(CUDA-graph replay): kernel {dev_ms:.4f} ms, SDPA {lib_dev:.4f} ms ({lib_dev / dev_ms:.2f}x "
         f"the kernel's), plain {plain_dev:.4f} ms; kernel through a host loop {ms:.4f} ms; bound "
         f"{bound:.4f} ms ({'operations' if tc_ms >= bytes_ms else 'bytes'}; {bound / dev_ms:.1%} "
         "of it by device time)")
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_device_ms=plain_dev,
-                library_device_ms=lib_dev, bound_ms=bound)
+                library_device_ms=lib_dev, bound_ms=bound,
+                plan=dict(how._asdict(), key_tile=D128_KEY_TILE, blocks=how.blocks * B))
 
 
 def phase_time_predictor(dev, work: str) -> dict:
@@ -3871,7 +3913,7 @@ def main() -> int:
                                                        "library_device_ms")},
              sr3_by_shape=sr3["gn"]["by_shape"]),
         dict(name="attention", route="cuda",
-             source="diffsplitting_tpu_torch/csrc/attention.cu",
+             source="diffsplitting_tpu_torch/csrc/attention_wide.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
              launches=launches["attention"] + train["launches"]["attention"]
              + loop["launches"]["attention"] + tp["launches"]["attention"]
@@ -3879,9 +3921,11 @@ def main() -> int:
              + window["launches"]["attention"] + w8a8["launches"]["attention"],
              max_abs_err=max(attn_err, tp["attn_b1"]["max_abs_err"]), ms=attn["ms"],
              plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"], bound_by=attn["bound_by"],
-             library_ms=attn["library_ms"],
+             library_ms=attn["library_ms"], device_ms=attn["device_ms"],
+             library_device_ms=attn["library_device_ms"], plan=attn["plan"],
              by_shape={f"B=1 N={ATTN_N} D={ATTN_D}": {k: tp["attn_b1"][k] for k in (
-                 "ms", "device_ms", "plain_device_ms", "library_device_ms", "bound_ms")}}),
+                 "ms", "device_ms", "plain_device_ms", "library_device_ms", "bound_ms",
+                 "max_abs_err", "plan")}, **attn["by_batch"]}),
         dict(name="attention_wide", route="cuda",
              source="diffsplitting_tpu_torch/csrc/attention_wide.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
@@ -3960,9 +4004,10 @@ def main() -> int:
         "time predictor's start_training run's plus the t-refinement workflow's three runs "
         "(kernels) plus the DeepCache phase's four counted runs (exact unfused and fused, "
         "'auto', 5) plus the sliding window's τ=0 run; attention times are per call at "
-        f"B={BATCH}, N={ATTN_N}, D={ATTN_D}, its launches likewise (by_shape: at B=1, the "
-        "one-step inversions', device times by CUDA-graph "
-        "replay); "
+        f"B={BATCH}, N={ATTN_N}, D={ATTN_D} (device_ms by CUDA-graph replay; plan: the key "
+        "splits), its launches likewise (by_shape: at B=1, the one-step inversions', and at "
+        "B=2, 4 and 8, device times by CUDA-graph replay beside the host loop's, with the "
+        "plan); "
         "attention_wide times are per call at the inner-32 cifar10 path's mid block "
         "(its launches, unfused and fused; by_shape: host-loop and device times at every "
         "wide-routed shape, with SDPA's, errors and the plan), "

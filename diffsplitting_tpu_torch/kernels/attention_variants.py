@@ -1,17 +1,22 @@
 """Time the attention kernels beside variants of themselves on one card.
 
-    python -m diffsplitting_tpu_torch.kernels.attention_variants [--baseline FILE]
+    python -m diffsplitting_tpu_torch.kernels.attention_variants [--baseline FILE] [--json FILE]
     python -m diffsplitting_tpu_torch.kernels.attention_variants --wide [--baseline FILE [--host]] [--json FILE]
     python -m diffsplitting_tpu_torch.kernels.attention_variants --narrow [--baseline FILE]
     python -m diffsplitting_tpu_torch.kernels.attention_variants --bf16 [--baseline FILE] [--json FILE]
 
 Each variant is the shipped source (and csrc/*.cuh) with text substitutions,
 built by its own `nvcc` into its own library (all started together). By
-default the variants are of csrc/attention.cu's D = 128 kernel, called
-through `attention_f32_d128` at the mid block's shape (N = 4096, D = 128, one
-head; q, k, v views of one qkv tensor) at B = 8 and B = 2; `--baseline` adds
-any other source with the same entry point (an earlier version of the
-kernel, say). With `--wide` they are of csrc/attention_wide.cu
+default the variants are of csrc/attention_wide.cu's D = 128 kernel
+(D128_VARIANTS: 32-key tiles, K tiles in flight; and the wide kernel at D =
+128, its range widened in that variant only), called through
+`attention_f32_d128` at the Hagen mid block's shape (N = 4096, D = 128, one
+head; q, k, v views of one qkv tensor) at B = 1, 2, 4 and 8, each at the
+plan's key-split count and at 1 and twice it (the plan's count of the
+32-key variants' tiles); `--baseline` adds an earlier source's
+`attention_f32_d128` called with its own signature (no scratch, no plan: e.g.
+`git show 1e56b1a:diffsplitting_tpu_torch/csrc/attention.cu`, the mma.sync
+kernel). With `--wide` they are of csrc/attention_wide.cu's wide kernel
 (WIDE_VARIANTS: ring depth, 1xTF32), each at the plan's key-split count and
 at 1 and twice it (the shipped source also at the other key tile), at
 WIDE_SHAPES (every wide-routed shape of chip_smoke.py); the baseline is an
@@ -30,11 +35,10 @@ than the plan's, at BF16_SHAPES (chip_smoke.py's SR512_ATTN_SHAPES); the
 baseline is an earlier attention_bf16.cu, called with its own signature
 (before the key splits: no scratch arguments), e.g. `git show
 0104a7a:diffsplitting_tpu_torch/csrc/attention_bf16.cu`. The variants are
-timed in turns (forward, then in reverse order, SDPA among them) and each is
-held against the plain version. Prints the card, each variant's registers
-and spills, its time and its max abs error, and SDPA's time; with
-`--narrow`, `--wide` and `--bf16`, device time by CUDA-graph replay. Nothing
-here is used by the port.
+timed in turns (forward, then in reverse order, SDPA among them) by CUDA-graph
+device time, and each is held against the plain version. Prints the card,
+each variant's registers and spills, its time and its max abs error, and
+SDPA's time. Nothing here is used by the port.
 """
 
 from __future__ import annotations
@@ -50,38 +54,11 @@ from pathlib import Path
 from .build import SIGNATURES
 from .variants import build_all, card, device_ms, time_ms, variant_sources
 
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCE = "attention.cu"
 HEADER = "tf32x3.cuh"
 ONE_TF32 = (HEADER, "    mma_tf32(d, a_small, b0_big, b1_big);\n"
             "    mma_tf32(d, a_big, b0_small, b1_small);\n", "")
-# S summed per 16-wide head-dim step from 0 and added in f32, rather than over
-# all of D in the tensor core's own accumulator (it rounds toward zero); O
-# summed over all N keys in the accumulator, rather than per tile from 0
-S_PER_STEP = [(SOURCE, "                    mma_3xtf32(s[n], a0b, a0s, xb, yb, xs, ys);\n"
-               "                    mma_3xtf32(s[n], a1b, a1s, zb, wb, zs, ws);\n",
-               "                    float d[4] = {0.f, 0.f, 0.f, 0.f};\n"
-               "                    mma_3xtf32(d, a0b, a0s, xb, yb, xs, ys);\n"
-               "                    mma_3xtf32(d, a1b, a1s, zb, wb, zs, ws);\n"
-               "                    for (int e = 0; e < 4; ++e) s[n][e] += d[e];\n")]
-O_IN_MMA = [(SOURCE, "float d[16][4] = {};  // this tile's P V, from 0", "float (&d)[16][4] = o;"),
-            (SOURCE, "o[n][i] += d[n][i];", "(void)0;")]
-RESCALE = "#pragma unroll\n            for (int n = 0; n < 16; ++n) {\n                o[n][0] *= corr[0];"
-# name -> (file, old, new) substitutions on the shipped sources
-VARIANTS = {
-    "shipped": [],
-    # big * big only: plain TF32, to record the error the split removes
-    "1xtf32": [ONE_TF32],
-    # 64-key tiles in a ring of two stages (they spill with the P V sum)
-    "k64_2stages": [(SOURCE, "constexpr int kTileK = 32;", "constexpr int kTileK = 64;"),
-                    (SOURCE, "constexpr int kStages = 3;", "constexpr int kStages = 2;")],
-    # the summation of PRs 4 and 5: S and O in the MMA accumulator
-    "tc_accumulate": O_IN_MMA,
-    # S from 0 a head-dim step too
-    "s_per_step": S_PER_STEP,
-    # O's rescale skipped by a warp none of whose rows' max moved
-    "skip_rescale": [(SOURCE, RESCALE, "            if (!__all_sync(0xffffffffu, corr[0] == 1.f && "
-                      "corr[1] == 1.f))\n" + RESCALE)],
-}
 
 
 # the narrow kernel's tiling, by padded head dim DP
@@ -142,6 +119,26 @@ WIDE_VARIANTS = {
                (WIDE_SOURCE, _PV_CHAIN, "                wgmma_tf32(pv, pb[kk], desc_kmajor(vr), "
                 "kk > 0);\n")],
 }
+_D128_TK32 = (WIDE_SOURCE, "constexpr int kD128Keys = 64;", "constexpr int kD128Keys = 32;")
+# name -> (file, old, new) substitutions on csrc/attention_wide.cu for the
+# D = 128 kernel
+D128_VARIANTS = {
+    "shipped": [],
+    # 32-key tiles (64 shipped), with one K tile in flight as shipped (the
+    # next tile's load waits for both consumers' S of the last) and with two
+    # (they fit at 32 keys, not at 64)
+    "tk32": [_D128_TK32],
+    "tk32_kring2": [_D128_TK32, (WIDE_SOURCE, "constexpr int kD128KRing = 1;",
+                                 "constexpr int kD128KRing = 2;")],
+    # the wide kernel at D = 128 (its range widened here only), by `wide_plan`
+    "wide128": [(WIDE_SOURCE, "if (d <= 128 ||", "if (d < 128 ||")],
+}
+D128_BATCHES = (1, 2, 4, 8)  # the Hagen mid block: N = 4096, D = 128, one head
+# the entry of the mma.sync kernel that attention.cu held at commit 1e56b1a:
+# no scratch, no plan
+D128_UNSPLIT_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _F, _P]
+
+
 # (B, N, D): every wide-routed shape of chip_smoke.py: its ANY_D_SHAPES above
 # D = 128 (D = 256 at N = 16, 100 and 1024, D = 512 at N = 256, the mid block
 # of sr_sr3_64_512 in f32 at batch 2, the Hagen mid block at inner 24, D =
@@ -153,7 +150,6 @@ WIDE_SHAPES = [(1, 256, 512), (1, 64, 512), (4, 256, 512), (4, 64, 512), (12, 16
                (8, 1024, 192), (8, 4096, 192)]
 # the wide entry before the key splits (attention.cu's, before the kernel
 # moved to attention_wide.cu): no scratch, no plan
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 WIDE_UNSPLIT_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _F, _P]
 HOST_LOOPS, HOST_ITERS = 5, 40  # host-loop timing: the least of 5 loops of 40 calls (the
 # host's time swings from call to call: the least is the wrapper's own cost)
@@ -499,6 +495,102 @@ def run_wide(baseline: Path = None, json_path: Path = None, host: bool = False) 
         json_path.write_text(json.dumps(dict(card=card(), rows=results), indent=1))
 
 
+def run_d128(baseline: Path = None, json_path: Path = None) -> None:
+    """The D = 128 kernel's variants (each at the plan's key-split count and
+    at 1 and twice it), the wide kernel at D = 128, the baseline (an earlier source's `attention_f32_d128`, called with its own
+    signature), SDPA and the plain version, in turns at the Hagen mid block
+    (N = 4096, D = 128, one head) at D128_BATCHES by CUDA-graph device time;
+    each kernel held against the plain version and f64 and run twice for the
+    bits."""
+    import torch
+    import torch.nn.functional as F
+
+    from ..ops import attention as A
+
+    N, D = 4096, A.D128_HEAD_DIM
+    sources = variant_sources(WIDE_SOURCE, D128_VARIANTS)
+    if baseline:
+        sources["baseline"] = {WIDE_SOURCE: baseline.read_text()}
+    results = []
+    with tempfile.TemporaryDirectory() as work:
+        libs = build_all(sources, WIDE_SOURCE, Path(work))
+        base = libs.pop("baseline", None)
+        wide = libs.pop("wide128")
+        wide.attention_f32_wide.argtypes = SIGNATURES["attention_f32_wide"]
+        for lib in libs.values():
+            lib.attention_f32_d128.argtypes = SIGNATURES["attention_f32_d128"]
+        unsplit = base is not None and "opart" not in baseline.read_text()
+        if base is not None:
+            base.attention_f32_d128.argtypes = (D128_UNSPLIT_SIGNATURE if unsplit
+                                                else SIGNATURES["attention_f32_d128"])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for B in D128_BATCHES:
+            g = torch.Generator(device="cuda").manual_seed(2)
+            qkv = torch.randn(B, N, 1, 3, D, device="cuda", generator=g)
+            q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+            scale = 1 / math.sqrt(D)
+            want = A.attention_reference(q, k, v, scale)
+            exact = A.attention_reference(q.double(), k.double(), v.double(), scale).float()
+            tol = 1e-4 * (1 + want.abs().max().item())
+            out = torch.empty_like(want)
+            runs, plans = {}, {}
+            how = A.d128_plan(B, N, sms)
+            for name, lib in libs.items():
+                # a 32-key variant's tiles, split by the plan's counts
+                key_tile = 32 if name.startswith("tk32") else A.D128_KEY_TILE
+                tiles = -(-N // key_tile)
+                for sp in sorted({how.splits, 1, min(2 * how.splits, tiles)}):
+                    tag = name + ("" if sp == how.splits else f"/splits{sp}")
+                    runs[tag] = functools.partial(A._launch_d128, q, k, v, out, scale, sp,
+                                                  lib.attention_f32_d128)
+                    plans[tag] = dict(key_tile=key_tile, splits=sp,
+                                      tiles_per_split=-(-tiles // sp),
+                                      query_tiles=how.query_tiles)
+            runs["wide128"] = functools.partial(A._launch_wide, q, k, v, out, scale,
+                                                entry=wide.attention_f32_wide)
+            plans["wide128"] = A.wide_plan(B, N, D, sms)._asdict()
+            if base is not None and unsplit:
+                st = q.stride()
+                runs["baseline"] = lambda: A.check(base.attention_f32_d128(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, 1, *st[:3],
+                    scale, torch.cuda.current_stream().cuda_stream), "attention_f32_d128")
+            elif base is not None:
+                runs["baseline"] = functools.partial(A._launch_d128, q, k, v, out, scale,
+                                                     entry=base.attention_f32_d128)
+            qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+            runs["sdpa"] = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+            runs["plain"] = lambda: A.attention_reference(q, k, v, scale)
+            bound = max(3 * 4 * B * N * N * D / 495e12, 16 * B * N * D / 3.35e12) * 1e3
+            order = list(runs)
+            for turn, name in enumerate(order + order[::-1]):
+                runs[name]()
+                torch.cuda.synchronize()
+                row = dict(B=B, N=N, D=D, name=name, turn=turn, device_ms=device_ms(runs[name]),
+                           bound_ms=bound, plan=plans.get(name))
+                line = f"B={B} N={N} D={D} {name}: {row['device_ms']:.4f} ms device time"
+                if name in plans:
+                    line += f" ({plans[name]})"
+                if name not in ("sdpa", "plain"):
+                    first = out.clone()
+                    runs[name]()
+                    torch.cuda.synchronize()
+                    err = (first - want).abs().max().item()
+                    err64 = (first - exact).abs().max().item()
+                    row.update(max_abs_err=err, err_f64=err64,
+                               bit_identical=torch.equal(first, out))
+                    line += (f", max abs err {err:.3g} (tol {tol:.3g}; against f64 "
+                             f"{err64:.3g}), twice bit-identical {row['bit_identical']}")
+                    if not (err <= tol and err64 <= 2e-6 and row["bit_identical"]):
+                        raise AssertionError(line)
+                print(line + f"; bound {bound:.4f} ms ({bound / row['device_ms']:.1%})",
+                      flush=True)
+                results.append(row)
+            del qkv, q, k, v, want, exact, out, qh, kh, vh
+            torch.cuda.empty_cache()
+    if json_path:
+        json_path.write_text(json.dumps(dict(card=card(), rows=results), indent=1))
+
+
 def run_narrow(baseline: Path = None) -> None:
     """The narrow kernel's variants at NARROW_SHAPES, each beside the
     baseline's SIMT kernel and SDPA, in turns."""
@@ -510,9 +602,6 @@ def run_narrow(baseline: Path = None) -> None:
 
 def main() -> None:
     import torch
-    import torch.nn.functional as F
-
-    from ..ops import attention_reference
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, help="another source with the same entry point")
@@ -523,7 +612,7 @@ def main() -> None:
     ap.add_argument("--host", action="store_true",
                     help="with --wide and --baseline: only the wrappers' host-loop times, in "
                          "alternating pairs")
-    ap.add_argument("--json", type=Path, help="with --bf16 or --wide: write every timing here")
+    ap.add_argument("--json", type=Path, help="all but --narrow: write every timing here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("attention_variants: CUDA is not available")
@@ -538,39 +627,7 @@ def main() -> None:
     if args.narrow:
         run_narrow(args.baseline)
         return
-    sources = variant_sources(SOURCE, VARIANTS)
-    if args.baseline:
-        sources["baseline"] = {SOURCE: args.baseline.read_text()}
-
-    with tempfile.TemporaryDirectory() as work:
-        libs = build_all(sources, SOURCE, Path(work))
-        for lib in libs.values():
-            lib.attention_f32_d128.argtypes = SIGNATURES["attention_f32_d128"]
-        for B in (8, 2):
-            g = torch.Generator(device="cuda").manual_seed(2)
-            qkv = torch.randn(B, 4096, 1, 3, 128, device="cuda", generator=g)
-            q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
-            scale = 1 / math.sqrt(128)
-            want = attention_reference(q, k, v, scale)
-            out = torch.empty_like(want)
-            st = q.stride()
-
-            def launch(lib):
-                err = lib.attention_f32_d128(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                             out.data_ptr(), B, 4096, 1, st[0], st[1], st[2],
-                                             scale, torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"CUDA error {err} at launch")
-
-            order = list(libs)
-            for name in order + order[::-1]:
-                launch(libs[name])
-                err = (out - want).abs().max().item()
-                print(f"B={B} {name}: {time_ms(lambda: launch(libs[name])):.4f} ms, "
-                      f"max abs err {err:.3g}")
-            qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
-            sdpa = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
-            print(f"B={B} sdpa: {sdpa:.4f} ms")
+    run_d128(args.baseline, args.json)
 
 
 if __name__ == "__main__":

@@ -5,22 +5,22 @@ Counterpart: diffsplitting_tpu/ops/attention.py (`attention_reference`,
 
 `fused_attention` launches a CUDA kernel for CUDA tensors, picked by the
 dtype and then by the head dim D (`head_dim_route`). float32, all three on the
-tensor cores at f32 accuracy (3xTF32): in csrc/attention.cu the D = 128 kernel
-and, at D padded to a multiple of 16, the narrow kernel at any multiple of 4
-below 128; in csrc/attention_wide.cu the wide kernel at any multiple of 4
-above 128 up to 1024 (tf32 `wgmma` fed by TMA, 64 queries a block, its keys
-split across blocks and O's head dims sliced across them by `wide_plan`, the
-splits combined by a second launch in split order). bfloat16 (the UNet at
-`compute_dtype: bfloat16`), csrc/attention_bf16.cu: bf16 `wgmma` kernels at
-any multiple of 8 up to 1024 (f32 scores and softmax, P rounded to bf16, f32
-sums, a bf16 result), 64 queries a block; up to D = 256 a block holds its
-queries' O, above it (the wide kernel) a block sums S over all of D itself
-and takes O in 256-wide chunks one after another. The keys are split across
-blocks: `plan` chooses the split count in plain Python, and a split count
-above 1 adds a second launch that combines the splits' f32 partials (scratch
-allocated here) in split order. It raises on any other D or dtype. CPU
-tensors run the plain version. Backward runs autograd through the plain
-version, as the JAX custom VJP does.
+tensor cores at f32 accuracy (3xTF32): in csrc/attention_wide.cu, tf32
+`wgmma` fed by TMA, the D = 128 kernel (128 queries a block, O in registers,
+its keys split across blocks by `d128_plan`) and the wide kernel at any
+multiple of 4 above 128 up to 1024 (64 queries a block, its keys split across
+blocks and O's head dims sliced across them by `wide_plan`), either's splits
+combined by a second launch in split order; in csrc/attention.cu, at D padded
+to a multiple of 16, the narrow kernel at any multiple of 4 below 128. bfloat16 (the UNet at `compute_dtype: bfloat16`), csrc/attention_bf16.cu:
+bf16 `wgmma` kernels at any multiple of 8 up to 1024 (f32 scores and softmax,
+P rounded to bf16, f32 sums, a bf16 result), 64 queries a block; up to D =
+256 a block holds its queries' O, above it (the wide kernel) a block sums S
+over all of D itself and takes O in 256-wide chunks one after another. The
+keys are split across blocks: `plan` chooses the split count in plain Python,
+and a split count above 1 adds a second launch that combines the splits' f32
+partials (scratch allocated here) in split order. It raises on any other D or
+dtype. CPU tensors run the plain version. Backward runs autograd through the
+plain version, as the JAX custom VJP does.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import torch
 from ..kernels.build import check, library
 from .groupnorm import _sm_count
 
-D128_HEAD_DIM = 128  # attention_tf32x3_d128_kernel; the narrow kernel below it
+D128_HEAD_DIM = 128  # attention_d128_kernel; the narrow kernel below it
 MAX_HEAD_DIM = 1024  # attention_wide_kernel: from 132 up to this
 
 
@@ -235,10 +235,69 @@ def _launch_wide(q, k, v, out, scale: float, splits: int = None, slices: int = N
     return out
 
 
+# the f32 D = 128 kernel's tiling (csrc/attention_wide.cu, attention_d128_kernel)
+D128_ROWS = 128  # queries a block: two consumer warpgroups of 64
+D128_KEY_TILE = 64  # keys a tile
+
+
+class D128Plan(NamedTuple):
+    """An f32 D = 128 attention launch: `splits` key splits of
+    `tiles_per_split` 64-key tiles (the last may hold fewer, or none), over
+    a grid of `query_tiles` (of 128 queries) x B·heads·splits blocks, one an
+    SM."""
+
+    splits: int
+    tiles_per_split: int
+    query_tiles: int
+
+    @property
+    def blocks(self) -> int:
+        """Blocks a (batch, head)."""
+        return self.query_tiles * self.splits
+
+
+@functools.lru_cache(maxsize=256)
+def d128_plan(BH: int, N: int, sms: int, splits: int = None) -> D128Plan:
+    """The f32 D = 128 kernel's launch for B·heads = BH, N tokens on a card
+    of `sms` SMs (memoised): as many key splits as keep the grid within one
+    block an SM (at most one a key tile, none empty). `splits` forces the
+    count."""
+    query_tiles = -(-N // D128_ROWS)
+    tiles = -(-N // D128_KEY_TILE)
+    if splits is None:
+        splits = max(1, min(tiles, sms // (query_tiles * BH)))
+        splits = -(-tiles // -(-tiles // splits))  # no split left empty
+    if not 1 <= splits <= tiles:
+        raise ValueError(f"{splits} key splits of {tiles} key tiles")
+    return D128Plan(splits, -(-tiles // splits), query_tiles)
+
+
+def _launch_d128(q, k, v, out, scale: float, splits: int = None, entry=None) -> D128Plan:
+    """attention_d128_kernel (csrc/attention_wide.cu) on (B, N, heads, 128)
+    f32 views into `out`: `splits` forces the plan's key-split count;
+    `entry` is another library's `attention_f32_d128` (the variants).
+    Returns the plan it launched."""
+    B, N, H, _ = q.shape
+    how = d128_plan(B * H, N, _sm_count(q.device.index), splits)
+    opart = ml = 0
+    if how.splits > 1:  # the splits' unnormalised O, then each row's m and l
+        n = how.splits * B * H * N
+        scratch = torch.empty(n * (D128_HEAD_DIM + 2), device=q.device, dtype=torch.float32)
+        opart = scratch.data_ptr()
+        ml = opart + n * D128_HEAD_DIM * 4
+    fn = entry if entry is not None else library().attention_f32_d128
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), opart, ml, B, N, H,
+             *q.stride()[:3], float(scale), how.splits, stream)
+    check(err, "attention_f32_d128")
+    return how
+
+
 def _launch(q, k, v, scale: float, splits: int = None):
     """Run csrc/attention.cu, csrc/attention_wide.cu or
     csrc/attention_bf16.cu on CUDA tensors; raises on what they do not take.
-    `splits` forces the bf16 or the wide kernel's key split count (tests)."""
+    `splits` forces the bf16, the D = 128 or the wide kernel's key split
+    count (tests)."""
     B, N, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -262,17 +321,15 @@ def _launch(q, k, v, scale: float, splits: int = None):
         _launch_wide(q, k, v, out, scale, splits)
         FusedAttention.launches_wide += 1
         return out
+    if route == "d128":
+        FusedAttention.last_d128_plan = _launch_d128(q, k, v, out, scale, splits)
+        FusedAttention.launches += 1
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    if route == "d128":
-        err = library().attention_f32_d128(*ptrs, B, N, H, *strides[:3], float(scale), stream)
-        check(err, "attention_f32_d128")
-        FusedAttention.launches += 1
-    else:
-        err = library().attention_f32_narrow(*ptrs, B, N, H, D, *strides[:3], float(scale),
-                                             stream)
-        check(err, "attention_f32_narrow")
-        FusedAttention.launches_narrow += 1
+    err = library().attention_f32_narrow(*ptrs, B, N, H, D, *strides[:3], float(scale), stream)
+    check(err, "attention_f32_narrow")
+    FusedAttention.launches_narrow += 1
     return out
 
 
@@ -280,7 +337,8 @@ class FusedAttention(torch.autograd.Function):
     """Forward: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors. Backward: autograd through the plain version."""
 
-    launches = 0  # D = 128 kernel launches, counted by _launch
+    launches = 0  # D = 128 kernel launches (with its combine), counted by _launch
+    last_d128_plan = None  # the D = 128 kernel's plan at its last launch, set by _launch
     launches_wide = 0  # wide kernel launches (D above 128, with its combine), by _launch
     launches_narrow = 0  # narrow kernel launches (D below 128), counted by _launch
     launches_bf16 = 0  # bf16 kernel launches (any D), counted by _launch

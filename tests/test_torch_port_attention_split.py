@@ -1,30 +1,25 @@
-"""The 3xTF32 arithmetic of csrc/attention.cu, emulated in plain PyTorch.
+"""The 3xTF32 arithmetic of the f32 attention kernels, emulated in plain PyTorch.
 
-The kernel runs only on the card, so its arithmetic is pinned here: each f32
-operand x is split into big = x rounded to TF32 (10 mantissa bits, to nearest,
-ties away from zero, as cvt.rna.tf32.f32 rounds; the kernel does it with an
-integer add and mask) and small = x - big, which the tensor core reads
-truncated to TF32. A product accumulates small*big + big*small + big*big in
-f32. The emulation walks the keys in the kernel's 32-key tiles with its
-online softmax in the exp2 domain, and sums as the kernel does: S over all of
-D in one accumulator, each tile's P V from 0, then added to O in f32. A last
-tile that N does not fill is zero-padded and its scores there set to -inf. The emulation is held against JAX's `attention_reference`
-and the port's within the chip check's tolerance 1e-4 * (1 + max|ref|). A
-1xTF32 emulation (big*big only) is printed beside it to record what the split
-buys.
+The kernels run only on the card, so their arithmetic is pinned here: each f32
+operand x in registers is split into big = x rounded to TF32 (10 mantissa
+bits, to nearest, ties away from zero, as cvt.rna.tf32.f32 rounds; the
+kernels do it with an integer add and mask) and small = x - big, which the
+tensor core reads truncated to TF32. A product accumulates small*big +
+big*small + big*big in f32.
 
-The wide kernel (D above 128, tf32 wgmma) is emulated in its own order of
-sums and its own split of the operands, with the accumulator rounding toward
-zero after every product: Q and P split in registers (big = rna(x)), K and V
-read as their raw tiles (truncated by the tensor core) beside a plane of
-remainders x - trunc(x); S a chain from 0 a 32-wide panel of D, the panels
-added in f32; each key tile's P V a chain from 0, added to O with the
-rescale; the keys split by `ops.attention.wide_plan` and the splits combined
-in split order. It is held against JAX's Pallas kernel (interpret mode), the
-port's plain version and f64, with the plan. The narrow kernel (D below 128)
-is emulated at its padded head dim DP and key tile, with the same model of
-the accumulator and the D = 128 kernel's sums: S over all of DP in it, each
-key tile's P V from 0.
+The D = 128 kernel and the wide kernel (csrc/attention_wide.cu, tf32 wgmma)
+are emulated in their order of sums and their split of the operands, with the
+accumulator rounding toward zero after every product: Q and P split in
+registers (big = rna(x)), K and V read as their raw tiles (truncated by the
+tensor core) beside a plane of remainders x - trunc(x); S a chain from 0 a
+32-wide panel of D, the panels added in f32; each key tile's P V a chain from
+0, added to O with the rescale; the keys split by the kernel's plan
+(`ops.attention.d128_plan`, `wide_plan`) and the splits combined in split
+order. Each is held against JAX's Pallas kernel (interpret mode), the port's
+plain version and f64, with its plan; a 1xTF32 emulation (big*big only) of
+the D = 128 kernel records what the split buys. The narrow kernel (D below
+128, mma.sync) is emulated at its padded head dim DP and key tile: S over all
+of DP in the accumulator, each key tile's P V from 0.
 """
 
 import functools
@@ -50,13 +45,11 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-TILE = 32  # keys a stage of the kernel
-STEP = 16  # head dims of S a step, where S is summed from 0 a step
 LOG2E = 1.4426950408889634
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """The kernel's rounding: (bits + 0x1000) & 0xffffe000 on the f32 bits."""
+    """The kernels' rounding: (bits + 0x1000) & 0xffffe000 on the f32 bits."""
     bits = x.contiguous().view(torch.int32)
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
@@ -78,35 +71,13 @@ def split(x):
 
 
 def mm(a, b, terms: int):
-    """a @ b from TF32 operands, f32 sums: 3 terms (3xTF32) or 1 (1xTF32)."""
+    """a @ b from TF32 operands split in registers, f32 sums: 3 terms
+    (3xTF32) or 1 (1xTF32). tests/test_torch_port_conv_gn_split.py uses it."""
     ab, as_ = split(a)
     bb, bs = split(b)
     if terms == 1:
         return ab @ bb
     return as_ @ bb + ab @ bs + ab @ bb
-
-
-def emulate(q, k, v, scale: float, terms: int = 3):
-    """(N, D) q, k, v of one (batch, head): the kernel's tile loop."""
-    n, d = q.shape
-    c2 = scale * LOG2E
-    pad = -n % TILE  # the last tile's keys past N are zeros
-    k = torch.cat([k, torch.zeros(pad, d)])
-    v = torch.cat([v, torch.zeros(pad, d)])
-    o = torch.zeros(n, d)
-    m = torch.full((n, 1), -torch.inf)
-    l = torch.zeros(n, 1)
-    for k0 in range(0, n, TILE):
-        kt = k[k0:k0 + TILE]
-        s = mm(q, kt.T, terms) * c2
-        s[:, n - k0:] = -torch.inf  # keys past N take no weight
-        m_new = torch.maximum(m, s.max(dim=1, keepdim=True).values)
-        corr = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
-        l = l * corr + p.sum(dim=1, keepdim=True)
-        o = o * corr + mm(p, v[k0:k0 + TILE], terms)
-        m = m_new
-    return o / l
 
 
 def test_integer_rounding_is_round_to_nearest_ties_away():
@@ -132,43 +103,6 @@ def test_split_is_exact_and_small():
     assert ((small - tf32_trunc(small)).abs() <= x.abs() * 2.0 ** -21).all()
 
 
-def _emulation_errors(N: int, score_gain: float, seed: int):
-    """Max abs errors of the 3xTF32 and 1xTF32 emulations against the port's
-    reference, the 3xTF32 one's against JAX's, and the tolerance."""
-    B, H, D = 1, 1, 128
-    rng = np.random.default_rng(seed)
-    q, k, v = (rng.normal(size=(B, N, H, D)).astype(np.float32) for _ in range(3))
-    scale = score_gain / np.sqrt(D)
-    want_jax = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale))
-    want = attention_reference(*map(torch.from_numpy, (q, k, v)), scale).numpy()
-    tq, tk, tv = (torch.from_numpy(a[0, :, 0]) for a in (q, k, v))
-    got3 = emulate(tq, tk, tv, scale).numpy()
-    got1 = emulate(tq, tk, tv, scale, terms=1).numpy()
-    tol = 1e-4 * (1 + np.abs(want).max())
-    err3 = np.abs(got3 - want[0, :, 0]).max()
-    err1 = np.abs(got1 - want[0, :, 0]).max()
-    print(f"N={N} score gain {score_gain}: 3xTF32 max abs err {err3:.3g}, 1xTF32 {err1:.3g}, "
-          f"tolerance {tol:.3g}")
-    return err3, err1, np.abs(got3 - want_jax[0, :, 0]).max(), tol
-
-
-@pytest.mark.parametrize("score_gain", [1, 8])
-def test_3xtf32_emulation_matches_references(score_gain):
-    err3, err1, err3_jax, tol = _emulation_errors(256, score_gain, seed=2)
-    assert err3 <= tol
-    assert err3_jax <= tol
-    assert err3 * 10 < err1  # the split buys f32 accuracy back
-
-
-# N = 100: three full tiles, then a tile of 4 keys and 28 zero-filled slots
-@pytest.mark.parametrize("score_gain", [1, 8])
-def test_3xtf32_emulation_masks_the_last_tile(score_gain):
-    err3, err1, err3_jax, tol = _emulation_errors(100, score_gain, seed=3)
-    assert err3 <= tol
-    assert err3_jax <= tol
-    assert err3 * 10 < err1
-
-
 def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
     """f64 values to the f32 next toward zero (as f64): what the tensor
     core's accumulator keeps of a sum."""
@@ -177,76 +111,15 @@ def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
     return f.double()
 
 
-def _mma_steps(a, b, acc):
-    """acc + a @ b in k-steps of 8 (one m16n8k8 MMA each, 3xTF32 products
-    exact), the accumulator rounded toward zero after every step."""
-    for k0 in range(0, a.shape[1], 8):
-        ab, as_ = split(a[:, k0:k0 + 8].float())
-        bb, bs = split(b[k0:k0 + 8].float())
-        acc = _round_toward_zero(acc + as_.double() @ bb.double() + ab.double() @ bs.double()
-                                 + ab.double() @ bb.double())
-    return acc
-
-
-def emulate_accumulator(q, k, v, scale: float, s_in_mma: bool, o_in_mma: bool):
-    """The kernel's tile loop with the MMA accumulator modelled as rounding
-    toward zero: S over all of D (s_in_mma) or per STEP head dims from 0, O
-    over all N keys (o_in_mma) or per tile from 0, the rest in f32."""
-    f32 = lambda x: x.float().double()  # noqa: E731
-    n, d = q.shape
-    q, k, v = q.double(), k.double(), v.double()
-    c2 = scale * LOG2E
-    o = torch.zeros(n, d, dtype=torch.float64)
-    m = torch.full((n, 1), -torch.inf, dtype=torch.float64)
-    l = torch.zeros(n, 1, dtype=torch.float64)
-    for k0 in range(0, n, TILE):
-        kt, vt = k[k0:k0 + TILE], v[k0:k0 + TILE]
-        zeros = torch.zeros(n, TILE, dtype=torch.float64)
-        if s_in_mma:
-            s = _mma_steps(q, kt.T, zeros)
-        else:
-            s = zeros
-            for d0 in range(0, d, STEP):
-                s = f32(s + _mma_steps(q[:, d0:d0 + STEP], kt[:, d0:d0 + STEP].T, zeros))
-        s = f32(s * c2)
-        m_new = torch.maximum(m, s.max(dim=1, keepdim=True).values)
-        corr = f32(torch.exp2(m - m_new))
-        p = f32(torch.exp2(s - m_new))
-        l = f32(l * corr + p.sum(dim=1, keepdim=True))
-        o = f32(o * corr)
-        o = _mma_steps(p, vt, o) if o_in_mma else f32(o + _mma_steps(p, vt, torch.zeros_like(o)))
-        m = m_new
-    return (o / l).float()
-
-
-def test_truncating_accumulator_error_comes_from_the_sum_over_keys():
-    """Why the kernel sums P V from 0 a tile and adds it in f32: with an
-    accumulator that rounds toward zero, summing O over all N keys in it
-    costs more than summing S over D in it, and the kernel's order (S in
-    it, O per tile) leaves well under half of the error of both in it."""
-    N, D = 512, 128
-    rng = np.random.default_rng(4)
-    q, k, v = (torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)) for _ in range(3))
-    scale = 1 / np.sqrt(D)
-    exact = torch.softmax((q.double() @ k.double().T) * scale, dim=1) @ v.double()
-    err = {(s_acc, o_acc): (emulate_accumulator(q, k, v, scale, s_acc, o_acc).double() - exact)
-           .abs().max().item() for s_acc in (True, False) for o_acc in (True, False)}
-    print(f"N={N}: max abs err, S and O in the accumulator {err[True, True]:.3g}, O only "
-          f"{err[False, True]:.3g}, S only (the kernel) {err[True, False]:.3g}, neither "
-          f"{err[False, False]:.3g}")
-    assert err[False, True] > 2 * err[False, False]
-    assert err[False, True] > err[True, False]
-    assert err[True, True] > 2 * err[True, False]
-
-
-# The wide kernel (csrc/attention_wide.cu, D above 128): tf32 wgmma, an
-# operand in registers (Q, P) split as big = rna(x), small = x - big; an
-# operand in shared memory (K, V) read as its raw tile (the tensor core reads
-# it truncated) beside a plane of remainders x - trunc(x); S a chain from 0
-# over each 32-wide panel of D (4 k8 steps of three products), the panels
-# added in f32; a tile's P V a chain from 0 over its keys, added to O with
-# the rescale in one rounding; the keys split by `wide_plan` and the splits
-# combined in split order with fused multiply-adds
+# The f32 wgmma kernels (csrc/attention_wide.cu: the D = 128 kernel and the
+# wide kernel above 128): an operand in registers (Q, P) split as big =
+# rna(x), small = x - big; an operand in shared memory (K, V) read as its raw
+# tile (the tensor core reads it truncated) beside a plane of remainders x -
+# trunc(x); S a chain from 0 over each 32-wide panel of D (4 k8 steps of
+# three products), the panels added in f32; a tile's P V a chain from 0 over
+# its keys, added to O with the rescale in one rounding; the keys split by
+# the kernel's plan and the splits combined in split order with fused
+# multiply-adds
 PANEL = 32  # head dims of S a chain
 
 
@@ -257,51 +130,51 @@ def split_trunc(x):
     return big, tf32_trunc(x - big)
 
 
-def _chain(a, b, acc=None, chain=8):
+def _chain(a, b, acc=None, chain=8, terms=3):
     """a (rows, K) registers, b (K, cols) shared memory, f64 tensors of f32
     values: acc + a @ b in k8 steps of three products (small·big, big·small,
-    big·big, each exact), the accumulator rounded toward zero after each; a
-    chain from 0 (acc None) every `chain` head dims or keys, the chains added
-    in f32."""
+    big·big, each exact; big·big alone at terms 1), the accumulator rounded
+    toward zero after each; a chain from 0 (acc None) every `chain` head dims
+    or keys, the chains added in f32."""
     total = None
     for c0 in range(0, a.shape[1], chain):
         run = acc
         for k0 in range(c0, min(c0 + chain, a.shape[1]), 8):
             ab, as_ = split(a[:, k0:k0 + 8].float())
             bb, bs = split_trunc(b[k0:k0 + 8].float())
-            for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+            for x, y in ((as_, bb), (ab, bs), (ab, bb))[3 - terms:]:
                 step = x.double() @ y.double()
                 run = _round_toward_zero(step if run is None else run + step)
         total = run if total is None else (total + run).float().double()
     return total
 
 
-def emulate_wide(q, k, v, scale: float, splits: int = None, slices: int = None,
-                 key_tile: int = None, s_chain: int = PANEL, o_in_acc: bool = False):
-    """(N, D) q, k, v of one (batch, head): the wide kernel's result (f32
-    values as f64) and each split's running max. `s_chain` head dims of S a
-    chain from 0 (the kernel: a panel); `o_in_acc` carries O in the
-    accumulator across a split's key tiles, rescaled there, where the kernel
-    starts each tile's P V from 0 and adds it to O in f32."""
+def _emulate_wgmma(q, k, v, scale: float, tk: int, splits: int, tiles_per_split: int,
+                   s_chain: int = PANEL, o_in_acc: bool = False, terms: int = 3):
+    """(N, D) q, k, v of one (batch, head): a wgmma kernel's result (f32
+    values as f64) and each split's running max, at key tiles of `tk`,
+    `splits` splits of `tiles_per_split` tiles. `s_chain` head dims of S a
+    chain from 0 (the kernels: a panel); `o_in_acc` carries O in the
+    accumulator across a split's key tiles, rescaled there, where the
+    kernels start each tile's P V from 0 and add it to O in f32; `terms` 1
+    takes big·big alone (1xTF32)."""
     f32 = lambda x: x.float().double()  # noqa: E731
     n, width = q.shape
-    how = A.wide_plan(1, n, width, 132, splits, slices, key_tile)
-    tk = how.key_tile
     d = -(-width // (2 * PANEL)) * 2 * PANEL  # the even count of panels, zero past D
     keys = -(-n // tk) * tk
     zq = torch.nn.functional.pad(q.double(), (0, d - width))
     zk = torch.nn.functional.pad(k.double(), (0, d - width, 0, keys - n))
     zv = torch.nn.functional.pad(v.double(), (0, d - width, 0, keys - n))
     # S of every key at once: a key's S is summed alike in any tile or split
-    scores = _chain(zq, zk.T, chain=s_chain)
+    scores = _chain(zq, zk.T, chain=s_chain, terms=terms)
     c2 = f32(torch.tensor(np.float32(scale) * np.float32(LOG2E), dtype=torch.float64))
     parts = []
-    for sp in range(how.splits):
+    for sp in range(splits):
         m = torch.full((n, 1), -torch.inf, dtype=torch.float64)
         l = torch.zeros(n, 1, dtype=torch.float64)
         o = torch.zeros(n, d, dtype=torch.float64)
-        first = sp * how.tiles_per_split
-        for t in range(first, min(first + how.tiles_per_split, keys // tk)):
+        first = sp * tiles_per_split
+        for t in range(first, min(first + tiles_per_split, keys // tk)):
             s = f32(scores[:, t * tk:(t + 1) * tk] * c2)
             s[:, max(0, n - t * tk):] = -torch.inf  # keys past N
             m_new = torch.maximum(m, s.max(1, keepdim=True).values)
@@ -310,12 +183,12 @@ def emulate_wide(q, k, v, scale: float, splits: int = None, slices: int = None,
             l = f32(l * corr + p.sum(1, keepdim=True))
             vt = zv[t * tk:(t + 1) * tk]
             if o_in_acc:
-                o = _chain(p, vt, acc=f32(o * corr), chain=tk)
+                o = _chain(p, vt, acc=f32(o * corr), chain=tk, terms=terms)
             else:
-                o = f32(o * corr + _chain(p, vt, chain=tk))
+                o = f32(o * corr + _chain(p, vt, chain=tk, terms=terms))
             m = m_new
         parts.append((m, l, o[:, :width]))
-    if how.splits == 1:
+    if splits == 1:
         m, l, o = parts[0]
         return f32(o * f32(1 / l)).float(), [m]
     m_max = torch.stack([m for m, _, _ in parts]).max(0).values
@@ -326,6 +199,27 @@ def emulate_wide(q, k, v, scale: float, splits: int = None, slices: int = None,
         big_l = f32(w * l + big_l)  # one rounding: a fused multiply-add
         acc = f32(w * o + acc)
     return f32(acc * f32(1 / big_l)).float(), [m for m, _, _ in parts]
+
+
+def emulate_d128(q, k, v, scale: float, splits: int = None, s_chain: int = PANEL,
+                 o_in_acc: bool = False, terms: int = 3):
+    """(N, 128) q, k, v of one (batch, head): the D = 128 kernel's result
+    and each split's running max, by `d128_plan` at B·heads 1 on 132 SMs
+    (`splits` forced as there). Its Q planes in shared memory hold big =
+    rna(x) and small = x - big, the split of an operand in registers."""
+    how = A.d128_plan(1, q.shape[0], 132, splits)
+    return _emulate_wgmma(q, k, v, scale, A.D128_KEY_TILE, how.splits, how.tiles_per_split,
+                          s_chain, o_in_acc, terms)
+
+
+def emulate_wide(q, k, v, scale: float, splits: int = None, slices: int = None,
+                 key_tile: int = None, s_chain: int = PANEL, o_in_acc: bool = False):
+    """(N, D) q, k, v of one (batch, head): the wide kernel's result and each
+    split's running max, by `wide_plan` at B·heads 1 on 132 SMs (slices of O
+    recompute the same S and do not change the sums)."""
+    how = A.wide_plan(1, q.shape[0], q.shape[1], 132, splits, slices, key_tile)
+    return _emulate_wgmma(q, k, v, scale, how.key_tile, how.splits, how.tiles_per_split,
+                          s_chain, o_in_acc)
 
 
 @functools.lru_cache(maxsize=None)
@@ -343,6 +237,138 @@ def _wide_case(N: int, D: int, gain: float):
     exact = (torch.softmax(t3[0].double() @ t3[1].double().T * scale, dim=1)
              @ t3[2].double()).numpy()
     return t3, scale, pallas, plain, exact
+
+
+def _d128_errors(N: int, score_gain: float):
+    """Max abs errors of the D = 128 kernel's emulation at its plan against
+    JAX's Pallas kernel, the port's plain version and f64, of its 1xTF32
+    emulation against f64, the tolerance and the plan's split count."""
+    (tq, tk, tv), scale, pallas, plain, exact = _wide_case(N, 128, score_gain)
+    got3, ms = emulate_d128(tq, tk, tv, scale)
+    got1, _ = emulate_d128(tq, tk, tv, scale, terms=1)
+    got3, got1 = got3.double().numpy(), got1.double().numpy()
+    assert got3.shape == (N, 128) and np.isfinite(got3).all()
+    err = dict(jax=np.abs(got3 - pallas).max(), port=np.abs(got3 - plain).max(),
+               f64=np.abs(got3 - exact).max(), one=np.abs(got1 - exact).max())
+    tol = 1e-4 * (1 + np.abs(plain).max())
+    print(f"D=128 N={N} splits {len(ms)} score gain {score_gain}: 3xTF32 against JAX's Pallas "
+          f"kernel {err['jax']:.3g}, the port's reference {err['port']:.3g}, f64 {err['f64']:.3g}; "
+          f"1xTF32 against f64 {err['one']:.3g}; tolerance {tol:.3g}")
+    return err, tol, len(ms)
+
+
+# N = 256 at the plan: 4 splits of one 64-key tile each, combined in order
+@pytest.mark.parametrize("score_gain", [1, 8])
+def test_3xtf32_emulation_matches_references(score_gain):
+    err, tol, splits = _d128_errors(256, score_gain)
+    assert splits == 4
+    assert err["jax"] <= tol
+    assert err["port"] <= tol
+    # the card's bound at unit-scale scores; scores x8 carry 8x the score error
+    assert err["f64"] <= 2e-6 * score_gain
+    assert err["f64"] * 10 < err["one"]  # the split buys f32 accuracy back
+
+
+# N = 100 at the plan: two splits of a 64-key tile, the last of 36 keys and
+# 28 zero-filled slots
+@pytest.mark.parametrize("score_gain", [1, 8])
+def test_3xtf32_emulation_masks_the_last_tile(score_gain):
+    err, tol, splits = _d128_errors(100, score_gain)
+    assert splits == 2
+    assert err["jax"] <= tol
+    assert err["port"] <= tol
+    assert err["f64"] <= 2e-6 * score_gain
+    assert err["f64"] * 10 < err["one"]
+
+
+def test_truncating_accumulator_error_comes_from_the_sum_over_keys():
+    """Why the D = 128 kernel starts each key tile's P V from 0 and adds it
+    to O in f32: with an accumulator that rounds toward zero, carrying O in
+    it over all of a split's keys (one split of 8 tiles here) costs more
+    than summing S over all of D in one chain, and the kernel's order (S a
+    chain a 32-wide panel, O per tile) leaves well under half of the error
+    of O in the accumulator, with S in one chain or not."""
+    N, D = 512, 128
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)) for _ in range(3))
+    scale = 1 / np.sqrt(D)
+    exact = torch.softmax((q.double() @ k.double().T) * scale, dim=1) @ v.double()
+    err = {}
+    for s_one_chain in (True, False):
+        for o_acc in (True, False):
+            got, _ = emulate_d128(q, k, v, scale, splits=1, s_chain=D if s_one_chain else PANEL,
+                                  o_in_acc=o_acc)
+            err[s_one_chain, o_acc] = (got.double() - exact).abs().max().item()
+    print(f"N={N}: max abs err, S in one chain and O in the accumulator {err[True, True]:.3g}, "
+          f"O only {err[False, True]:.3g}, S only {err[True, False]:.3g}, neither (the kernel) "
+          f"{err[False, False]:.3g}")
+    assert err[False, True] > 2 * err[False, False]
+    assert err[False, True] > err[True, False]
+    assert err[True, True] > 2 * err[True, False]
+
+
+def test_d128_kernel_split_with_no_key_adds_nothing():
+    """Three splits of N = 256 (four 64-key tiles, two a split) leave the
+    last with no key: its m stays -inf, the combine gives it weight 0, and
+    the result equals the two-split one bit for bit."""
+    (tq, tk, tv), scale, _, _, _ = _wide_case(256, 128, 1)
+    assert A.d128_plan(1, 256, 132, 3).tiles_per_split == 2
+    three, ms = emulate_d128(tq, tk, tv, scale, 3)
+    two, _ = emulate_d128(tq, tk, tv, scale, 2)
+    assert torch.isinf(ms[2]).all() and (ms[2] < 0).all()
+    assert torch.isfinite(three).all()
+    assert torch.equal(three, two)
+
+
+# the D = 128 kernel's plan: the Hagen mid block (N = 4096) at batch 1, 4 and
+# 8 (and 2), splitting_cifar10_indi's (N = 16), a masked N, one token
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("BH,N", [(1, 4096), (4, 4096), (8, 4096), (8, 16), (8, 100), (2, 4096),
+                                  (1, 1), (3, 257)])
+def test_d128_plan_walks_every_key_tile_once(sms, BH, N):
+    """64-key tiles, 128 queries a block; every key tile in exactly one
+    split, none empty; more than one split only where the grid stays within
+    one block an SM, and as many as keep it there."""
+    how = A.d128_plan(BH, N, sms)
+    assert A.D128_KEY_TILE == 64
+    assert how.query_tiles == -(-N // A.D128_ROWS)
+    tiles = -(-N // A.D128_KEY_TILE)
+    walked = [t for s in range(how.splits)
+              for t in range(s * how.tiles_per_split, min((s + 1) * how.tiles_per_split, tiles))]
+    assert walked == list(range(tiles))
+    assert (how.splits - 1) * how.tiles_per_split < tiles  # the last split holds a key
+    if how.splits > 1:
+        assert how.blocks * BH <= sms
+    # the most splits that fit the card, down to a count that leaves none empty
+    fit = min(tiles, max(1, sms // (how.query_tiles * BH)))
+    assert how.splits == -(-tiles // -(-tiles // fit))
+
+
+def test_d128_plan_at_the_served_shapes():
+    """On 132 SMs the Hagen mid block at batch 1 takes 4 key splits (128
+    blocks, the kernel it replaced had 32), at 2 two, at 4 and 8 one (128 and
+    256 blocks); N = 16 one block a (batch, head)."""
+    assert A.d128_plan(1, 4096, 132) == A.D128Plan(4, 16, 32)
+    assert A.d128_plan(2, 4096, 132) == A.D128Plan(2, 32, 32)
+    assert A.d128_plan(4, 4096, 132) == A.D128Plan(1, 64, 32)
+    assert A.d128_plan(8, 4096, 132) == A.D128Plan(1, 64, 32)
+    assert A.d128_plan(8, 16, 132) == A.D128Plan(1, 1, 1)
+    assert A.d128_plan(1, 4096, 114).splits == 3  # 22, 22 and 20 tiles
+
+
+def test_d128_plan_forced_counts():
+    """A forced count may leave the last split with no key, or split more
+    than the card holds at once; counts of 0 or more than one split a key
+    tile are refused."""
+    how = A.d128_plan(1, 256, 132, splits=3)
+    assert (how.splits, how.tiles_per_split) == (3, 2)
+    assert (how.splits - 1) * how.tiles_per_split >= 4  # the last split: no key
+    assert A.d128_plan(1, 4096, 132, splits=8) == A.D128Plan(8, 8, 32)
+    for bad in (dict(splits=0), dict(splits=5)):
+        with pytest.raises(ValueError, match="splits"):
+            A.d128_plan(1, 256, 132, **bad)
 
 
 # (N, D, forced (splits, slices, key tile) or None for the plan, score gain):

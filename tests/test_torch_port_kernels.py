@@ -83,12 +83,13 @@ def test_group_norm_swish_kernel_at_slice_shapes(cuda, B, H, W, C):
 
 
 # q, k, v are strided views of one (B, N, heads, 3, 128) qkv tensor, as the mid
-# block hands them over. N = 64 is two 32-key tiles and half a query block;
-# 192 is six key tiles and a last block with rows for half its warps; "big"
-# scales the scores by 8 so that the running max moves across key tiles. N = 16
-# (the 4 x 4 mid block of a 32² patch) fills half of one key tile and one
-# warp; 100 three tiles and 4 keys of a fourth, with warp 6 holding rows
-# 96-111; 4095 leaves one key slot and one query row of the last warp empty.
+# block hands them over. N = 64 is two 32-key tiles and the rows of one of a
+# block's two warpgroups; 192 is six key tiles and a second 128-query block
+# with rows for one of its warpgroups; "big" scales the scores by 8 so that
+# the running max moves across key tiles. N = 16 (the 4 x 4 mid block of a
+# 32² patch) fills half of one key tile and a quarter of a warpgroup's rows;
+# 100 three tiles and 4 keys of a fourth, split across blocks by the plan;
+# 4095 leaves one key slot and one query row of the last warpgroup empty.
 @pytest.mark.parametrize("B,N,heads,big", [(2, 64, 1, False), (1, 256, 2, False),
                                            (1, 192, 1, False), (1, 4096, 1, False),
                                            (2, 64, 2, True), (1, 256, 1, True),
@@ -252,11 +253,52 @@ def test_attention_wide_kernel_forced_plan(cuda, B, N, heads, D, splits, slices,
     assert (got - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
 
 
-# a CUDA-graph replay gives the eager launch's bits: the plan's splits with
-# their combine launch (N = 256, 64, 100), one split (N = 16, 1024)
+# a CUDA-graph replay gives the eager launch's bits: the wide plan's splits
+# with their combine launch (N = 256, 64, 100), one split (N = 16, 1024)
 @pytest.mark.parametrize("B,N,D", [(1, 256, 512), (1, 64, 512), (12, 16, 256), (8, 100, 256),
                                    (2, 1024, 1024), (8, 1024, 192)])
 def test_attention_wide_graph_replay_equals_eager(cuda, B, N, D):
+    _graph_replay_equals_eager(cuda, B, N, D)
+
+
+# the D = 128 kernel's plan forced: key splits that leave the last split with
+# no key (N = 256: 4 tiles, 3 splits of 2), one split over all of N = 4096, 5
+# splits of 13 tiles (the last of 12), N = 1000 (16 tiles) in 4 or 3 splits,
+# N = 4095 in 7 splits of 10 tiles (the last of 4, with a key slot empty), N
+# = 9 below one tile, two heads
+D128_FORCED_CASES = [(1, 256, 1, 3), (1, 4096, 1, 1), (1, 4096, 1, 5), (2, 1000, 1, 4),
+                     (2, 1000, 2, 3), (3, 9, 2, 1), (1, 4095, 1, 7)]
+
+
+@pytest.mark.parametrize("B,N,heads,splits", D128_FORCED_CASES)
+def test_attention_d128_kernel_forced_plan(cuda, B, N, heads, splits):
+    from diffsplitting_tpu_torch.ops.attention import _launch_d128, d128_plan
+
+    how = d128_plan(B * heads, N, torch.cuda.get_device_properties(cuda).multi_processor_count,
+                    splits)
+    assert how.splits == splits
+    g = torch.Generator(device=cuda).manual_seed(16)
+    qkv = torch.randn(B, N, heads, 3, 128, device=cuda, generator=g)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    scale = 8 / math.sqrt(128 * heads)
+    got, again = (torch.empty(B, N, heads, 128, device=cuda) for _ in range(2))
+    assert _launch_d128(q, k, v, got, scale, splits) == how
+    _launch_d128(q, k, v, again, scale, splits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    want = attention_reference(q, k, v, scale)
+    assert (got - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
+
+
+# the D = 128 kernel's plan with its combine launch (N = 4096 at batch 1 and
+# 2, N = 100) and one split (N = 16, batch 8)
+@pytest.mark.parametrize("B,N", [(1, 4096), (2, 4096), (8, 16), (2, 100)])
+def test_attention_d128_graph_replay_equals_eager(cuda, B, N):
+    _graph_replay_equals_eager(cuda, B, N, 128)
+
+
+def _graph_replay_equals_eager(cuda, B, N, D):
     g = torch.Generator(device=cuda).manual_seed(15)
     qkv = torch.randn(B, N, 1, 3, D, device=cuda, generator=g)
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
