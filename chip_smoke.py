@@ -490,19 +490,25 @@ def phase_attention_any_d(dev):
 
 
 def phase_conv_gn(dev, sites, batch=BATCH, timed=True):
-    """conv_gn kernel vs plain version at every site of one fused forward.
-    When `timed`, also the times; the library time is cuDNN's F.conv2d on
-    the already-activated input (plus the 1x1 F.conv2d of a projected
-    residual): the convolution work the kernel replaces, without its
-    prologue, residual add and statistics passes."""
+    """conv_gn kernel vs plain version at every site of one fused forward,
+    and its statistics against f64 sums of the same inputs as a share of the
+    tolerance (logged; `tot["stats_tol_share"]` the worst). When `timed`,
+    also the times: the kernel's through a host loop and by CUDA-graph
+    replay (`device_ms`, with each site's share of its bound), the plain
+    version's, and the library's, cuDNN's F.conv2d on the already-activated
+    input (plus the 1x1 F.conv2d of a projected residual): the convolution
+    work the kernel replaces, without its prologue, residual add and
+    statistics passes."""
     import torch
     import torch.nn.functional as F
-    from diffsplitting_tpu_torch.kernels.conv_gn_variants import site_args
+    from diffsplitting_tpu_torch.kernels.conv_gn_variants import f64_stats, site_args
+    from diffsplitting_tpu_torch.kernels.variants import device_ms
     from diffsplitting_tpu_torch.ops import conv_gn_fused, conv_gn_reference
 
     g = torch.Generator(device=dev).manual_seed(6)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, tc_ms=0.0, fma_ms=0.0,
-               bytes_ms=0.0, gflop=0.0, gflop_taps=0.0, gbytes=0.0)
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, tc_ms=0.0,
+               fma_ms=0.0, bytes_ms=0.0, gflop=0.0, gflop_taps=0.0, gbytes=0.0,
+               stats_tol_share=0.0)
     worst = 0.0
     for site, calls in sorted(sites.items(), key=str):
         H, W, Cin, Cout, act, res, Cres = site
@@ -525,12 +531,18 @@ def phase_conv_gn(dev, sites, batch=BATCH, timed=True):
                                  f"max abs err {err} (tol {tol}), sums err "
                                  f"{max_err(s, s_ref)}, sumsqs err {max_err(q, q_ref)}")
         worst = max(worst, err)
-        del y, y_ref, s, q, s_ref, q_ref
+        s64, q64, abs64 = f64_stats(args)
+        share = max(((s.double() - s64).abs() / (1e-5 * abs64 + 1e-3)).max().item(),
+                    ((q.double() - q64).abs() / (1e-5 * q64 + 1e-3)).max().item())
+        tot["stats_tol_share"] = max(tot["stats_tol_share"], share)
+        del y, y_ref, s, q, s_ref, q_ref, s64, q64, abs64
         if not timed:
             log(f"conv_gn B={batch} H={H} W={W} Cin={Cin} Cout={Cout} prologue={act} "
-                f"residual={res} Cres={Cres} calls/forward={calls}: err {err:.3g} (tol {tol:.3g})")
+                f"residual={res} Cres={Cres} calls/forward={calls}: err {err:.3g} (tol {tol:.3g}); "
+                f"statistics against f64 {share:.3g} of the tolerance")
             continue
         ms = time_ms(lambda: conv_gn_fused(*args), 10)
+        dev_ms = device_ms(lambda: conv_gn_fused(*args), 10)
         plain = time_ms(lambda: conv_gn_reference(*args), 3)
         # cuDNN on the activated input, channels_last as the unfused path feeds it
         xa = (x * scale[:, None, None, :] + shift[:, None, None, :]) if act else x
@@ -556,11 +568,14 @@ def phase_conv_gn(dev, sites, batch=BATCH, timed=True):
         bound = max(tc_ms, bytes_ms)
         by = "operations" if tc_ms >= bytes_ms else "bytes"
         log(f"conv_gn B={batch} H={H} W={W} Cin={Cin} Cout={Cout} prologue={act} residual={res} "
-            f"Cres={Cres} calls/forward={calls}: err {err:.3g} kernel {ms:.4f} ms plain "
+            f"Cres={Cres} calls/forward={calls}: err {err:.3g}, statistics against f64 "
+            f"{share:.3g} of the tolerance; kernel {ms:.4f} ms (device time {dev_ms:.4f}) plain "
             f"{plain:.4f} ms library {lib:.4f} ms bound {bound:.4f} ms ({by}; 3xTF32 tensor-core "
             f"{tc_ms:.4f}, bytes {bytes_ms:.4f}, f32 FMA {fma_ms:.4f}; "
-            f"{flops / ms / 1e9:.1f} f32 TFLOP/s, {bound / ms:.1%} of bound)")
-        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+            f"{flops / dev_ms / 1e9:.1f} f32 TFLOP/s, {bound / dev_ms:.1%} of bound by device "
+            "time)")
+        for key, val in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain),
+                         ("library_ms", lib),
                          ("bound_ms", bound), ("tc_ms", tc_ms), ("fma_ms", fma_ms),
                          ("bytes_ms", bytes_ms), ("gflop", flops / 1e9),
                          ("gflop_taps", 2 * batch * H * W * 9 * Cin * Cout / 1e9),
@@ -573,8 +588,8 @@ def phase_conv_gn(dev, sites, batch=BATCH, timed=True):
     log(f"conv_gn per fused UNet forward ({sum(sites.values())} calls; library = cuDNN "
         "F.conv2d on the activated input, + the 1x1 skip conv): "
         + " ".join(f"{k} {v:.4f}" for k, v in tot.items())
-        + f" ({tot['gflop'] / tot['ms']:.1f} f32 TFLOP/s, {tot['bound_ms'] / tot['ms']:.1%} of "
-        "the bound)")
+        + f" ({tot['gflop'] / tot['device_ms']:.1f} f32 TFLOP/s, "
+        f"{tot['bound_ms'] / tot['device_ms']:.1%} of the bound by device time)")
     tot["bound_by"] = "operations" if tot["tc_ms"] >= tot["bytes_ms"] else "bytes"
     return tot, worst
 
@@ -752,14 +767,16 @@ def phase_cifar10(dev, inner=None, plan=(31, 0), groups=None):
 # the launch count that says the family ran
 KERNEL_FAMILIES = {"group_norm_swish kernel": (("groupnorm_swish.cu",), "group_norm_swish"),
                    "attention kernel": (("attention.cu", "attention_wide.cu"), "attention"),
-                   "conv_gn kernel": (("conv_gn.cu",), "conv_gn")}
+                   "conv_gn kernel": (("conv_gn.cu", "conv_gn_stats.cuh"), "conv_gn")}
 
 
 @functools.cache
 def kernel_names() -> dict:
     """Family -> names of the __global__ functions its source defines."""
     csrc = Path(__file__).resolve().parent / "diffsplitting_tpu_torch" / "csrc"
-    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    # __launch_bounds__'s arguments may hold one level of parentheses
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s+)?"
+                         r"(\w+)\s*\(")
     names = {}
     for fam, (sources, _) in KERNEL_FAMILIES.items():
         names[fam] = [n for src in sources for n in pattern.findall((csrc / src).read_text())]
@@ -3955,8 +3972,9 @@ def main() -> int:
              launches=fused_launches["conv_gn"] + dcache["launches"]["conv_gn"]
              + sr3["launches"]["conv_gn"],
              max_abs_err=max(conv_err, sr3["conv_err"]), ms=conv["ms"],
-             plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],
-             library_ms=conv["library_ms"]),
+             device_ms=conv["device_ms"], plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"],
+             bound_by=conv["bound_by"], library_ms=conv["library_ms"],
+             stats_tol_share=conv["stats_tol_share"]),
         dict(name="group_norm_swish_bf16", route="cuda",
              source="diffsplitting_tpu_torch/csrc/groupnorm_swish.cu",
              replaces="diffsplitting_tpu/experimental/groupnorm_pallas.py:21,58",

@@ -194,73 +194,6 @@ struct Params {
     float c2;         // scale * log2(e)
 };
 
-#define DSP_D8                                                                               \
-    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-#define DSP_D16                                                                              \
-    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-#define DSP_D32                                                                              \
-    DSP_D16, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),   \
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),        \
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-#define DSP_REGS16 \
-    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-#define DSP_REGS32                                                                     \
-    DSP_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-               "%30, %31"
-#define DSP_D64 \
-    DSP_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), \
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-#define DSP_REGS64 \
-    DSP_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
-               "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
-               "%60, %61, %62, %63"
-
-// d (+)= a b: a 64 x 8 tf32 from registers (a warp's 16 rows: a[0] row g,
-// k t; a[1] row g + 8, k t; a[2] row g, k t + 4; a[3] row g + 8, k t + 4),
-// b 8 x N tf32 by a K-major descriptor; d zeroed first iff !scale_d
-__device__ __forceinline__ void wgmma_tf32(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
-                                           int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-        : DSP_D8
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
-                                           int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" DSP_REGS16
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-        : DSP_D16
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
-                                           int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" DSP_REGS32
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : DSP_D32
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
-                                           int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" DSP_REGS64
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-        : DSP_D64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
 // x - trunc(x): what the tensor core does not read of x (exact in f32)
 __device__ __forceinline__ float remainder_of(float x) {
     return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);

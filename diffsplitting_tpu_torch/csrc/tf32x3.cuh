@@ -1,6 +1,8 @@
 // Float32 products on Hopper's tensor cores from TF32 halves (3xTF32), and
 // the cp.async helpers the kernels stage with, for sm_90a. Included by
-// attention.cu, attention_wide.cu (split) and conv_gn.cu.
+// attention.cu (split, the 3xTF32 mma.sync, cp.async), attention_wide.cu
+// (split, for its tf32 wgmma) and conv_gn.cu (split, for its tf32 wgmma;
+// cp.async).
 
 #pragma once
 

@@ -6,9 +6,9 @@ Pallas `_kernel_rows`). NHWC activations and HWIO kernels at the public
 functions, as in the JAX package.
 
 `conv_gn_fused` launches a CUDA kernel for a CUDA tensor and runs the plain
-version for a CPU tensor: csrc/conv_gn.cu at float32 x (3xTF32 tensor-core
-products, f32 accuracy), csrc/conv_gn_bf16.cu at bfloat16 x, as JAX's kernel
-computes at `x.dtype` bf16 (the fused walk of a UNet at `compute_dtype:
+version for a CPU tensor: csrc/conv_gn.cu at float32 x (3xTF32 products on
+the TF32 tensor cores by wgmma, f32 accuracy), csrc/conv_gn_bf16.cu at
+bfloat16 x, as JAX's kernel computes at `x.dtype` bf16 (the fused walk of a UNet at `compute_dtype:
 bfloat16`): the prologue in f32 rounded to bf16, bf16 tensor-core products
 with f32 sums, f32 statistics, y rounded once to bf16. Both kernels take the
 same widths, so the fused walk's plan does not depend on the dtype.
@@ -25,9 +25,13 @@ import torch.nn.functional as F
 
 from ..kernels.build import check, library
 
-# csrc/conv_gn.cu: output channels a block (BN >= Cout) -> (tile rows, tile
-# columns), its `launch<BN, NW, WN, TR, TW, TPS>` lines; K steps of 16 channels
-_TILES = {16: (16, 16), 32: (8, 16), 64: (8, 16), 128: (8, 16)}
+# csrc/conv_gn.cu: output channels a block (BN >= Cout) -> (MT, NWG, TPS, NS)
+# of its `launch<BN, MT, NWG, TPS, NS, NB, TG>` lines: m64 tiles a consumer
+# warpgroup (4·MT rows of 16 pixels), consumer warpgroups (the tile is
+# NWG·4·MT rows), taps a weight stage, stages in the ring
+_PLAN = {16: (2, 3, 9, 3), 32: (2, 3, 3, 4), 64: (2, 2, 3, 3), 128: (1, 2, 3, 2)}
+_TILES = {bn: (4 * mt * nwg, 16) for bn, (mt, nwg, *_) in _PLAN.items()}
+SMEM_LIMIT = 232448  # 227 KB a block
 # csrc/conv_gn_bf16.cu: BN (a wgmma width) -> (tile rows, tile columns), its
 # `launch<BN, MT>` lines (8·MT rows); a projected residual's K steps go in
 # stages of kResGroup chunks, the last one zero-padded
@@ -106,14 +110,36 @@ def conv_gn_tiling(H: int, W: int, Cout: int, bf16: bool = False):
     """The kernel's block geometry for an H×W map and Cout channels: (tile
     rows, tile columns, tiles per batch element). A block covers all Cout
     and a fixed tr×tw tile of one batch element for that width. The f32
-    kernel (Cout rounded up to 16, 32, 64 or 128): 16×16 pixels on 8 warps at
-    16 channels, 8×16 on 4 warps at 32 and 64, 8×16 on 8 warps at 128 (a 64²
-    map at batch 8 still gives 256 blocks). The bf16 kernel (`bf16`; Cout
-    rounded up to 8, 16, 32, 64 or 128): two warpgroups on 16×16 pixels, two
-    m64 tiles each, up to 64 channels, and on 8×16, an m64 tile each, at
-    128. Ragged edges are masked."""
+    kernel (Cout rounded up to 16, 32, 64 or 128): three consumer warpgroups
+    on 24×16 pixels, two m64 tiles each, at 16 and 32 channels; two on 16×16
+    at 64; two on 8×16, an m64 tile each, at 128. The bf16 kernel (Cout
+    rounded up to 8, 16, 32, 64 or 128): two warpgroups on 16×16, two m64
+    tiles each, up to 64 channels, and on 8×16 at 128. Ragged edges are
+    masked."""
     tr, tw = (_TILES_BF16 if bf16 else _TILES)[_block_channels(Cout, bf16)]
     return tr, tw, -(-H // tr) * -(-W // tw)
+
+
+def conv_gn_smem_bytes(Cout: int) -> int:
+    """Dynamic shared memory of the f32 kernel's block for Cout channels,
+    csrc/conv_gn.cu `Smem`: the weight ring (NS stages of TPS taps, BN·128
+    bytes a tap: big and small planes), three window slots a consumer
+    warpgroup (each its (4·MT + 2) × 18 halo window of 16 channels), their
+    statistics reductions (two each, [2][4 warps][BN] f32), the bias, the
+    mbarriers and 1024 bytes of alignment."""
+    bn = _block_channels(Cout)
+    mt, nwg, tps, ns = _PLAN[bn]
+    window = (4 * mt + 2) * 18 * _KC * 4
+    return (ns * tps * bn * 128 + nwg * 3 * window + nwg * 64 * bn + 4 * bn
+            + (2 * ns + 3 * nwg) * 8 + 1024)
+
+
+def conv_gn_partial_rows(H: int, W: int, Cout: int, bf16: bool = False) -> int:
+    """Rows of partial statistics a batch element a call writes (scratch
+    (B, rows, 2, Cout) f32): one a tile in bf16, one a tile and consumer
+    warpgroup in f32 (each warpgroup reduces its own rows)."""
+    tiles = conv_gn_tiling(H, W, Cout, bf16)[2]
+    return tiles if bf16 else _PLAN[_block_channels(Cout)][1] * tiles
 
 
 def conv_gn_weight_elems(Cin: int, Cout: int, Cres_skip: int, bf16: bool = False) -> int:
@@ -121,7 +147,7 @@ def conv_gn_weight_elems(Cin: int, Cout: int, Cres_skip: int, bf16: bool = False
     K step (9 taps × Cin/16 chunks, plus Cres/16 chunks of a projected
     residual, `Cres_skip` 0 without one). The bf16 kernel (`bf16`) packs one
     bf16 plane, its residual chunks padded to whole stages; the f32 kernel
-    splits into a big and a small f32 plane."""
+    splits into a big and a small f32 plane, side by side in each K step."""
     res = -(-Cres_skip // _KC)
     if bf16:
         res = -(-res // _RES_GROUP_BF16) * _RES_GROUP_BF16
@@ -210,9 +236,10 @@ def _launch(x, w, b, scale, shift, residual, w_skip, Cres: int):
             or any(t is not None and t.data_ptr() % 16 for t in (b, scale, shift))):
         raise ValueError(f"conv_gn kernel needs {align}-byte aligned x and residual, 16-byte "
                          "aligned b, scale and shift")
-    tr, tw, tiles = conv_gn_tiling(H, W, Cout, bf16)
+    tr, tw, _ = conv_gn_tiling(H, W, Cout, bf16)
     y = torch.empty((B, H, W, Cout), device=x.device, dtype=x.dtype)
-    partials = torch.empty((B, tiles, 2, Cout), device=x.device, dtype=torch.float32)
+    partials = torch.empty((B, conv_gn_partial_rows(H, W, Cout, bf16), 2, Cout),
+                           device=x.device, dtype=torch.float32)
     stats = torch.empty((2, B, Cout), device=x.device, dtype=torch.float32)
     elems = conv_gn_weight_elems(Cin, Cout, Cres if w_skip is not None else 0, bf16)
     wscratch = (torch.empty(elems, device=x.device, dtype=torch.bfloat16) if bf16 else

@@ -167,11 +167,11 @@ def test_wrapper_raises_on_other_types_and_layouts():
                                       (13, 20, 128), (7, 5, 16)])
 def test_tiling_covers_the_map(H, W, Cout):
     tr, tw, tiles = conv_gn_tiling(H, W, Cout)
-    # all of Cout in one block, 2 m16 tiles a warp: 16x16 pixels on 8 warps
-    # at 16 channels, 8x16 on 4 warps at 32 and 64 and on 8 warps at 128; an
-    # m16 tile is 16 pixels of one tile row
-    assert (tr, tw) == {16: (16, 16), 32: (8, 16), 64: (8, 16), 128: (8, 16)}[Cout]
-    assert tw % 16 == 0 and (tr * tw) % (16 * 4 * 2) == 0
+    # all of Cout in one tile; each consumer warpgroup's m64 tiles are 4 rows
+    # of 16 pixels: three warpgroups of two m64 tiles (24x16) at 16 and 32
+    # channels, two of two (16x16) at 64, two of one (8x16) at 128
+    assert (tr, tw) == {16: (24, 16), 32: (24, 16), 64: (16, 16), 128: (8, 16)}[Cout]
+    assert tw == 16 and tr % 4 == 0
     assert tiles == -(-H // tr) * -(-W // tw)
     # the 64^2 sites at batch 8 still fill the card's 132 SMs
     if (H, W) == (64, 64):

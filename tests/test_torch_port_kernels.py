@@ -457,6 +457,55 @@ def test_conv_gn_kernel_reads_an_oihw_parameter_in_place(cuda):
     torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-3)
 
 
+# each block width (16, 32, 64, 128 channels) on a ragged 13 x 20 map, with
+# a projected residual of 256 channels, an identity one, or none; items
+# fewer and more than the card's SMs (the grid is persistent)
+CONV_GN_WIDTH_CASES = [
+    (2, 13, 20, 48, 16, "projected", 256),
+    (3, 13, 20, 96, 32, "identity", 32),
+    (1, 13, 20, 64, 64, "projected", 256),
+    (2, 13, 20, 128, 128, "projected", 256),
+    (4, 13, 20, 256, 128, None, 0),
+    (12, 64, 64, 32, 16, None, 0),
+    (24, 32, 32, 64, 128, "identity", 128),
+]
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,res,Cres", CONV_GN_WIDTH_CASES)
+def test_conv_gn_kernel_at_each_block_width(cuda, B, H, W, Cin, Cout, res, Cres):
+    """Against the plain version and f64 with chip_smoke.py's tolerances;
+    two launches and a CUDA-graph replay give the same bits."""
+    args = _conv_gn_inputs(cuda, B, H, W, Cin, Cout, True, res, Cres)
+    y, s, q = conv_gn_fused(*args)
+    again = conv_gn_fused(*args)
+    y_ref, _, _ = conv_gn_reference(*args)
+    x, w, b, scale, shift, r, ws = (t.double() if t is not None else None for t in args)
+    xa = x * scale[:, None, None, :] + shift[:, None, None, :]
+    xa = xa * torch.sigmoid(xa)
+    y64 = torch.nn.functional.conv2d(xa.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+    y64 = y64.permute(0, 2, 3, 1) + b
+    if r is not None:
+        y64 = y64 + (r @ ws if ws is not None else r)
+    torch.cuda.synchronize()
+    assert (y - y_ref).abs().max().item() <= 1e-4 * (1 + y_ref.abs().max().item())
+    assert ((s.double() - y64.sum(dim=(1, 2))).abs()
+            <= 1e-5 * y64.abs().sum(dim=(1, 2)) + 1e-3).all()
+    assert ((q.double() - (y64 * y64).sum(dim=(1, 2))).abs()
+            <= 1e-5 * (y64 * y64).sum(dim=(1, 2)) + 1e-3).all()
+    assert all(torch.equal(a, c) for a, c in zip((y, s, q), again))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        conv_gn_fused(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = conv_gn_fused(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip((y, s, q), replayed))
+
+
 @pytest.mark.parametrize("Cin,Cout", [(18, 16), (16, 136), (260, 16)])
 def test_conv_gn_kernel_refuses_other_widths(cuda, Cin, Cout):
     x = torch.randn(1, 8, 8, Cin, device=cuda)
