@@ -22,13 +22,14 @@ the narrow tensor-core kernel), unfused and fused, against the port on the
 CPU. The D = 128 attention kernel (the Hagen mid block, N = 4096) is held
 against its plain version at B = 1, 2, 4 and 8 with its key-split plan logged,
 two launches and a CUDA-graph replay bit-identical at B = 2, 4, 8 and at the
-CIFAR path's N = 16, and timed by host loop and by CUDA-graph device time
+CIFAR path's N = 16, its result at two seeded inputs bit-equal to PR 22's
+kernel's (by digest), and timed by host loop and by CUDA-graph device time
 beside SDPA. The attention kernels at other head dims are also held against their
 plain version and timed beside it and SDPA, each on its route, at D = 16 ...
 1024 (D = 192 on the wide kernel with a chunk of O past D; N = 4096 at D = 64
 and 192, the Hagen mid block at inner 8 and 24) and at the SR3 / DDPM
-configs' own shapes; the wide kernel's plan is logged at each, and its
-error against f64 and a CUDA-graph replay's bits are held too.
+configs' own shapes; the plan is logged at each, and the error against f64
+and a CUDA-graph replay's bits are held too.
 
 Then it trains: the joint-InDI train step at full width (patch 512, batch 4,
 the config's) with the kernels against the same step through the plain
@@ -318,9 +319,11 @@ def phase_attention(dev, batches):
     """The D = 128 kernel against its plain version at N = 4096, one head,
     at each of `batches` (the last is the serving batch, whose times the
     kernels line reports): two launches and a CUDA-graph replay
-    bit-identical; the kernel's time through a host loop of calls and its
-    device time alone by CUDA-graph replay, the plain version's and SDPA's,
-    the bound and the key-split plan. Returns the last batch's results with
+    bit-identical, and first the kernel's result at the digest inputs of
+    kernels/attention_variants.py bit-equal to PR 22's kernel's; the
+    kernel's time through a host loop of calls and its device time alone by
+    CUDA-graph replay, the plain version's and SDPA's, the bound and the
+    key-split plan. Returns the last batch's results with
     every batch's under `by_batch`, and the worst error."""
     import torch
     import torch.nn.functional as F
@@ -328,6 +331,17 @@ def phase_attention(dev, batches):
     from diffsplitting_tpu_torch.ops import FusedAttention, attention_reference, fused_attention
     from diffsplitting_tpu_torch.ops.attention import D128_KEY_TILE
 
+    from diffsplitting_tpu_torch.kernels.attention_variants import (D128_DIGEST_INPUTS,
+                                                                    D128_DIGESTS, d128_digest)
+
+    # the D = 128 instance of csrc/attention.cu's template keeps PR 22's sums
+    for key in D128_DIGEST_INPUTS:
+        digest = d128_digest(*key)[1]
+        if digest != D128_DIGESTS[key]:
+            raise AssertionError(f"attention D=128 {key}: sha256 {digest}, PR 22's kernel gave "
+                                 f"{D128_DIGESTS[key]}")
+        log(f"attention D=128 (B, N, splits, seed) = {key}: bit-equal to PR 22's kernel "
+            f"(sha256 {digest[:16]}...)")
     g = torch.Generator(device=dev).manual_seed(2)
     scale = 1.0 / math.sqrt(ATTN_D)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -403,26 +417,28 @@ BF16_NONE = {"group_norm_swish_bf16": 0, "attention_bf16": 0, "conv_gn_bf16": 0}
 def phase_attention_any_d(dev):
     """Attention at head dims other than 128, at ANY_D_SHAPES and SR3_SHAPES,
     each on its route (the wide kernel of csrc/attention_wide.cu above 128,
-    its plan logged; the narrow one below): against the plain version (two
-    launches must give the same bits; on the wide route a CUDA-graph replay
-    too, and the error against f64 at most 2e-6 at these unit-scale scores),
+    csrc/attention.cu's kernel below; the plan logged): against the plain
+    version (two launches and a CUDA-graph replay must give the same bits,
+    and the error against f64 be at most 2e-6 at these unit-scale scores),
     the error of both against f64, and the times of the kernel, the plain
     version and SDPA through a host loop of calls, with the kernel's and
     SDPA's device time alone by CUDA-graph replay (the wrapper's host time
-    exceeds a small call's device time). Returns {(B, N, D): results} and the
+    exceeds a small call's device time); the bound the larger of the 3xTF32
+    operations, the exp2 of the softmax (16 a clock an SM at the card's
+    highest SM clock) and the bytes. Returns {(B, N, D): results} and the
     worst error against the plain version, by route."""
     import torch
     import torch.nn.functional as F
-    from diffsplitting_tpu_torch.kernels.variants import device_ms
+    from diffsplitting_tpu_torch.kernels.variants import device_ms, exp2_ms, sm_clock_hz
     from diffsplitting_tpu_torch.ops import attention_reference, fused_attention, head_dim_route
-    from diffsplitting_tpu_torch.ops.attention import wide_plan
+    from diffsplitting_tpu_torch.ops.attention import narrow_plan, wide_plan
 
     g = torch.Generator(device=dev).manual_seed(10)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_hz()
     res, worst = {}, {"wide": 0.0, "narrow": 0.0}
     for B, N, D in ANY_D_SHAPES + SR3_SHAPES:
         route = head_dim_route(D)
-        plan = None
         if route == "wide":
             how = wide_plan(B, N, D, sms)
             plan = dict(how._asdict(), blocks=how.blocks * B)
@@ -430,6 +446,12 @@ def phase_attention_any_d(dev):
                 f"key splits of {how.tiles_per_split} tiles, {how.slices} slices of "
                 f"{how.chunks_per_slice} 64-wide chunks of O, {how.blocks * B} blocks on {sms} "
                 f"SMs")
+        else:
+            how = narrow_plan(B, N, sms)
+            plan = dict(how._asdict(), blocks=how.blocks * B)
+            log(f"attention narrow B={B} N={N} D={D}: plan {how.key_tile}-key tiles, "
+                f"{how.groups} consumer warpgroups a block, {how.splits} key splits of "
+                f"{how.tiles_per_split} tiles, {how.blocks * B} blocks on {sms} SMs")
         qkv = torch.randn(B, N, 1, 3, D, device=dev, generator=g)
         q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
         scale = 1.0 / math.sqrt(D)
@@ -452,13 +474,12 @@ def phase_attention_any_d(dev):
         if not err <= tol or not torch.equal(got, again):
             raise AssertionError(f"attention B={B} N={N} D={D}: max abs err {err} (tol {tol}), "
                                  f"two launches equal {torch.equal(got, again)}")
-        if route == "wide":
-            # f32 accuracy against f64 at scores of unit scale
-            if not err64 <= 2e-6:
-                raise AssertionError(f"attention wide B={B} N={N} D={D}: max abs err against "
-                                     f"f64 {err64} > 2e-06")
-            graph_replay_equals_eager(f"attention wide B={B} N={N} D={D}",
-                                      lambda: fused_attention(q, k, v, scale), got)
+        # f32 accuracy against f64 at scores of unit scale
+        if not err64 <= 2e-6:
+            raise AssertionError(f"attention {route} B={B} N={N} D={D}: max abs err against "
+                                 f"f64 {err64} > 2e-06")
+        graph_replay_equals_eager(f"attention {route} B={B} N={N} D={D}",
+                                  lambda: fused_attention(q, k, v, scale), got)
         worst[route] = max(worst[route], err)
         ms = time_ms(lambda: fused_attention(q, k, v, scale), 20)
         dev_ms = device_ms(lambda: fused_attention(q, k, v, scale))
@@ -468,22 +489,25 @@ def phase_attention_any_d(dev):
         lib_dev = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
         flops = 4 * B * N * N * D
         # both kernels do each f32 product as three TF32 tensor-core products
-        # (3xTF32); counted at the true D, not the padded one
+        # (3xTF32); counted at the true D, not the padded one; and one exp2 a
+        # score
         ops_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
+        softmax_ms = exp2_ms(B * N * N, sms, clock)
         bytes_ms = 4 * B * N * D * 4 / HBM_BYTES_PER_S * 1e3
-        bound = max(ops_ms, bytes_ms)
-        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        bound = max(ops_ms, softmax_ms, bytes_ms)
+        by = "operations" if max(ops_ms, softmax_ms) >= bytes_ms else "bytes"
         log(f"attention {route} B={B} N={N} D={D} heads=1: err {err:.3g} (tol {tol:.3g}; against "
-            f"f64 {err64:.3g}, the plain version's {plain64:.3g}), two launches bit-identical"
-            f"{' and a graph replay' if route == 'wide' else ''}; "
-            f"kernel {ms:.4f} ms (device time {dev_ms:.4f}) plain {plain:.4f} ms SDPA {lib:.4f} "
-            f"ms (device time {lib_dev:.4f}; {lib_dev / dev_ms:.2f}x the kernel's) bound "
-            f"{bound:.4f} ms ({by}; 3xTF32 tensor-core {ops_ms:.4f}, bytes {bytes_ms:.4f}; "
-            f"{bound / dev_ms:.1%} of it by device time, {flops / dev_ms / 1e9:.2f} f32 "
-            f"TFLOP/s)")
+            f"f64 {err64:.3g}, the plain version's {plain64:.3g}), two launches and a graph "
+            f"replay bit-identical; kernel {ms:.4f} ms (device time {dev_ms:.4f}) plain "
+            f"{plain:.4f} ms SDPA {lib:.4f} ms (device time {lib_dev:.4f}; "
+            f"{lib_dev / dev_ms:.2f}x the kernel's) bound {bound:.5f} ms ({by}; 3xTF32 "
+            f"tensor-core {ops_ms:.5f}, exp2 {softmax_ms:.5f} at {clock / 1e6:.0f} MHz, bytes "
+            f"{bytes_ms:.5f}; {bound / dev_ms:.1%} of it by device time, "
+            f"{flops / dev_ms / 1e9:.2f} f32 TFLOP/s)")
         res[(B, N, D)] = dict(route=route, ms=ms, device_ms=dev_ms, plain_ms=plain,
                               library_ms=lib, library_device_ms=lib_dev, bound_ms=bound,
-                              bound_by=by, max_abs_err=err, err_f64=err64, plan=plan)
+                              bound_by=by, ops_ms=ops_ms, softmax_ms=softmax_ms,
+                              max_abs_err=err, err_f64=err64, plan=plan)
         del qkv, q, k, v, got, again, want, exact
         torch.cuda.empty_cache()
     return res, worst
@@ -2448,6 +2472,14 @@ def phase_sr3(dev, work: str) -> dict:
 
 
 
+ATTN_NARROW_DESIGN = (
+    "attention_f32_kernel<DP, TK, NG> (csrc/attention.cu), the D = 128 kernel's template at D "
+    "padded to DP = 32 ceil(D / 32): tf32 wgmma at 3xTF32, Q, K, V by TMA maps that zero-fill "
+    "past D and N, a producer warpgroup writing K's remainder and V's transposed planes once a "
+    "tile for NG consumer warpgroups of 64 queries, S DP / 32 panel chains from 0 added in f32, "
+    "P V one chain a tile added with the rescale; (TK, NG) = (16, 1) up to N = 16, (32, 1) up "
+    "to 128, (64, 2) above; keys split across blocks by ops.attention.narrow_plan, combined in "
+    "split order")
 ATTN_BF16_DESIGN = (
     "wgmma.mma_async m64n64k16 bf16 with f32 accumulators (S = Q K^T with Q and K by 128-byte-"
     "swizzle descriptors; O += P V with P from registers and V read transposed), 64 queries a "
@@ -3794,6 +3826,11 @@ def main() -> int:
     log("conv_gn_bf16 registers and spills (consumer warpgroups raised to 232 by setmaxnreg, "
         "the producer lowered to 40; ptxas reports the launch's 168): "
         + "; ".join(conv_bf16_regs))
+    attn_f32_regs = variants.ptxas_summary(build_log.split("== attention.cu")[1]
+                                           .split("\n== ")[0])
+    log("attention (csrc/attention.cu) registers and spills (<DP, key tile, consumer "
+        "warpgroups>; at two warpgroups setmaxnreg raises the consumers to 224, ptxas reports "
+        "the launch's 168): " + "; ".join(attn_f32_regs))
     attn_bf16_regs = variants.ptxas_summary(build_log.split("== attention_bf16.cu")[1]
                                             .split("\n== ")[0])
     log("attention_bf16 registers and spills (<panels> up to D = 256, then the wide kernel): "
@@ -3930,7 +3967,7 @@ def main() -> int:
                                                        "library_device_ms")},
              sr3_by_shape=sr3["gn"]["by_shape"]),
         dict(name="attention", route="cuda",
-             source="diffsplitting_tpu_torch/csrc/attention_wide.cu",
+             source="diffsplitting_tpu_torch/csrc/attention.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
              launches=launches["attention"] + train["launches"]["attention"]
              + loop["launches"]["attention"] + tp["launches"]["attention"]
@@ -3958,13 +3995,15 @@ def main() -> int:
         dict(name="attention_narrow", route="cuda",
              source="diffsplitting_tpu_torch/csrc/attention.cu",
              replaces="diffsplitting_tpu/ops/attention.py:33",
+             design=ATTN_NARROW_DESIGN, registers=attn_f32_regs,
              launches=narrow[0]["attention_narrow"] + narrow[1]["attention_narrow"],
              max_abs_err=any_d_err["narrow"], at="B=%d N=%d D=%d" % narrow_shape,
              **{k: any_d[narrow_shape][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                    "library_ms", "device_ms")},
+                                                    "library_ms", "device_ms", "ops_ms",
+                                                    "softmax_ms", "plan")},
              by_shape={"B=%d N=%d D=%d" % key: {k: r[k] for k in (
-                 "route", "device_ms", "plain_ms", "library_device_ms", "bound_ms",
-                 "max_abs_err", "err_f64")}
+                 "route", "device_ms", "plain_ms", "library_device_ms", "bound_ms", "ops_ms",
+                 "softmax_ms", "max_abs_err", "err_f64", "plan")}
                  for key, r in any_d.items() if r["route"] == "narrow" or key[2] % 128}),
         dict(name="conv_gn", route="cuda",
              source="diffsplitting_tpu_torch/csrc/conv_gn.cu",

@@ -1,6 +1,7 @@
-// Hopper building blocks shared by attention_bf16.cu, attention_wide.cu and
-// conv_gn.cu, for sm_90a: mbarriers, TMA tensor-map loads and their
-// host-side encoding, the wgmma fences and the tf32 wgmma wrappers.
+// Hopper building blocks shared by attention.cu, attention_bf16.cu,
+// attention_wide.cu and conv_gn.cu, for sm_90a: mbarriers, TMA tensor-map
+// loads and their host-side encoding, the wgmma fences and the tf32 wgmma
+// wrappers.
 
 #pragma once
 
@@ -84,6 +85,13 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define DSP_REGS32                                                                     \
     DSP_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
                "%30, %31"
+#define DSP_D48 \
+    DSP_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), \
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+#define DSP_REGS48 \
+    DSP_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+               "%46, %47"
 #define DSP_D64 \
     DSP_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
         "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), \
@@ -124,6 +132,15 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" DSP_REGS32
         "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
         : DSP_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[48], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {" DSP_REGS48
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+        : DSP_D48
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t db,

@@ -1,44 +1,50 @@
 """Time the attention kernels beside variants of themselves on one card.
 
     python -m diffsplitting_tpu_torch.kernels.attention_variants [--baseline FILE] [--json FILE]
-    python -m diffsplitting_tpu_torch.kernels.attention_variants --wide [--baseline FILE [--host]] [--json FILE]
-    python -m diffsplitting_tpu_torch.kernels.attention_variants --narrow [--baseline FILE]
+    python -m diffsplitting_tpu_torch.kernels.attention_variants --wide \
+        [--baseline FILE [--host]] [--json FILE]
+    python -m diffsplitting_tpu_torch.kernels.attention_variants --narrow \
+        [--baseline FILE [--baseline FILE]] [--json FILE]
     python -m diffsplitting_tpu_torch.kernels.attention_variants --bf16 [--baseline FILE] [--json FILE]
 
 Each variant is the shipped source (and csrc/*.cuh) with text substitutions,
-built by its own `nvcc` into its own library (all started together). By
-default the variants are of csrc/attention_wide.cu's D = 128 kernel
-(D128_VARIANTS: 32-key tiles, K tiles in flight; and the wide kernel at D =
-128, its range widened in that variant only), called through
+built by its own `nvcc` into its own library (all started together); a
+baseline is an earlier source built with the headers beside it (unpack its
+commit's whole csrc/: `git archive <commit> diffsplitting_tpu_torch/csrc`).
+By default the variants are of csrc/attention.cu's D = 128 instance
+(D128_VARIANTS: 32-key tiles; and csrc/attention_wide.cu's wide kernel at D
+= 128, its range widened in that variant only), called through
 `attention_f32_d128` at the Hagen mid block's shape (N = 4096, D = 128, one
 head; q, k, v views of one qkv tensor) at B = 1, 2, 4 and 8, each at the
 plan's key-split count and at 1 and twice it (the plan's count of the
-32-key variants' tiles); `--baseline` adds an earlier source's
-`attention_f32_d128` called with its own signature (no scratch, no plan: e.g.
-`git show 1e56b1a:diffsplitting_tpu_torch/csrc/attention.cu`, the mma.sync
-kernel). With `--wide` they are of csrc/attention_wide.cu's wide kernel
-(WIDE_VARIANTS: ring depth, 1xTF32), each at the plan's key-split count and
-at 1 and twice it (the shipped source also at the other key tile), at
-WIDE_SHAPES (every wide-routed shape of chip_smoke.py); the baseline is an
-earlier source's `attention_f32_wide`, called with its own signature (before
-the key splits, e.g. `git show 816dfe4:diffsplitting_tpu_torch/csrc/attention.cu`:
-no scratch, no plan), and each entry reports its device time and its
-host-loop time; `--host` times only the two wrappers' host loops at
-sr_sr3_16_128's serving shapes, in alternating pairs. With `--narrow` they are of the narrow kernel
-(`attention_f32_narrow`: block rows, key tile, ring depth, the order of S's
-sum) at NARROW_SHAPES; the baseline is then called through
-`attention_f32_any_d` (the SIMT kernel of the sources before the narrow
-kernel, e.g. `git show 694b722:diffsplitting_tpu_torch/csrc/attention.cu`) at
-every shape. With `--bf16` they are of csrc/attention_bf16.cu (BF16_VARIANTS:
-the ring depth of either of its kernels), each also at other key-split counts
-than the plan's, at BF16_SHAPES (chip_smoke.py's SR512_ATTN_SHAPES); the
-baseline is an earlier attention_bf16.cu, called with its own signature
-(before the key splits: no scratch arguments), e.g. `git show
-0104a7a:diffsplitting_tpu_torch/csrc/attention_bf16.cu`. The variants are
-timed in turns (forward, then in reverse order, SDPA among them) by CUDA-graph
-device time, and each is held against the plain version. Prints the card,
-each variant's registers and spills, its time and its max abs error, and
-SDPA's time. Nothing here is used by the port.
+32-key variant's tiles); `--baseline` adds an earlier source's
+`attention_f32_d128` called with its own signature (no scratch, no plan for
+commit 1e56b1a's mma.sync kernel in attention.cu; commit 2357aaa's
+attention_wide.cu has today's). With `--wide` they are of
+csrc/attention_wide.cu's wide kernel (WIDE_VARIANTS: ring depth, 1xTF32),
+each at the plan's key-split count and at 1 and twice it (the shipped
+source also at the other key tile), at WIDE_SHAPES (every wide-routed shape
+of chip_smoke.py); the baseline is an earlier source's `attention_f32_wide`,
+called with its own signature (before the key splits, e.g. commit 816dfe4's
+attention.cu: no scratch, no plan), and each entry reports its device time
+and its host-loop time; `--host` times only the two wrappers' host loops at
+sr_sr3_16_128's serving shapes, in alternating pairs. With `--narrow` they
+are of csrc/attention.cu below D = 128 (NARROW_VARIANTS: more key-tile and
+warpgroup pairs, rings of one tile, two blocks an SM) at NARROW_SHAPES, the
+shipped source at each of its pairs; `--baseline`, given once or twice,
+adds commit 2357aaa's mma.sync kernel (attention.cu, called with its own
+signature) and its D = 128 kernel (attention_wide.cu), which runs beside the
+shipped D = 128 instance at B = 1, 2, 4 and 8 with its bits required equal
+(and D128_DIGESTS printed). With `--bf16` they are of csrc/attention_bf16.cu
+(BF16_VARIANTS: the ring depth of either of its kernels), each also at other
+key-split counts than the plan's, at BF16_SHAPES (chip_smoke.py's
+SR512_ATTN_SHAPES); the baseline is an earlier attention_bf16.cu, called
+with its own signature (before the key splits: no scratch arguments), e.g.
+commit 0104a7a's. The variants are timed in turns (forward, then in reverse
+order, SDPA among them) by CUDA-graph device time, and each is held against
+the plain version. Prints the card, each variant's registers and spills, its
+time and its max abs error, and SDPA's time. Nothing here is used by the
+port.
 """
 
 from __future__ import annotations
@@ -52,53 +58,59 @@ import tempfile
 from pathlib import Path
 
 from .build import SIGNATURES
-from .variants import build_all, card, device_ms, time_ms, variant_sources
+from .variants import (baseline_sources, build_all, card, device_ms, exp2_ms, sm_clock_hz,
+                       time_ms, variant_sources)
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCE = "attention.cu"
-HEADER = "tf32x3.cuh"
-ONE_TF32 = (HEADER, "    mma_tf32(d, a_small, b0_big, b1_big);\n"
-            "    mma_tf32(d, a_big, b0_small, b1_small);\n", "")
+# the last (key tile, warpgroups) pair attention.cu's launch_tiling builds
+_TILING_LAST = ("    if (key_tile == 64 && groups == 2) return launch_dp<64, 2>"
+                "(dp, q, k, v, p, B, sb, sn, sh, st);\n")
+_RING = "    static constexpr int RING = KRING + 4 * TILE + 8 * 9 + 1024 <= kSmemLimit ? 2 : 1;"
 
 
-# the narrow kernel's tiling, by padded head dim DP
-NARROW_WARPS = "static constexpr int kWarps = 4;                   // 16 query rows a warp"
-NARROW_TILE_K = "static constexpr int kTileK = DP <= 64 ? 64 : 32;  // keys a stage"
-NARROW_STAGES = "2 * (narrow_smem_bytes(DP, kRows, kTileK, 3) + 1024) <= 233472 ? 3 : 2;"
-# a 16-wide head-dim step of S summed from 0 and added in f32 (as the first
-# wide kernel summed S)
-S_STEP_FROM_0 = ("                    float step[4] = {0.f, 0.f, 0.f, 0.f};\n"
-                 "                    mma_3xtf32(step, a0b, a0s, xb, yb, xs, ys);\n"
-                 "                    mma_3xtf32(step, a1b, a1s, zb, wb, zs, ws);\n"
-                 "#pragma unroll\n"
-                 "                    for (int i = 0; i < 4; ++i) s[n][i] += step[i];\n")
-# the narrow kernel's S loop, which sums S over all of DP in the MMA accumulator
-S_IN_MMA = ("                    mma_3xtf32(s[n], a0b, a0s, xb, yb, xs, ys);\n"
-            "                    mma_3xtf32(s[n], a1b, a1s, zb, wb, zs, ws);\n")
-NARROW_S_IN_MMA = ("                    split(kv.w, wb, ws);\n" + S_IN_MMA +
-                   "                }\n"
-                   "            }\n"
-                   "\n"
-                   "            // s[n] holds rows g (0, 1) and g+8 (2, 3), keys 8n + 2t and\n"
-                   "            // 8n + 2t + 1; keys past N take no weight\n"
-                   "            const int keys_left = n_tokens - it * TK;")
+def _tilings(*pairs) -> tuple:
+    """A substitution adding (key tile, warpgroups[, padded head dim]) pairs
+    to launch_tiling: at every DP, or at the one given."""
+    lines = ""
+    for tk, ng, *dp in pairs:
+        call = (f"launch_tile<{dp[0]}, {tk}, {ng}>(q, k, v, p, B, sb, sn, sh, st)" if dp else
+                f"launch_dp<{tk}, {ng}>(dp, q, k, v, p, B, sb, sn, sh, st)")
+        cond = f"key_tile == {tk} && groups == {ng}" + (f" && dp == {dp[0]}" if dp else "")
+        lines += f"    if ({cond}) return {call};\n"
+    return (SOURCE, _TILING_LAST, _TILING_LAST + lines)
+
+
+# (key tile, warpgroups) pairs of the "tilings" variant: 32-key tiles with
+# two consumer warpgroups and 16 with two at every DP; three warpgroups at
+# DP = 64, the producer's registers going to them by setmaxnreg (24 / 160)
+NARROW_EXTRA_TILINGS = ((32, 2), (16, 2), (64, 3, 64), (32, 3, 64))
+_REGS2 = "struct RegSplit<2> {  // 168 a thread at launch"
+_REGS3 = ("struct RegSplit<3> {  // 128 a thread at launch\n"
+          "    static constexpr bool on = true;\n"
+          "    static constexpr int producer = 24, consumer = 160;\n"
+          "};\n"
+          "template <>\n")
+# name -> (file, old, new) substitutions on csrc/attention.cu for the kernel
+# below D = 128
 NARROW_VARIANTS = {
     "shipped": [],
-    "1xtf32": [ONE_TF32],
-    # S summed a 16-wide head-dim step at a time from 0
-    "s_per_step": [(SOURCE, NARROW_S_IN_MMA, NARROW_S_IN_MMA.replace(S_IN_MMA, S_STEP_FROM_0))],
-    # 128-query blocks (8 warps; 64 blocks at B = 8, N = 1024) or 32 (2 warps)
-    "rows128": [(SOURCE, NARROW_WARPS, NARROW_WARPS.replace("= 4;", "= 8;"))],
-    "rows32": [(SOURCE, NARROW_WARPS, NARROW_WARPS.replace("= 4;", "= 2;"))],
-    # 32-key tiles at every DP
-    "tk32": [(SOURCE, NARROW_TILE_K, "static constexpr int kTileK = 32;")],
-    # a ring of 2 stages at every DP, and of 3 (one block an SM at DP = 64)
-    "stages2": [(SOURCE, NARROW_STAGES, "2;")],
-    "stages3": [(SOURCE, NARROW_STAGES, "3;")],
+    "tilings": [_tilings(*NARROW_EXTRA_TILINGS), (SOURCE, _REGS2, _REGS3 + _REGS2)],
+    # one K and one V tile in flight at every DP (two where they fit, shipped)
+    "ring1": [(SOURCE, _RING, "    static constexpr int RING = 1;")],
+    # two blocks an SM at one consumer warpgroup (128 registers a thread),
+    # its rings of one tile
+    "two_blocks": [(SOURCE, "__launch_bounds__((NG + 1) * kConsumers, 1)",
+                    "__launch_bounds__((NG + 1) * kConsumers, NG == 1 ? 2 : 1)"),
+                   (SOURCE, _RING, "    static constexpr int RING = NG == 1 ? 1 : " +
+                    _RING.split("= ", 1)[1])],
 }
 # (B, N, D): the narrow shapes of chip_smoke.py's ANY_D_SHAPES (D = 16 and 64
 # at N = 16, 100 and 1024; the Hagen mid block at inner 8, N = 4096)
 NARROW_SHAPES = [(8, n, d) for d in (16, 64) for n in (16, 100, 1024)] + [(8, 4096, 64)]
+# the entry of the mma.sync kernel that attention.cu held at commit 2357aaa:
+# no scratch, no plan
+NARROW_UNSPLIT_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _F, _P]
 
 
 WIDE_SOURCE = "attention_wide.cu"
@@ -119,20 +131,16 @@ WIDE_VARIANTS = {
                (WIDE_SOURCE, _PV_CHAIN, "                wgmma_tf32(pv, pb[kk], desc_kmajor(vr), "
                 "kk > 0);\n")],
 }
-_D128_TK32 = (WIDE_SOURCE, "constexpr int kD128Keys = 64;", "constexpr int kD128Keys = 32;")
-# name -> (file, old, new) substitutions on csrc/attention_wide.cu for the
-# D = 128 kernel
+# name -> (file, old, new) substitutions on csrc/attention.cu for its D =
+# 128 instance (the wide kernel at D = 128 is a variant of
+# csrc/attention_wide.cu, its range widened there only)
 D128_VARIANTS = {
     "shipped": [],
-    # 32-key tiles (64 shipped), with one K tile in flight as shipped (the
-    # next tile's load waits for both consumers' S of the last) and with two
-    # (they fit at 32 keys, not at 64)
-    "tk32": [_D128_TK32],
-    "tk32_kring2": [_D128_TK32, (WIDE_SOURCE, "constexpr int kD128KRing = 1;",
-                                 "constexpr int kD128KRing = 2;")],
-    # the wide kernel at D = 128 (its range widened here only), by `wide_plan`
-    "wide128": [(WIDE_SOURCE, "if (d <= 128 ||", "if (d < 128 ||")],
+    # 32-key tiles (64 shipped); two K and two V tiles in flight fit at 32
+    "tk32": [_tilings((32, 2, 128)),
+             (SOURCE, " " * 27 + "64, 2, splits,", " " * 27 + "32, 2, splits,")],
 }
+D128_WIDE_VARIANT = [(WIDE_SOURCE, "if (d <= 128 ||", "if (d < 128 ||")]
 D128_BATCHES = (1, 2, 4, 8)  # the Hagen mid block: N = 4096, D = 128, one head
 # the entry of the mma.sync kernel that attention.cu held at commit 1e56b1a:
 # no scratch, no plan
@@ -187,11 +195,13 @@ def run_bf16(baseline: Path = None, json_path: Path = None) -> None:
     from ..ops import attention as A
 
     sources = variant_sources(BF16_SOURCE, BF16_VARIANTS)
+    mains = {name: BF16_SOURCE for name in sources}
     if baseline:
-        sources["baseline"] = {BF16_SOURCE: baseline.read_text()}
+        sources["baseline"] = baseline_sources(baseline)
+        mains["baseline"] = baseline.name
     results = []
     with tempfile.TemporaryDirectory() as work:
-        libs = build_all(sources, BF16_SOURCE, Path(work))
+        libs = build_all(sources, mains, Path(work))
         base = libs.pop("baseline", None)
         for lib in libs.values():
             lib.attention_bf16.argtypes = SIGNATURES["attention_bf16"]
@@ -251,65 +261,6 @@ def run_bf16(baseline: Path = None, json_path: Path = None) -> None:
         json_path.write_text(json.dumps(dict(card=card(), rows=results), indent=1))
 
 
-def _in_turns(shapes, entries: dict, baseline) -> None:
-    """At each (B, N, D): every library's entry (name -> (lib, entry)), the
-    baseline's SIMT kernel and SDPA timed in turns by CUDA-graph replay, each
-    held against the plain version and f64."""
-    import torch
-    import torch.nn.functional as F
-
-    from ..ops import attention_reference
-
-    for B, N, D in shapes:
-        g = torch.Generator(device="cuda").manual_seed(2)
-        qkv = torch.randn(B, N, 1, 3, D, device="cuda", generator=g)
-        q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
-        scale = 1 / math.sqrt(D)
-        want = attention_reference(q, k, v, scale)
-        exact = attention_reference(q.double(), k.double(), v.double(), scale).float()
-        out = torch.empty_like(want)
-        st = q.stride()
-        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
-
-        def launch(fn):
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, 1, D,
-                     st[0], st[1], st[2], scale, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"CUDA error {err} at launch")
-
-        runs = {name: functools.partial(launch, getattr(lib, entry))
-                for name, (lib, entry) in entries.items()}
-        if baseline is not None:
-            runs["simt"] = functools.partial(launch, baseline.attention_f32_any_d)
-        runs["sdpa"] = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
-        bound = 3 * 4 * B * N * N * D / 495e12 * 1e3  # 3xTF32 at the true D
-        order = list(runs)
-        for name in order + order[::-1]:
-            runs[name]()
-            torch.cuda.synchronize()
-            line = f"B={B} N={N} D={D} {name}: {device_ms(runs[name]):.4f} ms device time"
-            if name != "sdpa":
-                line += (f", max abs err {(out - want).abs().max().item():.3g} "
-                         f"(against f64: {(out - exact).abs().max().item():.3g})")
-            print(line + f"; bound {bound:.4f} ms", flush=True)
-        del qkv, q, k, v, want, exact, out, qh, kh, vh
-        torch.cuda.empty_cache()
-
-
-def _build(variants: dict, baseline: Path, work: Path):
-    """The variants' libraries and the baseline's (or None), entry points typed."""
-    sources = variant_sources(SOURCE, variants)
-    if baseline:
-        sources["baseline"] = {SOURCE: baseline.read_text()}
-    libs = build_all(sources, SOURCE, work)
-    # the two entries take the same arguments (the baseline's any-D SIMT one too)
-    for lib in libs.values():
-        for entry in ("attention_f32_narrow", "attention_f32_any_d"):
-            if hasattr(lib, entry):
-                getattr(lib, entry).argtypes = SIGNATURES["attention_f32_narrow"]
-    return libs, libs.pop("baseline", None)
-
-
 def run_wide(baseline: Path = None, json_path: Path = None, host: bool = False) -> None:
     """The wide kernel's variants (each at the plan's split count and at 1
     and twice the plan's, the shipped source also at the other key tile),
@@ -331,14 +282,16 @@ def run_wide(baseline: Path = None, json_path: Path = None, host: bool = False) 
     from ..ops import attention as A
 
     sources = variant_sources(WIDE_SOURCE, {"shipped": []} if host else WIDE_VARIANTS)
+    mains = {name: WIDE_SOURCE for name in sources}
     if baseline:
-        sources["baseline"] = {WIDE_SOURCE: baseline.read_text()}
+        sources["baseline"] = baseline_sources(baseline)
+        mains["baseline"] = baseline.name
     elif host:
         raise SystemExit("attention_variants --wide --host needs --baseline")
     results = []
     launch_wide = A._launch_wide
     with tempfile.TemporaryDirectory() as work:
-        libs = build_all(sources, WIDE_SOURCE, Path(work))
+        libs = build_all(sources, mains, Path(work))
         base = libs.pop("baseline", None)
         for lib in libs.values():
             lib.attention_f32_wide.argtypes = SIGNATURES["attention_f32_wide"]
@@ -508,12 +461,16 @@ def run_d128(baseline: Path = None, json_path: Path = None) -> None:
     from ..ops import attention as A
 
     N, D = 4096, A.D128_HEAD_DIM
-    sources = variant_sources(WIDE_SOURCE, D128_VARIANTS)
+    sources = variant_sources(SOURCE, D128_VARIANTS)
+    sources.update(variant_sources(WIDE_SOURCE, {"wide128": D128_WIDE_VARIANT}))
+    mains = {name: SOURCE for name in D128_VARIANTS}
+    mains["wide128"] = WIDE_SOURCE
     if baseline:
-        sources["baseline"] = {WIDE_SOURCE: baseline.read_text()}
+        sources["baseline"] = baseline_sources(baseline)
+        mains["baseline"] = baseline.name
     results = []
     with tempfile.TemporaryDirectory() as work:
-        libs = build_all(sources, WIDE_SOURCE, Path(work))
+        libs = build_all(sources, mains, Path(work))
         base = libs.pop("baseline", None)
         wide = libs.pop("wide128")
         wide.attention_f32_wide.argtypes = SIGNATURES["attention_f32_wide"]
@@ -591,43 +548,230 @@ def run_d128(baseline: Path = None, json_path: Path = None) -> None:
         json_path.write_text(json.dumps(dict(card=card(), rows=results), indent=1))
 
 
-def run_narrow(baseline: Path = None) -> None:
-    """The narrow kernel's variants at NARROW_SHAPES, each beside the
-    baseline's SIMT kernel and SDPA, in turns."""
+# (B, N, forced key splits, numpy seed) of the D = 128 kernel's digests: the
+# Hagen mid block at batch 1 and 2 at the plan's split counts on 132 SMs,
+# forced so that a card of another SM count runs the same sums
+D128_DIGEST_INPUTS = [(1, 4096, 4, 22), (2, 4096, 2, 23)]
+# sha256 of the result of PR 22's D = 128 kernel (csrc/attention_wide.cu at
+# commit 1ab4dcc, the same at 2357aaa) at each of D128_DIGEST_INPUTS, on an
+# H100 80GB HBM3 (`--narrow` with that source as a baseline prints them)
+D128_DIGESTS = {
+    (1, 4096, 4, 22): "36c67cd718dace8168c4fbc817b866a58e23c0270caea447907a891231712fdd",
+    (2, 4096, 2, 23): "0bf8efe88f610a6ef157f4cad0138d2959dfc099834f8e72747f3262488a4d89",
+}
+
+
+def d128_digest(B: int, N: int, splits: int, seed: int, entry=None):
+    """The D = 128 kernel at (B, N, 1 head), `splits` key splits, on q, k, v
+    views of one numpy-seeded qkv tensor, scale 1/sqrt(128) (`entry`: another
+    library's attention_f32_d128): its result and the sha256 of its bytes."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from ..ops import attention as A
+
+    qkv = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (B, N, 1, 3, A.D128_HEAD_DIM), dtype=np.float32)).cuda()
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    out = torch.empty(B, N, 1, A.D128_HEAD_DIM, device="cuda")
+    A._launch_d128(q, k, v, out, 1 / math.sqrt(A.D128_HEAD_DIM), splits, entry)
+    torch.cuda.synchronize()
+    return out, hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
+def _narrow_inputs(B: int, N: int, D: int, seed: int = 2):
+    """q, k, v (B, N, 1, D) views of one seeded qkv tensor on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B, N, 1, 3, D, device="cuda", generator=g)
+    return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+
+
+def run_narrow(baselines=(), json_path: Path = None) -> None:
+    """The kernel below D = 128: its variants (the shipped source at every
+    built (key tile, warpgroups) pair, each at its plan's key-split count,
+    the plan's pair also at 1 and twice the splits; the other variants at
+    their pairs), the mma.sync kernel of an earlier attention.cu (a baseline
+    holding `attention_tf32x3_narrow_kernel`, called with its own signature),
+    SDPA and the plain version, in turns at NARROW_SHAPES by CUDA-graph
+    device time, each kernel held against the plain version and f64 and run
+    twice for the bits; the bound's two terms (3xTF32 operations, the
+    softmax's exp2) beside each. Then the D = 128 instance against an
+    earlier `attention_f32_d128` (a baseline holding it: PR 22's kernel) at
+    D128_BATCHES, in turns, its result required bit-equal to the baseline's,
+    and each one's sha256 at the GPU tests' D128_DIGEST_INPUTS."""
+    import torch
+    import torch.nn.functional as F
+
+    from ..ops import attention as A
+
+    sources = variant_sources(SOURCE, NARROW_VARIANTS)
+    mains = {name: SOURCE for name in sources}
+    kinds = {}
+    for i, path in enumerate(baselines):
+        text = path.read_text()
+        kind = ("narrow" if "attention_tf32x3_narrow_kernel" in text else
+                "d128" if "attention_f32_d128" in text else None)
+        if kind is None:
+            raise SystemExit(f"{path}: neither the mma.sync kernel nor attention_f32_d128")
+        kinds[f"baseline_{kind}"] = kind
+        sources[f"baseline_{kind}"] = baseline_sources(path)
+        mains[f"baseline_{kind}"] = path.name
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    print(f"{sms} SMs, highest SM clock {clock / 1e6:.0f} MHz", flush=True)
+    results = []
     with tempfile.TemporaryDirectory() as work:
-        libs, base = _build(NARROW_VARIANTS, baseline, Path(work))
-        _in_turns(NARROW_SHAPES, {name: (lib, "attention_f32_narrow")
-                                  for name, lib in libs.items()}, base)
+        libs = build_all(sources, mains, Path(work))
+        base_narrow = libs.pop("baseline_narrow", None)
+        base_d128 = libs.pop("baseline_d128", None)
+        for lib in libs.values():
+            lib.attention_f32_narrow.argtypes = SIGNATURES["attention_f32_narrow"]
+            lib.attention_f32_d128.argtypes = SIGNATURES["attention_f32_d128"]
+        if base_narrow is not None:
+            base_narrow.attention_f32_narrow.argtypes = NARROW_UNSPLIT_SIGNATURE
+        if base_d128 is not None:
+            base_d128.attention_f32_d128.argtypes = SIGNATURES["attention_f32_d128"]
+        pairs = {"shipped": A.NARROW_TILINGS,
+                 "tilings": [t[:2] for t in NARROW_EXTRA_TILINGS],
+                 "two_blocks": [(16, 1), (64, 1)]}
+        for B, N, D in NARROW_SHAPES:
+            q, k, v = _narrow_inputs(B, N, D)
+            scale = 1 / math.sqrt(D)
+            want = A.attention_reference(q, k, v, scale)
+            exact = A.attention_reference(q.double(), k.double(), v.double(), scale).float()
+            tol = 1e-4 * (1 + want.abs().max().item())
+            out = torch.empty_like(want)
+            plan = A.narrow_plan(B, N, sms)
+            runs, plans = {}, {}
+            for name, lib in libs.items():
+                for tk, ng in pairs.get(name, [(plan.key_tile, plan.groups)]):
+                    if name == "tilings" and ng == 3 and D != 64:
+                        continue  # built at DP = 64 only
+                    how = A.narrow_plan(B, N, sms, None, tk, ng)
+                    counts = [how.splits]
+                    if (name, tk, ng) == ("shipped", plan.key_tile, plan.groups):
+                        counts += [1, 2, 2 * how.splits]
+                    counts = [c for c in counts if c <= -(-N // tk)]
+                    for sp in sorted(set(counts)):
+                        tag = name if (tk, ng) == (plan.key_tile, plan.groups) else \
+                            f"{name}/tk{tk}g{ng}"
+                        tag += "" if sp == how.splits else f"/splits{sp}"
+                        runs[tag] = functools.partial(A._launch_narrow, q, k, v, out, scale, sp,
+                                                      tk, ng, lib.attention_f32_narrow)
+                        plans[tag] = A.narrow_plan(B, N, sms, sp, tk, ng)._asdict()
+            if base_narrow is not None:
+                st = q.stride()
+                runs["baseline"] = lambda: A.check(base_narrow.attention_f32_narrow(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, 1, D, *st[:3],
+                    scale, torch.cuda.current_stream().cuda_stream), "attention_f32_narrow")
+            qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+            runs["sdpa"] = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+            runs["plain"] = lambda: A.attention_reference(q, k, v, scale)
+            ops_ms = 3 * 4 * B * N * N * D / 495e12 * 1e3  # 3xTF32 at the true D
+            soft_ms = exp2_ms(B * N * N, sms, clock)
+            bound = max(ops_ms, soft_ms)
+            order = list(runs)
+            for turn, name in enumerate(order + order[::-1]):
+                runs[name]()
+                torch.cuda.synchronize()
+                row = dict(B=B, N=N, D=D, name=name, turn=turn, device_ms=device_ms(runs[name]),
+                           bound_ms=bound, ops_ms=ops_ms, softmax_ms=soft_ms,
+                           plan=plans.get(name))
+                line = f"B={B} N={N} D={D} {name}: {row['device_ms']:.4f} ms device time"
+                if name in plans:
+                    line += f" ({plans[name]})"
+                if name not in ("sdpa", "plain"):
+                    first = out.clone()
+                    runs[name]()
+                    torch.cuda.synchronize()
+                    err = (first - want).abs().max().item()
+                    err64 = (first - exact).abs().max().item()
+                    row.update(max_abs_err=err, err_f64=err64,
+                               bit_identical=torch.equal(first, out))
+                    line += (f", max abs err {err:.3g} (tol {tol:.3g}; against f64 "
+                             f"{err64:.3g}), twice bit-identical {row['bit_identical']}")
+                    if not (err <= tol and err64 <= 2e-6 and row["bit_identical"]):
+                        raise AssertionError(line)
+                print(line + f"; bound {bound:.5f} ms (3xTF32 {ops_ms:.5f}, exp2 {soft_ms:.5f}; "
+                      f"{bound / row['device_ms']:.1%})", flush=True)
+                results.append(row)
+            del q, k, v, want, exact, out, qh, kh, vh
+            torch.cuda.empty_cache()
+        if base_d128 is not None:
+            shipped = libs["shipped"].attention_f32_d128
+            for B in D128_BATCHES:
+                q, k, v = _narrow_inputs(B, 4096, A.D128_HEAD_DIM)
+                scale = 1 / math.sqrt(A.D128_HEAD_DIM)
+                outs = {name: torch.empty_like(q, memory_format=torch.contiguous_format)
+                        for name in ("shipped", "baseline")}
+                runs = {"shipped": functools.partial(A._launch_d128, q, k, v, outs["shipped"],
+                                                     scale, None, shipped),
+                        "baseline": functools.partial(A._launch_d128, q, k, v, outs["baseline"],
+                                                      scale, None, base_d128.attention_f32_d128)}
+                for turn, name in enumerate(["shipped", "baseline", "baseline", "shipped"]):
+                    ms = device_ms(runs[name])
+                    results.append(dict(B=B, N=4096, D=128, name=f"d128/{name}", turn=turn,
+                                        device_ms=ms))
+                    print(f"B={B} N=4096 D=128 d128/{name}: {ms:.4f} ms device time", flush=True)
+                for fn in runs.values():
+                    fn()
+                torch.cuda.synchronize()
+                same = torch.equal(outs["shipped"], outs["baseline"])
+                print(f"B={B} N=4096 D=128: the D = 128 instance bit-equal to the baseline's "
+                      f"kernel: {same}", flush=True)
+                if not same:
+                    raise AssertionError(f"B={B}: the D = 128 instance's bits differ")
+                del q, k, v, outs
+            for key in D128_DIGEST_INPUTS:
+                for name, fn in (("shipped", shipped), ("baseline", base_d128.attention_f32_d128)):
+                    digest = d128_digest(*key, entry=fn)[1]
+                    print(f"D = 128 digest {key} {name}: {digest}", flush=True)
+                    results.append(dict(B=key[0], N=key[1], D=128, name=f"digest/{name}",
+                                        splits=key[2], seed=key[3], sha256=digest))
+    if json_path:
+        json_path.write_text(json.dumps(dict(card=card(), sms=sms, sm_clock_hz=clock,
+                                             rows=results), indent=1))
 
 
 def main() -> None:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", type=Path, help="another source with the same entry point")
+    ap.add_argument("--baseline", type=Path, action="append", default=[],
+                    help="another source with the same entry point (with --narrow, given once "
+                         "for the mma.sync kernel's attention.cu and once for PR 22's "
+                         "attention_wide.cu)")
     ap.add_argument("--wide", action="store_true", help="variants of the wide kernel")
     ap.add_argument("--narrow", action="store_true",
-                    help="variants of the narrow kernel, and the padded wide kernel")
+                    help="variants of the kernel below D = 128, and its D = 128 instance "
+                         "against a baseline's")
     ap.add_argument("--bf16", action="store_true", help="variants of the bf16 kernel")
     ap.add_argument("--host", action="store_true",
                     help="with --wide and --baseline: only the wrappers' host-loop times, in "
                          "alternating pairs")
-    ap.add_argument("--json", type=Path, help="all but --narrow: write every timing here")
+    ap.add_argument("--json", type=Path, help="write every timing here")
     args = ap.parse_args()
+    if len(args.baseline) > (2 if args.narrow else 1):
+        raise SystemExit("attention_variants: too many baselines")
+    baseline = args.baseline[0] if args.baseline else None
     if not torch.cuda.is_available():
         raise SystemExit("attention_variants: CUDA is not available")
     print(card())
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.bf16:
-        run_bf16(args.baseline, args.json)
+        run_bf16(baseline, args.json)
         return
     if args.wide:
-        run_wide(args.baseline, args.json, args.host)
+        run_wide(baseline, args.json, args.host)
         return
     if args.narrow:
-        run_narrow(args.baseline)
+        run_narrow(args.baseline, args.json)
         return
-    run_d128(args.baseline, args.json)
+    run_d128(baseline, args.json)
 
 
 if __name__ == "__main__":

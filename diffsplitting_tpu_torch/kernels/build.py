@@ -36,7 +36,8 @@ SIGNATURES = {
     "gn_swish_bf16": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _LL, _F, _P],
     "attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _F, _I, _P],
     "attention_f32_d128": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _F, _I, _P],
-    "attention_f32_narrow": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _F, _P],
+    "attention_f32_narrow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _F, _I, _I,
+                             _I, _P],
     "attention_f32_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _F, _I, _I,
                            _I, _P],
     "conv_gn_f32": [_P, _P, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P,

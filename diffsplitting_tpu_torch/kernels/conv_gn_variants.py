@@ -26,7 +26,8 @@ widths, the registers of the consumers, when an identity residual is loaded,
 the swish by expf and a true division, 1xTF32);
 `--baseline` adds another source with the same entry point, called with its
 own tile geometry: one without wgmma, as the mma.sync kernel this design
-replaced (`git show 1ab4dcc:diffsplitting_tpu_torch/csrc/conv_gn.cu`), with
+replaced (commit 1ab4dcc's conv_gn.cu, built with the headers beside it:
+unpack `git archive 1ab4dcc diffsplitting_tpu_torch/csrc`), with
 that kernel's tiling; one whose `conv_gn_f32` takes no split-weights scratch
 (the plain f32 FMA kernel before it: 256 threads of 8 pixels × 8 channels)
 with that signature and geometry. Prints the card, each variant's registers
@@ -61,7 +62,7 @@ import tempfile
 from pathlib import Path
 
 from .build import SIGNATURES
-from .variants import build_all, card, variant_sources
+from .variants import baseline_sources, build_all, card, variant_sources
 
 SOURCE = "conv_gn.cu"
 CONFIG = "configs/splitting_hagen_indi_joint.json"
@@ -332,7 +333,7 @@ def main_bf16(baseline) -> None:
     torch.cuda.empty_cache()
     sources = variant_sources(SOURCE_BF16, VARIANTS_BF16)
     if baseline:
-        sources["baseline"] = {SOURCE_BF16: baseline.read_text()}
+        sources["baseline"] = baseline_sources(baseline, SOURCE_BF16)
     hopper = {name: "wgmma.mma_async" in files[SOURCE_BF16] for name, files in sources.items()}
 
     with tempfile.TemporaryDirectory() as work:
@@ -442,7 +443,7 @@ def main_f32(baseline, sr3: bool, out_json) -> None:
     batch = 1 if sr3 else BATCH
     sources = variant_sources(SOURCE, VARIANTS)
     if baseline:
-        sources["baseline"] = {SOURCE: baseline.read_text()}
+        sources["baseline"] = baseline_sources(baseline, SOURCE)
     kind = {name: "wgmma" if "wgmma.mma_async" in files[SOURCE] else
             "mma_sync" if "void* wsplit" in files[SOURCE] else "fma"
             for name, files in sources.items()}

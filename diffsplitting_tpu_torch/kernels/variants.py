@@ -40,17 +40,29 @@ def variant_sources(source: str, variants: dict) -> dict:
     return out
 
 
-def build_all(sources: dict, main: str, work: Path) -> dict:
+def baseline_sources(path: Path, name: str = None) -> dict:
+    """{file name: text}: an earlier source (as `name`, else its own) and the
+    headers beside it (its own csrc/*.cuh, e.g. `git archive <commit>
+    diffsplitting_tpu_torch/csrc` unpacked), which shadow the shipped ones:
+    today's headers need not hold what an older source includes."""
+    files = {h.name: h.read_text() for h in sorted(path.parent.glob("*.cuh"))}
+    files[name or path.name] = path.read_text()
+    return files
+
+
+def build_all(sources: dict, main, work: Path) -> dict:
     """Build each variant's `main` file (its headers beside it) into a
-    library; print its registers and spills; return name -> CDLL."""
+    library; print its registers and spills; return name -> CDLL. `main` is
+    one file name, or name -> file name."""
     procs = {}
     for name, files in sources.items():
         d = work / name
         d.mkdir()
         for fname, text in files.items():
             (d / fname).write_text(text)
+        src = main if isinstance(main, str) else main[name]
         cmd = [_nvcc(), *COMPILE_FLAGS, "-I", str(CSRC), "-shared", "-o", str(d / "lib.so"),
-               str(d / main)]
+               str(d / src)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     libs = {}
@@ -94,6 +106,20 @@ def ptxas_summary(log: str) -> list:
             out.append(f"{name}: {regs} registers, {spill} B spilled")
             name = None
     return out
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi gives it, in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def exp2_ms(count: int, sms: int, clock_hz: float) -> float:
+    """The least time for `count` exp2 on the card: 16 a clock an SM (the
+    special-function units)."""
+    return count / (16 * sms * clock_hz) * 1e3
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:

@@ -4,23 +4,26 @@ Counterpart: diffsplitting_tpu/ops/attention.py (`attention_reference`,
 `fused_attention` with its custom VJP; the Pallas `_kernel`).
 
 `fused_attention` launches a CUDA kernel for CUDA tensors, picked by the
-dtype and then by the head dim D (`head_dim_route`). float32, all three on the
-tensor cores at f32 accuracy (3xTF32): in csrc/attention_wide.cu, tf32
-`wgmma` fed by TMA, the D = 128 kernel (128 queries a block, O in registers,
-its keys split across blocks by `d128_plan`) and the wide kernel at any
-multiple of 4 above 128 up to 1024 (64 queries a block, its keys split across
-blocks and O's head dims sliced across them by `wide_plan`), either's splits
-combined by a second launch in split order; in csrc/attention.cu, at D padded
-to a multiple of 16, the narrow kernel at any multiple of 4 below 128. bfloat16 (the UNet at `compute_dtype: bfloat16`), csrc/attention_bf16.cu:
-bf16 `wgmma` kernels at any multiple of 8 up to 1024 (f32 scores and softmax,
-P rounded to bf16, f32 sums, a bf16 result), 64 queries a block; up to D =
-256 a block holds its queries' O, above it (the wide kernel) a block sums S
-over all of D itself and takes O in 256-wide chunks one after another. The
-keys are split across blocks: `plan` chooses the split count in plain Python,
-and a split count above 1 adds a second launch that combines the splits' f32
-partials (scratch allocated here) in split order. It raises on any other D or
-dtype. CPU tensors run the plain version. Backward runs autograd through the
-plain version, as the JAX custom VJP does.
+dtype and then by the head dim D (`head_dim_route`). float32, on the tensor
+cores at f32 accuracy (3xTF32) through tf32 `wgmma` fed by TMA: up to D = 128
+one kernel in csrc/attention.cu, a template over the head dim padded to a
+multiple of 32 (its D = 128 instance 128 queries a block with its keys split
+across blocks by `d128_plan`; below 128 the narrow route, 64 or 128 queries
+a block and 16-, 32- or 64-key tiles by N, its keys split by `narrow_plan`), and
+in csrc/attention_wide.cu the wide kernel at any multiple of 4 above 128 up
+to 1024 (64 queries a block, its keys split across blocks and O's head dims
+sliced across them by `wide_plan`); the splits combined by a second launch
+in split order. bfloat16 (the UNet at `compute_dtype: bfloat16`),
+csrc/attention_bf16.cu: bf16 `wgmma` kernels at any multiple of 8 up to
+1024 (f32 scores and softmax, P rounded to bf16, f32 sums, a bf16 result),
+64 queries a block; up to D = 256 a block holds its queries' O, above it
+(the wide kernel) a block sums S over all of D itself and takes O in
+256-wide chunks one after another. The keys are split across blocks: `plan`
+chooses the split count in plain Python, and a split count above 1 adds a
+second launch that combines the splits' f32 partials (scratch allocated
+here) in split order. It raises on any other D or dtype. CPU tensors run
+the plain version. Backward runs autograd through the plain version, as the
+JAX custom VJP does.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 from ..kernels.build import check, library
 from .groupnorm import _sm_count
 
-D128_HEAD_DIM = 128  # attention_d128_kernel; the narrow kernel below it
+D128_HEAD_DIM = 128  # attention_f32_kernel's D = 128 instance; the narrow route below it
 MAX_HEAD_DIM = 1024  # attention_wide_kernel: from 132 up to this
 
 
@@ -235,7 +238,7 @@ def _launch_wide(q, k, v, out, scale: float, splits: int = None, slices: int = N
     return out
 
 
-# the f32 D = 128 kernel's tiling (csrc/attention_wide.cu, attention_d128_kernel)
+# the f32 kernel's tiling at D = 128 (csrc/attention.cu, attention_f32_kernel<128, 64, 2>)
 D128_ROWS = 128  # queries a block: two consumer warpgroups of 64
 D128_KEY_TILE = 64  # keys a tile
 
@@ -273,7 +276,7 @@ def d128_plan(BH: int, N: int, sms: int, splits: int = None) -> D128Plan:
 
 
 def _launch_d128(q, k, v, out, scale: float, splits: int = None, entry=None) -> D128Plan:
-    """attention_d128_kernel (csrc/attention_wide.cu) on (B, N, heads, 128)
+    """attention_f32_kernel (csrc/attention.cu) at D = 128 on (B, N, heads, 128)
     f32 views into `out`: `splits` forces the plan's key-split count;
     `entry` is another library's `attention_f32_d128` (the variants).
     Returns the plan it launched."""
@@ -293,11 +296,91 @@ def _launch_d128(q, k, v, out, scale: float, splits: int = None, entry=None) -> 
     return how
 
 
+# the f32 kernel below D = 128 (csrc/attention.cu, attention_f32_kernel<DP,
+# TK, NG> at DP < 128 or D in (96, 128)): the (key tile, consumer warpgroups)
+# pairs it is built at, as its launch_tiling lists them
+NARROW_TILINGS = ((16, 1), (32, 1), (64, 1), (64, 2))
+NARROW_ROWS = 64  # queries a consumer warpgroup
+_NARROW_SHORT = 128  # N up to which the plan takes 32-key tiles and one warpgroup
+
+
+class NarrowPlan(NamedTuple):
+    """An f32 attention launch below D = 128: keys in tiles of `key_tile`,
+    `groups` consumer warpgroups of 64 queries a block, `splits` key splits
+    of `tiles_per_split` tiles (the last may hold fewer, or none), over a
+    grid of `query_tiles` x B·heads·splits blocks."""
+
+    key_tile: int
+    groups: int
+    splits: int
+    tiles_per_split: int
+    query_tiles: int
+
+    @property
+    def blocks(self) -> int:
+        """Blocks a (batch, head)."""
+        return self.query_tiles * self.splits
+
+
+@functools.lru_cache(maxsize=256)
+def narrow_plan(BH: int, N: int, sms: int, splits: int = None, key_tile: int = None,
+                groups: int = None) -> NarrowPlan:
+    """The f32 kernel's launch below D = 128 for B·heads = BH, N tokens on a
+    card of `sms` SMs (memoised): up to N = 16 one 16-key tile and one
+    consumer warpgroup (a 64-key tile would be three quarters zeros, a
+    second warpgroup would hold no query); up to N = 128 32-key tiles and
+    one warpgroup (twice the blocks of 128-query ones); above, 64-key tiles
+    and two warpgroups. Then as many key splits as keep the grid within one
+    block an SM (at most one a key tile, none empty). By attention_variants
+    --narrow on the H100 at B = 8: N = 100 at (32, 1) 0.0054 ms (D = 16)
+    and 0.0062 (D = 64) against 0.0067 and 0.0086 at (64, 2); N = 1024 at
+    (64, 2) 0.0298 (D = 64) against 0.0340 at (64, 1). `splits`, `key_tile`
+    and `groups` force those (the library is built at NARROW_TILINGS; its
+    entry refuses other pairs, which variants of it build)."""
+    if groups is None:
+        groups = 1 if N <= _NARROW_SHORT else 2
+    if key_tile is None:
+        key_tile = 16 if N <= 16 else 32 if N <= _NARROW_SHORT else 64
+    if key_tile not in (16, 32, 64) or groups not in (1, 2, 3):
+        raise ValueError(f"the f32 attention kernel below D = 128 takes key tiles of 16, 32 or "
+                         f"64 and 1 to 3 warpgroups, got {(key_tile, groups)}")
+    query_tiles = -(-N // (NARROW_ROWS * groups))
+    tiles = -(-N // key_tile)
+    if splits is None:
+        splits = max(1, min(tiles, sms // (query_tiles * BH)))
+        splits = -(-tiles // -(-tiles // splits))  # no split left empty
+    if not 1 <= splits <= tiles:
+        raise ValueError(f"{splits} key splits of {tiles} key tiles")
+    return NarrowPlan(key_tile, groups, splits, -(-tiles // splits), query_tiles)
+
+
+def _launch_narrow(q, k, v, out, scale: float, splits: int = None, key_tile: int = None,
+                   groups: int = None, entry=None) -> NarrowPlan:
+    """attention_f32_kernel (csrc/attention.cu) below D = 128 on (B, N,
+    heads, D) f32 views into `out`: `splits`, `key_tile` and `groups` force
+    the plan's; `entry` is another library's `attention_f32_narrow` (the
+    variants). Returns the plan it launched."""
+    B, N, H, D = q.shape
+    how = narrow_plan(B * H, N, _sm_count(q.device.index), splits, key_tile, groups)
+    opart = ml = 0
+    if how.splits > 1:  # the splits' unnormalised O, then each row's m and l
+        n = how.splits * B * H * N
+        scratch = torch.empty(n * (D + 2), device=q.device, dtype=torch.float32)
+        opart = scratch.data_ptr()
+        ml = opart + n * D * 4
+    fn = entry if entry is not None else library().attention_f32_narrow
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), opart, ml, B, N, H, D,
+             *q.stride()[:3], float(scale), how.key_tile, how.groups, how.splits, stream)
+    check(err, "attention_f32_narrow")
+    return how
+
+
 def _launch(q, k, v, scale: float, splits: int = None):
     """Run csrc/attention.cu, csrc/attention_wide.cu or
     csrc/attention_bf16.cu on CUDA tensors; raises on what they do not take.
-    `splits` forces the bf16, the D = 128 or the wide kernel's key split
-    count (tests)."""
+    `splits` forces the key split count of the kernel D and the dtype route
+    to (tests)."""
     B, N, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -325,10 +408,7 @@ def _launch(q, k, v, scale: float, splits: int = None):
         FusedAttention.last_d128_plan = _launch_d128(q, k, v, out, scale, splits)
         FusedAttention.launches += 1
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    err = library().attention_f32_narrow(*ptrs, B, N, H, D, *strides[:3], float(scale), stream)
-    check(err, "attention_f32_narrow")
+    _launch_narrow(q, k, v, out, scale, splits)
     FusedAttention.launches_narrow += 1
     return out
 
@@ -340,7 +420,7 @@ class FusedAttention(torch.autograd.Function):
     launches = 0  # D = 128 kernel launches (with its combine), counted by _launch
     last_d128_plan = None  # the D = 128 kernel's plan at its last launch, set by _launch
     launches_wide = 0  # wide kernel launches (D above 128, with its combine), by _launch
-    launches_narrow = 0  # narrow kernel launches (D below 128), counted by _launch
+    launches_narrow = 0  # launches below D = 128 (with the combine), counted by _launch
     launches_bf16 = 0  # bf16 kernel launches (any D), counted by _launch
 
     @staticmethod

@@ -17,9 +17,10 @@ tensor core) beside a plane of remainders x - trunc(x); S a chain from 0 a
 (`ops.attention.d128_plan`, `wide_plan`) and the splits combined in split
 order. Each is held against JAX's Pallas kernel (interpret mode), the port's
 plain version and f64, with its plan; a 1xTF32 emulation (big*big only) of
-the D = 128 kernel records what the split buys. The narrow kernel (D below
-128, mma.sync) is emulated at its padded head dim DP and key tile: S over all
-of DP in the accumulator, each key tile's P V from 0.
+the D = 128 kernel records what the split buys. Below D = 128 the same
+kernel runs at the head dim padded to DP = 32 ceil(D / 32) (zero columns past
+D) and the key tile of its plan (`ops.attention.narrow_plan`: 16 keys at N <=
+16, 32 up to N = 128), emulated the same way.
 """
 
 import functools
@@ -150,17 +151,19 @@ def _chain(a, b, acc=None, chain=8, terms=3):
 
 
 def _emulate_wgmma(q, k, v, scale: float, tk: int, splits: int, tiles_per_split: int,
-                   s_chain: int = PANEL, o_in_acc: bool = False, terms: int = 3):
+                   s_chain: int = PANEL, o_in_acc: bool = False, terms: int = 3,
+                   dp: int = None):
     """(N, D) q, k, v of one (batch, head): a wgmma kernel's result (f32
     values as f64) and each split's running max, at key tiles of `tk`,
     `splits` splits of `tiles_per_split` tiles. `s_chain` head dims of S a
     chain from 0 (the kernels: a panel); `o_in_acc` carries O in the
     accumulator across a split's key tiles, rescaled there, where the
     kernels start each tile's P V from 0 and add it to O in f32; `terms` 1
-    takes big·big alone (1xTF32)."""
+    takes big·big alone (1xTF32); `dp` the padded head dim (the wide
+    kernel's: an even count of panels), zero past D."""
     f32 = lambda x: x.float().double()  # noqa: E731
     n, width = q.shape
-    d = -(-width // (2 * PANEL)) * 2 * PANEL  # the even count of panels, zero past D
+    d = dp or -(-width // (2 * PANEL)) * 2 * PANEL
     keys = -(-n // tk) * tk
     zq = torch.nn.functional.pad(q.double(), (0, d - width))
     zk = torch.nn.functional.pad(k.double(), (0, d - width, 0, keys - n))
@@ -210,6 +213,18 @@ def emulate_d128(q, k, v, scale: float, splits: int = None, s_chain: int = PANEL
     how = A.d128_plan(1, q.shape[0], 132, splits)
     return _emulate_wgmma(q, k, v, scale, A.D128_KEY_TILE, how.splits, how.tiles_per_split,
                           s_chain, o_in_acc, terms)
+
+
+def emulate_narrow(q, k, v, scale: float, splits: int = None, key_tile: int = None,
+                   groups: int = None):
+    """(N, D) q, k, v of one (batch, head), D below 128: the kernel's result
+    and each split's running max at D padded to DP = 32 ceil(D / 32), by
+    `narrow_plan` at B·heads 1 on 132 SMs (`splits`, `key_tile`, `groups`
+    forced as there; the warpgroups change no sum)."""
+    n, d = q.shape
+    how = A.narrow_plan(1, n, 132, splits, key_tile, groups)
+    return _emulate_wgmma(q, k, v, scale, how.key_tile, how.splits, how.tiles_per_split,
+                          dp=-(-d // PANEL) * PANEL)
 
 
 def emulate_wide(q, k, v, scale: float, splits: int = None, slices: int = None,
@@ -495,83 +510,109 @@ def test_wide_plan_forced_counts():
         A.wide_plan(1, 256, 512, 132, key_tile=8)
 
 
-def _mma3(a, b, acc):
-    """acc + a @ b in k-steps of 8, each step three MMAs in mma_3xtf32's
-    order (small·big, big·small, big·big), the accumulator rounded toward
-    zero after each (f64 values, f32 operands)."""
-    for k0 in range(0, a.shape[1], 8):
-        ab, as_ = split(a[:, k0:k0 + 8].float())
-        bb, bs = split(b[k0:k0 + 8].float())
-        for x, y in ((as_, bb), (ab, bs), (ab, bb)):
-            acc = _round_toward_zero(acc + x.double() @ y.double())
-    return acc
+# Below D = 128: D = 4, 12, 16, 20 (DP = 32, up to 28 zero columns), 64, 100
+# and 124 (DP = 128) at N = 16 (one 16-key tile), 40 (two 32-key tiles, the
+# last of 8 keys, one split each) and 100 (four 32-key tiles in four splits,
+# the last of 4 keys); scores x1 and x8
+NARROW_EMULATION_CASES = [(d, n, gain) for d in (4, 12, 16, 20, 64, 100, 124)
+                          for n in (16, 40, 100) for gain in (1, 8)]
 
 
-# The narrow kernel (attention_tf32x3_narrow_kernel<DP>, D below 128): the
-# padded head dim DP and the keys a tile, as NarrowTile in csrc/attention.cu
-def narrow_dp(D: int) -> int:
-    return 128 if D > 96 else 16 * -(-D // 16)
-
-
-def narrow_tile(DP: int) -> int:
-    return 64 if DP <= 64 else 32
-
-
-def emulate_narrow(q, k, v, scale: float):
-    """(N, D) q, k, v of one (batch, head): the narrow kernel's tile loop at
-    its padded head dim DP, columns D ... DP − 1 zeros. S is summed over all
-    of DP in the accumulator (rounding toward zero after every MMA); each
-    tile's P V from 0 in the accumulator, then added to O in f32; keys past N
-    are zeros, their scores -inf; O's columns past D are dropped."""
-    f32 = lambda x: x.float().double()  # noqa: E731
-    n, d = q.shape
-    dp = narrow_dp(d)
-    tile = narrow_tile(dp)
-    pad = -n % tile
-    q = torch.nn.functional.pad(q.double(), (0, dp - d))
-    k = torch.nn.functional.pad(k.double(), (0, dp - d, 0, pad))
-    v = torch.nn.functional.pad(v.double(), (0, dp - d, 0, pad))
-    c2 = scale * LOG2E
-    o = torch.zeros(n, dp, dtype=torch.float64)
-    m = torch.full((n, 1), -torch.inf, dtype=torch.float64)
-    l = torch.zeros(n, 1, dtype=torch.float64)
-    for k0 in range(0, n, tile):
-        kt, vt = k[k0:k0 + tile], v[k0:k0 + tile]
-        s = f32(_mma3(q, kt.T, torch.zeros(n, tile, dtype=torch.float64)) * c2)
-        s[:, n - k0:] = -torch.inf  # keys past N take no weight
-        m_new = torch.maximum(m, s.max(dim=1, keepdim=True).values)
-        corr = f32(torch.exp2(m - m_new))
-        p = f32(torch.exp2(s - m_new))
-        l = f32(l * corr + p.sum(dim=1, keepdim=True))
-        o = f32(f32(o * corr) + _mma3(p, vt, torch.zeros_like(o)))
-        m = m_new
-    return (o / l)[:, :d].float()
-
-
-# D = 12 and 16 at DP = 16, 64 at 64 (64-key tiles), 100 at 128 (32-key
-# tiles); N = 40 and 100 leave the last tile part empty at either tile size
-@pytest.mark.parametrize("score_gain", [1, 8])
-@pytest.mark.parametrize("N", [40, 100])
-@pytest.mark.parametrize("D", [12, 16, 64, 100])
-def test_narrow_kernel_emulation_matches_references(D, N, score_gain):
-    rng = np.random.default_rng(7)
+@functools.lru_cache(maxsize=None)
+def _jax_reference(N: int, D: int, gain: float):
+    """JAX's attention_reference on _wide_case's inputs."""
+    rng = np.random.default_rng(N * 13 + D)
     q, k, v = (rng.normal(size=(1, N, 1, D)).astype(np.float32) for _ in range(3))
-    scale = score_gain / np.sqrt(D)
-    want_jax = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale))
-    want = attention_reference(*map(torch.from_numpy, (q, k, v)), scale).numpy()
-    tq, tk, tv = (torch.from_numpy(a[0, :, 0]) for a in (q, k, v))
-    exact = (torch.softmax(tq.double() @ tk.double().T * scale, dim=1) @ tv.double()).numpy()
-    got = emulate_narrow(tq, tk, tv, scale).numpy()
-    tol = 1e-4 * (1 + np.abs(want).max())
-    err_jax = np.abs(got - want_jax[0, :, 0]).max()
-    err_port = np.abs(got - want[0, :, 0]).max()
-    err_exact = np.abs(got - exact).max()
-    print(f"D={D} (DP={narrow_dp(D)}) N={N} score gain {score_gain}: against JAX {err_jax:.3g}, "
-          f"the port's reference {err_port:.3g}, f64 {err_exact:.3g}")
-    assert got.shape == (N, D)
-    assert err_jax <= tol
-    assert err_port <= tol
-    # S's up to 48 chained MMAs (DP = 128) in an accumulator that rounds toward
-    # zero err up to about twice the wide kernel's 16-term steps; scores x8
-    # carry 8x the absolute score error into exp
-    assert err_exact <= 3e-6 * score_gain
+    return np.asarray(jax_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                    gain / np.sqrt(D)))[0, :, 0]
+
+
+@pytest.mark.parametrize("D,N,score_gain", NARROW_EMULATION_CASES,
+                         ids=[f"D{d}-N{n}-gain{g}" for d, n, g in NARROW_EMULATION_CASES])
+def test_narrow_kernel_emulation_matches_references(D, N, score_gain):
+    (tq, tk, tv), scale, pallas, plain, exact = _wide_case(N, D, score_gain)
+    got, ms = emulate_narrow(tq, tk, tv, scale)
+    got = got.double().numpy()
+    tol = 1e-4 * (1 + np.abs(plain).max())
+    err = dict(jax=np.abs(got - _jax_reference(N, D, score_gain)).max(),
+               pallas=np.abs(got - pallas).max(), port=np.abs(got - plain).max(),
+               f64=np.abs(got - exact).max())
+    how = A.narrow_plan(1, N, 132)
+    print(f"D={D} (DP={-(-D // PANEL) * PANEL}) N={N} key tile {how.key_tile}, splits {len(ms)}, "
+          f"score gain {score_gain}: against JAX's reference {err['jax']:.3g}, its Pallas kernel "
+          f"{err['pallas']:.3g}, the port's reference {err['port']:.3g}, f64 {err['f64']:.3g} "
+          f"(the plain version {np.abs(plain - exact).max():.3g})")
+    assert got.shape == (N, D) and np.isfinite(got).all()
+    assert err["jax"] <= tol
+    assert err["pallas"] <= tol
+    assert err["port"] <= tol
+    # the chip check's bound at scores of unit scale; scores x8 carry 8x the
+    # absolute score error into exp
+    assert err["f64"] <= 2e-6 * score_gain
+
+
+def test_narrow_kernel_split_with_no_key_adds_nothing():
+    """Six splits of N = 100 at 16-key tiles (7 tiles, two a split) leave
+    the last two with no key: their m stays -inf, the combine gives them
+    weight 0, and the result equals the four-split one bit for bit."""
+    (tq, tk, tv), scale, _, _, _ = _wide_case(100, 20, 1)
+    assert A.narrow_plan(1, 100, 132, 6, 16, 1).tiles_per_split == 2
+    assert A.narrow_plan(1, 100, 132, 4, 16, 1).tiles_per_split == 2
+    six, ms = emulate_narrow(tq, tk, tv, scale, 6, 16, 1)
+    four, _ = emulate_narrow(tq, tk, tv, scale, 4, 16, 1)
+    assert all(torch.isinf(m).all() and (m < 0).all() for m in ms[4:])
+    assert torch.isfinite(six).all()
+    assert torch.equal(six, four)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("BH,N", [(8, 16), (8, 100), (8, 1024), (8, 4096), (1, 1), (3, 17),
+                                  (16, 128), (2, 129), (1, 4095), (40, 64)])
+def test_narrow_plan_walks_every_key_tile_once(sms, BH, N):
+    """16-key tiles and one warpgroup up to N = 16, 32-key tiles and one
+    warpgroup up to 128, 64-key tiles and two above; every key tile in
+    exactly one split, none empty; more than one split only where the grid
+    stays within one block an SM, and as many as keep it there."""
+    how = A.narrow_plan(BH, N, sms)
+    assert (how.key_tile, how.groups) == ((16, 1) if N <= 16 else (32, 1) if N <= 128
+                                          else (64, 2))
+    assert (how.key_tile, how.groups) in A.NARROW_TILINGS
+    assert how.query_tiles == -(-N // (A.NARROW_ROWS * how.groups))
+    tiles = -(-N // how.key_tile)
+    walked = [t for s in range(how.splits)
+              for t in range(s * how.tiles_per_split, min((s + 1) * how.tiles_per_split, tiles))]
+    assert walked == list(range(tiles))
+    assert (how.splits - 1) * how.tiles_per_split < tiles  # the last split holds a key
+    if how.splits > 1:
+        assert how.blocks * BH <= sms
+    fit = min(tiles, max(1, sms // (how.query_tiles * BH)))
+    assert how.splits == -(-tiles // -(-tiles // fit))
+
+
+def test_narrow_plan_at_the_served_shapes():
+    """On 132 SMs: the inner-8 path's mid block (B = 8, N = 16) one block a
+    (batch, head); kernels/attention_variants.py's NARROW_SHAPES: N = 100 four
+    splits of one 32-key tile (64 blocks, the mma.sync kernel had 16), N =
+    1024 two splits of 8 64-key tiles (128 blocks), N = 4096 one split (256
+    blocks, two waves)."""
+    assert A.narrow_plan(8, 16, 132) == A.NarrowPlan(16, 1, 1, 1, 1)
+    assert A.narrow_plan(8, 100, 132) == A.NarrowPlan(32, 1, 4, 1, 2)
+    assert A.narrow_plan(8, 1024, 132) == A.NarrowPlan(64, 2, 2, 8, 8)
+    assert A.narrow_plan(8, 4096, 132) == A.NarrowPlan(64, 2, 1, 64, 32)
+    assert A.narrow_plan(8, 1024, 132).blocks * 8 == 128
+
+
+def test_narrow_plan_forced_counts():
+    """Forced tilings and counts, one that leaves the last split with no
+    key; counts of 0 or more than one split a key tile, and tilings the
+    kernel has no form for, are refused."""
+    how = A.narrow_plan(1, 256, 132, splits=3, key_tile=64, groups=2)
+    assert (how.splits, how.tiles_per_split, how.query_tiles) == (3, 2, 2)
+    assert (how.splits - 1) * how.tiles_per_split >= 4  # the last split: no key
+    assert A.narrow_plan(8, 100, 132, key_tile=16, groups=1) == A.NarrowPlan(16, 1, 7, 1, 2)
+    for bad in (dict(splits=0), dict(splits=5, key_tile=64, groups=2)):
+        with pytest.raises(ValueError, match="splits"):
+            A.narrow_plan(1, 256, 132, **bad)
+    for bad in (dict(key_tile=8), dict(groups=4)):
+        with pytest.raises(ValueError, match="key tiles"):
+            A.narrow_plan(1, 256, 132, **bad)

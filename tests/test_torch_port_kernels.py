@@ -11,6 +11,11 @@ import math
 import pytest
 import torch
 
+from diffsplitting_tpu_torch.kernels.attention_variants import (
+    D128_DIGEST_INPUTS,
+    D128_DIGESTS,
+    d128_digest,
+)
 from diffsplitting_tpu_torch.models import UNet, fused_unet_forward
 from diffsplitting_tpu_torch.models import blocks
 from diffsplitting_tpu_torch.ops import (
@@ -143,9 +148,9 @@ def test_attention_kernel_reads_nothing_past_d(cuda, D, width):
     assert (got - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
 
 
-# head dims that are not multiples of 128: the narrow kernel below 128 at
-# every padded width DP (16: D = 4, 12, 16; 32: 20, 28; 48: 44; 64; 80: 68;
-# 96; 128: 100, 124), with the zero-filled columns D ... DP - 1, and the wide
+# head dims that are not multiples of 128: the kernel below 128 at every
+# padded width DP (32: D = 4, 12, 16, 20, 28; 64: 44, 64; 96: 68, 96; 128:
+# 100, 124), with the zero-filled columns D ... DP - 1, and the wide
 # kernel's padded last slice above 128 (132 ... 252 at two slices, 320, 500,
 # 900 and 1020); masked N (100 leaves 28 keys of a 64-key tile empty, 1023 one
 # key of the last 16-key tile, 4095 one query row and one key), 1-2 heads,
@@ -296,6 +301,57 @@ def test_attention_d128_kernel_forced_plan(cuda, B, N, heads, splits):
 @pytest.mark.parametrize("B,N", [(1, 4096), (2, 4096), (8, 16), (2, 100)])
 def test_attention_d128_graph_replay_equals_eager(cuda, B, N):
     _graph_replay_equals_eager(cuda, B, N, 128)
+
+
+# the D = 128 instance against PR 22's kernel: the sha256 of its result at
+# seeded inputs, as PR 22's kernel gave it on the H100
+@pytest.mark.parametrize("B,N,splits,seed", D128_DIGEST_INPUTS)
+def test_attention_d128_gives_pr22_bits(cuda, B, N, splits, seed):
+    """The D = 128 instance of the template keeps PR 22's order of sums and
+    so its bits."""
+    out, digest = d128_digest(B, N, splits, seed)
+    assert torch.isfinite(out).all()
+    assert digest == D128_DIGESTS[(B, N, splits, seed)]
+
+
+# the f32 kernel below D = 128 with its plan forced: each (key tile,
+# warpgroups) pair it is built at, key splits that leave the last split with
+# no key (N = 256 at 64-key tiles: 4 tiles, 3 splits of 2; N = 100 at 16-key
+# tiles: 7 tiles, 3 splits of 3), every tile its own split, N below one tile,
+# two heads, each padded width (DP = 32, 64, 96, 128), scores x8
+NARROW_FORCED_CASES = [(1, 256, 1, 64, 3, 64, 2), (2, 100, 1, 20, 3, 16, 1),
+                       (1, 100, 2, 96, 2, 64, 1), (1, 1024, 1, 124, 16, 64, 2),
+                       (3, 9, 2, 36, 1, 64, 2), (1, 40, 1, 4, 3, 16, 1),
+                       (2, 300, 1, 76, 1, 16, 1), (1, 4096, 1, 64, 4, 64, 2),
+                       (2, 64, 1, 32, 1, 64, 1), (1, 17, 1, 124, 2, 16, 1)]
+
+
+@pytest.mark.parametrize("B,N,heads,D,splits,key_tile,groups", NARROW_FORCED_CASES)
+def test_attention_narrow_kernel_forced_plan(cuda, B, N, heads, D, splits, key_tile, groups):
+    from diffsplitting_tpu_torch.ops.attention import _launch_narrow, narrow_plan
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    how = narrow_plan(B * heads, N, sms, splits, key_tile, groups)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    qkv = torch.randn(B, N, heads, 3, D, device=cuda, generator=g)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    scale = 8 / math.sqrt(D * heads)
+    got, again = (torch.empty(B, N, heads, D, device=cuda) for _ in range(2))
+    assert _launch_narrow(q, k, v, got, scale, splits, key_tile, groups) == how
+    _launch_narrow(q, k, v, again, scale, splits, key_tile, groups)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    want = attention_reference(q, k, v, scale)
+    assert (got - want).abs().max().item() <= 1e-4 * (1 + want.abs().max().item())
+
+
+# a CUDA-graph replay gives the eager launch's bits below D = 128: the plan's
+# splits with their combine (N = 100, 1024), one split (N = 16, 4096)
+@pytest.mark.parametrize("B,N,D", [(8, 16, 64), (8, 100, 16), (8, 1024, 64), (2, 4096, 64),
+                                   (1, 100, 100)])
+def test_attention_narrow_graph_replay_equals_eager(cuda, B, N, D):
+    _graph_replay_equals_eager(cuda, B, N, D)
 
 
 def _graph_replay_equals_eager(cuda, B, N, D):
